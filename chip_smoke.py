@@ -6,18 +6,28 @@
 Phases (any failure exits non-zero; nothing falls back to the CPU):
  1. device: CUDA required; card name and power limit; build every kernel
     from neumesh_tpu_torch/csrc (nvcc, all sources in parallel), timed.
- 2. the slice at full width: the 163,842-vertex icosphere NeuMesh (W=256,
-    D_density=3, D_color=4, dims 32/32, multires 8/2/2/4, nablas input)
-    with parameters from a numpy seed, written as a reference-format .pt
-    and .ply and loaded back; the root-anchored bf16 serving structure on
-    65,536 rays and the reference f32 structure on 16,384 rays; launch
-    counters read around each render.
- 3. every kernel mode against its plain PyTorch version on the card, on
-    the inputs the serving render gave it (f32 and bf16 variants), and
-    field_fused density and full on the reference structure's f32 inputs;
-    kernel and plain times at the serving shapes, the roofline bound.
- 4. a 64x64 crop rendered through the kernels and through the plain
-    versions; PSNR between them. Render throughput and peak memory.
+ 2. the port's paths at full width: the 163,842-vertex icosphere NeuMesh
+    (W=256, D_density=3, D_color=4, dims 32/32, multires 8/2/2/4) with
+    parameters from a numpy seed, written as a reference-format .pt and
+    .ply and loaded back, rendered in eight structures (STRUCTURES): the
+    root-anchored bf16 volume serving structure and the reference f32
+    volume structure; the surface render at the bf16 serving knobs
+    (composed scan + fused secant, in f32 too, with the fused
+    surface_locate, with the micro-composite shade); a model without
+    nablas input in the surface and the volume serving structures. Each
+    structure is rendered once with the launch counters set to 0 just
+    before and read just after; every kernel mode it must run is asserted
+    to have launched.
+ 3. every kernel mode against its plain PyTorch version on the card: every
+    call each structure's render makes, as it made it, and more variants
+    (f32, bf16, bf16 with selective-f32 layers) on the volume serving
+    structure's inputs; candidate_field (v2, on no path) at R=4096, S=64,
+    C=96 built from the no-nablas volume's contexts; kernel and plain
+    times, roofline bound.
+ 4. 64x64 crops of every structure rendered through the kernels and
+    through the plain versions, PSNR of rgb (and of the surface normals)
+    between them; frame time, Mrays/s, peak memory and traced idle share
+    of every structure.
 Prints the card line, one {"kernels": [...]} line, and last
 {"ok": true, "device": {...}}.
 """
@@ -41,17 +51,25 @@ H100_BYTES = 3.35e12            # HBM3
 TOL = {"f32": dict(atol=2e-5, rtol=1e-4, frac=0.99),
        "f32_nabla": dict(atol=1e-4, rtol=1e-4, frac=0.99),
        "bf16": dict(atol=2e-3, rtol=0.0, frac=0.97)}
+# surface_locate: share of rays whose mask bits agree with the plain version
+LOCATE_MASK_AGREE = {"bf16": 0.999, "f32": 1.0}
 
+KERNELS = ("field_fused", "secant_refine", "surface_locate",
+           "candidate_field_v3", "candidate_field")
 SOURCES = {
     "field_fused": ("neumesh_tpu_torch/csrc/field_fused.cu",
                     "neumesh_tpu/ops/pallas_kernels.py:645"),
     "secant_refine": ("neumesh_tpu_torch/csrc/secant_refine.cu",
                       "neumesh_tpu/ops/pallas_kernels.py:1128"),
+    "surface_locate": ("neumesh_tpu_torch/csrc/surface_locate.cu",
+                       "neumesh_tpu/ops/pallas_kernels.py:952"),
+    "candidate_field_v3": ("neumesh_tpu_torch/csrc/candidate_field.cu",
+                           "neumesh_tpu/ops/pallas_kernels.py:203"),
+    "candidate_field": ("neumesh_tpu_torch/csrc/candidate_field.cu",
+                        "neumesh_tpu/ops/pallas_kernels.py:60"),
 }
-ON_PATH = {("field_fused", "distance"), ("field_fused", "density"),
-           ("field_fused", "full"), ("secant_refine", "rebracket")}
 
-# root-anchored serving structure (the JAX bench's VOL settings)
+# root-anchored volume serving structure (the JAX bench's VOL settings)
 VOL_MODEL = dict(tile_kp_per_probe=12, tile_cell_budget=64, scan_knn_k=1)
 VOL_RENDER = dict(root_anchored=True, root_n_fine=8, root_steps=16,
                   root_secant=3, root_win_frac=0.25, color_topk=4,
@@ -62,10 +80,63 @@ VOL_RENDER = dict(root_anchored=True, root_n_fine=8, root_steps=16,
 REF_RENDER = dict(ray_tile=128, tile_max_candidates=128, N_samples=64,
                   N_importance=64, N_upsample_iters=4,
                   reuse_upsample_sdf=True)
+# surface serving knobs (the JAX bench's SERVING, TPU-only knobs dropped)
+SURF_MODEL = dict(tile_kp_per_probe=8, f32_layers=("d0", "dh", "c0", "ch"),
+                  secant_full_precision=False, scan_knn_k=1,
+                  tile_cell_budget=64)
+SURF_RENDER = dict(ray_tile=128, scan_mode="distance",
+                   tile_max_candidates=128, N_steps=16, N_secant_steps=3)
+SHADE = dict(shade_composite=8, shade_topk=4, shade_win_frac=0.25)
 FLAGSHIP = dict(D_density=3, D_color=4, W=256, geometry_dim=32,
                 color_dim=32, multires_view=4, multires_d=8, multires_fg=2,
                 multires_ft=2, enable_nablas_input=True,
                 learn_indicator_weight=True, speed_factor=10.0)
+
+# model: (serving knobs, bf16?, other knobs)
+MODELS = {
+    "vol_bf16": (VOL_MODEL, True, {}),
+    "vol_f32": (VOL_MODEL, False, {}),
+    "surf_bf16": (SURF_MODEL, True, {}),
+    "surf_f32": (SURF_MODEL, False, {}),
+    "surf_locate": (SURF_MODEL, True, dict(use_fused_locate=True)),
+    "nonablas_surf": (SURF_MODEL, True, dict(enable_nablas_input=False)),
+    "nonablas_vol": (VOL_MODEL, True, dict(enable_nablas_input=False)),
+}
+FF, SR = "field_fused", "secant_refine"
+_SURF_MODES = {(FF, "distance"), (SR, "rebracket"), (FF, "full")}
+# structure: (model, renderer, frame side, render kwargs, kernel modes it
+# must launch, timing reps)
+STRUCTURES = {
+    "serving_bf16": ("vol_bf16", "volume", 256, VOL_RENDER,
+                     {(FF, "distance"), (FF, "density"), (FF, "full"),
+                      (SR, "rebracket")}, 5),
+    "reference_f32": ("vol_f32", "volume", 128, REF_RENDER,
+                      {(FF, "density"), (FF, "full")}, 3),
+    "surface_fast": ("surf_bf16", "surface", 256, SURF_RENDER, _SURF_MODES,
+                     5),
+    "surface_f32": ("surf_f32", "surface", 128, SURF_RENDER, _SURF_MODES, 5),
+    "surface_locate": ("surf_locate", "surface", 256, SURF_RENDER,
+                       {("surface_locate", "bf16"), (FF, "full")}, 5),
+    "surface_shade": ("surf_bf16", "surface", 256, dict(SURF_RENDER, **SHADE),
+                      {(FF, "density"), (FF, "full"), (FF, "density_nabla")},
+                      5),
+    "nonablas_surface": ("nonablas_surf", "surface", 256, SURF_RENDER,
+                         {("candidate_field_v3", "ds_feat"),
+                          (FF, "density_nabla")}, 5),
+    "nonablas_volume": ("nonablas_vol", "volume", 256, VOL_RENDER,
+                        {("candidate_field_v3", "ds_feat")}, 5),
+}
+# crops through the plain versions: least PSNR of rgb (and of the surface
+# normals, peak-to-peak 2) kernel vs plain, by the structure's model dtype
+CROP_PSNR = {"bf16": 30.0, "f32": 55.0}
+# the structure whose per-frame count a kernel's `launches` reports: the
+# volume serving structure for the kernels of the first slice (as that
+# slice printed it), the structure that brought each later kernel onto a
+# path; candidate_field (v2) is on none
+LAUNCHES_OF = {"field_fused": "serving_bf16", "secant_refine": "serving_bf16",
+               "surface_locate": "surface_locate",
+               "candidate_field_v3": "nonablas_surface",
+               "candidate_field": None}
 
 
 def log(*a):
@@ -110,42 +181,49 @@ def compare(got, want, tol):
     return err_max, share
 
 
+def mode_of(name, kw):
+    """The launch-counter mode of a kernel call."""
+    from neumesh_tpu_torch.ops import kernels
+    if name == "field_fused":
+        return kw.get("want", "density")
+    if name == "secant_refine":
+        return kernels.secant_mode(kw.get("d_low_w") is not None,
+                                   kw.get("frozen_knn", False))
+    if name == "surface_locate":
+        return "f32" if kw.get("dtype") is None else "bf16"
+    return kernels.candidate_mode(kw.get("want_dh", True),
+                                  kw.get("want_feat", True))
+
+
 @contextlib.contextmanager
+def swap_kernels(make):
+    """Replace every kernel wrapper by make(name, wrapper) for the block."""
+    from neumesh_tpu_torch.ops import kernels
+    saved = {n: getattr(kernels, n) for n in KERNELS}
+    for n in KERNELS:
+        setattr(kernels, n, make(n, saved[n]))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(kernels, n, f)
+
+
 def plain_on_card():
     """Route the model's kernel calls to the plain versions (the crop
     reference); the main path never does this."""
     from neumesh_tpu_torch.ops import kernels
-    saved = kernels.field_fused, kernels.secant_refine
-    kernels.field_fused = kernels.field_fused_plain
-    kernels.secant_refine = kernels.secant_refine_plain
-    try:
-        yield
-    finally:
-        kernels.field_fused, kernels.secant_refine = saved
+    return swap_kernels(lambda n, f: getattr(kernels, n + "_plain"))
 
 
-@contextlib.contextmanager
 def record_inputs(store):
     """Keep the first call's arguments of every kernel mode."""
-    from neumesh_tpu_torch.ops import kernels
-    saved = kernels.field_fused, kernels.secant_refine
-
-    def ff(*a, **kw):
-        store.setdefault(("field_fused", kw.get("want", "density")),
-                         (a, dict(kw)))
-        return saved[0](*a, **kw)
-
-    def sr(*a, **kw):
-        mode = kernels.secant_mode(kw.get("d_low_w") is not None,
-                                   kw.get("frozen_knn", False))
-        store.setdefault(("secant_refine", mode), (a, dict(kw)))
-        return saved[1](*a, **kw)
-
-    kernels.field_fused, kernels.secant_refine = ff, sr
-    try:
-        yield
-    finally:
-        kernels.field_fused, kernels.secant_refine = saved
+    def make(name, fn):
+        def rec(*a, **kw):
+            store.setdefault((name, mode_of(name, kw)), (a, dict(kw)))
+            return fn(*a, **kw)
+        return rec
+    return swap_kernels(make)
 
 
 # ---------------------------------------------------------------------------
@@ -220,11 +298,58 @@ def secant_bound(args, kw):
     return _bound(bf, f32, nbytes)
 
 
+def locate_bound(args, kw):
+    """n_steps distance evaluations and 2 + n_secant density evaluations
+    per ray."""
+    rays_o, geo, feat, dens_ws = args[0], args[4], args[5], args[7]
+    R = rays_o.shape[0]
+    C, F = geo.shape[2], feat.shape[-1]
+    k = kw.get("k", 8)
+    interp = C * (10 + k) + 30 * k
+    n_dens = 2 + kw.get("n_secant", 6)
+    b1, f1 = _mlp_flops(dens_ws)
+    f32 = R * (kw.get("n_steps", 24) * interp
+               + n_dens * (interp + 2 * k * F + f1))
+    bf = R * n_dens * b1
+    # rays_o, rays_d, near, far in; four planes out
+    nbytes = _nbytes([geo, feat, *dens_ws]) + R * 4 * (3 + 3 + 2 + 4)
+    return _bound(bf, f32, nbytes)
+
+
+def candidate_bound(name, args, kw):
+    """Selection and interpolation over the context's C candidates, plus
+    2 k F for the feature blend."""
+    xyz = args[0]
+    n = float(xyz.shape[0] * xyz.shape[1])
+    k = kw.get("k", 8)
+    want_dh, want_feat = kw.get("want_dh", True), kw.get("want_feat", True)
+    if name == "candidate_field_v3":
+        C, ins, feat = args[1].shape[2], [xyz, args[1]], args[2]
+    else:
+        C, ins, feat = args[1].shape[1], list(args[:5]), args[5]
+    F = feat.shape[-1] if want_feat else 0
+    f32 = n * (C * (10 + k) + 30 * k + 2 * k * F)
+    if want_feat:
+        ins.append(feat)
+    nbytes = _nbytes(ins) + n * 4 * ((4 if want_dh else 1) + F)
+    return _bound(0.0, f32, nbytes)
+
+
 def _bound(bf, f32, nbytes):
     t_ops = (bf / H100_BF16_FLOPS + f32 / H100_F32_FLOPS) * 1e3
     t_bytes = nbytes / H100_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kernel_bound(name, args, kw):
+    if name == "field_fused":
+        return field_bound(args, kw)
+    if name == "secant_refine":
+        return secant_bound(args, kw)
+    if name == "surface_locate":
+        return locate_bound(args, kw)
+    return candidate_bound(name, args, kw)
 
 
 # ---------------------------------------------------------------------------
@@ -254,54 +379,150 @@ def fold_weights(model, dtype, f32_layers=()):
         model.compute_dtype, model.f32_layers = saved
 
 
-def kernel_variants(rec, model, rec_ref):
-    """[(kernel, mode, variant, call_args, call_kw, tol)] built from the
-    recorded serving inputs (each mode in f32 and bf16, and bf16 with
-    selective-f32 layers once) and from the reference structure's recorded
-    f32 inputs (variant ref_f32)."""
+def tol_key(name, kw):
+    """The TOL entry a kernel call is held to: bf16 where it runs a bf16
+    compute dtype, else f32 (the distance and candidate_field kernels run
+    no MLP)."""
+    if name.startswith("candidate_field") or kw.get("dtype") is None \
+            or kw.get("want") == "distance":
+        return "f32"
+    return "bf16"
+
+
+def v2_inputs(v3_call, rays_per_tile=8, n_cand=96):
+    """candidate_field (v2) arguments in its per-ray layout from a recorded
+    candidate_field_v3 call: each tile's samples split over rays_per_tile
+    rays, each ray taking the tile's n_cand nearest-ranked candidates."""
+    xyz, geo, feat, w1 = v3_call[0][:4]
+    B, S, _ = xyz.shape
+    C = min(n_cand, geo.shape[2])
+    g = geo[:, :, :C].repeat_interleave(rays_per_tile, 0)
+    return (xyz.reshape(B * rays_per_tile, S // rays_per_tile, 3).contiguous(),
+            g[:, 0:3].transpose(1, 2).contiguous(), g[:, 6].contiguous(),
+            g[:, 3:6].transpose(1, 2).contiguous(), g[:, 7].contiguous(),
+            feat[:, :C].repeat_interleave(rays_per_tile, 0).contiguous(), w1)
+
+
+def kernel_variants(rec, models):
+    """([(kernel, mode, variant, call_args, call_kw, tol key)],
+    {(kernel, mode): (variant, args, kw) it is timed at}):
+     - every call each structure's render recorded, as it was made
+       (variant: the structure);
+     - field_fused and secant_refine in every mode on the volume serving
+       structure's inputs with its model's weights folded in f32, in bf16
+       and (field_fused) in bf16 with selective-f32 layers;
+     - candidate_field_v3 in every mode on the no-nablas surface (S = 128)
+       and volume (S = 512) inputs; candidate_field (v2) on v2_inputs;
+     - surface_locate with its model's f32 weights."""
     import torch
     from neumesh_tpu_torch.ops import kernels
-    out = []
-    f32w = fold_weights(model, None)
-    bfw = fold_weights(model, torch.bfloat16)
-    sel = fold_weights(model, torch.bfloat16, ("d0", "dh", "c0", "ch"))
-    a, kw = rec[("field_fused", "distance")]
-    for k in (1, 8):
-        out.append(("field_fused", "distance", f"k{k}", a,
-                    dict(kw, k=k), TOL["f32"]))
-    a_d, kw_d = rec[("field_fused", "density")]
-    a_f, kw_f = rec[("field_fused", "full")]
-    for mode, (a0, kw0) in (("density", (a_d, kw_d)),
-                            ("density_nabla", (a_d, kw_d)),
-                            ("full", (a_f, kw_f))):
-        xyz, geo, feat = a0[0], a0[1], a0[2]
+    bf16 = torch.bfloat16
+    out, timed = [], {}
+    for st, calls in rec.items():
+        for (name, mode), (a, kw) in calls.items():
+            out.append((name, mode, st, a, kw, tol_key(name, kw)))
+    srv = rec["serving_bf16"]
+    vol = models["vol_bf16"]
+    f32w, bfw = fold_weights(vol, None), fold_weights(vol, bf16)
+    sel = fold_weights(vol, bf16, ("d0", "dh", "c0", "ch"))
+    a, kw = srv[(FF, "distance")]
+    timed[(FF, "distance")] = ("serving_bf16", a, kw)
+    out.append((FF, "distance", "serving_bf16:k8", a, dict(kw, k=8), "f32"))
+    a_d, kw_d = srv[(FF, "density")]
+    for mode in ("density", "density_nabla", "full"):
+        a0, kw0 = srv.get((FF, mode), (a_d, kw_d))
         dirs = a0[6] if len(a0) > 6 else None
-        for var, (dws, cws), dt in (("f32", f32w, None),
-                                    ("bf16", bfw, torch.bfloat16),
-                                    ("bf16_sel_f32", sel, torch.bfloat16)):
-            if var == "bf16_sel_f32" and mode == "density_nabla":
-                continue
-            args = (xyz, geo, feat, a0[3], dws,
+        for var, (dws, cws), dt in (("f32", f32w, None), ("bf16", bfw, bf16),
+                                    ("bf16_sel_f32", sel, bf16)):
+            args = (a0[0], a0[1], a0[2], a0[3], dws,
                     cws if mode == "full" else None, dirs)
-            tol = (TOL["bf16"] if dt is not None else TOL["f32"])
-            out.append(("field_fused", mode, var, args,
-                        dict(kw0, want=mode, dtype=dt), tol))
-    a_s, kw_s = rec[("secant_refine", "rebracket")]
+            out.append((FF, mode, f"serving_bf16:{var}", args,
+                        dict(kw0, want=mode, dtype=dt),
+                        "f32" if dt is None else "bf16"))
+        timed[(FF, mode)] = (("serving_bf16", a0, kw0) if (FF, mode) in srv
+                             else ("serving_bf16:bf16", a0,
+                                   dict(kw0, want=mode)))
+    a_s, kw_s = srv[(SR, "rebracket")]
     for rb in (True, False):
         for fr in (False, True):
-            for var, (dws, _), dt in (("bf16", bfw, torch.bfloat16),
+            mode = kernels.secant_mode(rb, fr)
+            kw = dict(kw_s, frozen_knn=fr)
+            if not rb:
+                kw.update(d_low_w=None, d_high_w=None)
+            for var, (dws, _), dt in (("bf16", bfw, bf16),
                                       ("f32", f32w, None)):
-                kw = dict(kw_s, frozen_knn=fr, dtype=dt)
-                if not rb:
-                    kw.update(d_low_w=None, d_high_w=None)
-                mode = kernels.secant_mode(rb, fr)
-                args = a_s[:9] + (dws,)
-                out.append(("secant_refine", mode, var, args, kw,
-                            TOL["bf16"] if dt is not None else TOL["f32"]))
-    for mode in ("density", "full"):
-        a, kw = rec_ref[("field_fused", mode)]
-        out.append(("field_fused", mode, "ref_f32", a, kw, TOL["f32"]))
-    return out
+                out.append((SR, mode, f"serving_bf16:{var}",
+                            a_s[:9] + (dws,), dict(kw, dtype=dt),
+                            "f32" if dt is None else "bf16"))
+            timed[(SR, mode)] = (("serving_bf16" if mode == "rebracket"
+                                  else "serving_bf16:bf16"), a_s, kw)
+    v3 = "candidate_field_v3"
+    flags = [(dh, ft) for dh in (False, True) for ft in (True, False)]
+    for st in ("nonablas_surface", "nonablas_volume"):
+        a, kw0 = rec[st][(v3, "ds_feat")]
+        for dh, ft in flags:
+            mode = kernels.candidate_mode(dh, ft)
+            kw = dict(kw0, want_dh=dh, want_feat=ft)
+            if (v3, mode) not in rec[st]:
+                out.append((v3, mode, st, a, kw, "f32"))
+            # timed at the volume's S = 512
+            timed[(v3, mode)] = (st, a, kw)
+    a2 = v2_inputs(rec["nonablas_volume"][(v3, "ds_feat")])
+    for dh, ft in flags:
+        mode = kernels.candidate_mode(dh, ft)
+        kw = dict(k=8, want_dh=dh, want_feat=ft)
+        out.append(("candidate_field", mode, "R4096_S64_C96", a2, kw, "f32"))
+        timed[("candidate_field", mode)] = ("R4096_S64_C96", a2, kw)
+    a, kw = rec["surface_locate"][("surface_locate", "bf16")]
+    a32 = a[:7] + (fold_weights(models["surf_locate"], None)[0],)
+    kw32 = dict(kw, dtype=None)
+    out.append(("surface_locate", "f32", "surface_locate:f32", a32, kw32,
+                "f32"))
+    timed[("surface_locate", "bf16")] = ("surface_locate", a, kw)
+    timed[("surface_locate", "f32")] = ("surface_locate:f32", a32, kw32)
+    return out, timed
+
+
+def check_outputs(name, mode, key, got, want):
+    """(max |err|, share within tol, passed, extra fields) of one kernel
+    call against its plain version, at TOL[key]: each output array is held
+    to the share alone; in f32 the gradient outputs (nabla, dh) at
+    TOL["f32_nabla"]."""
+    tol = TOL[key]
+    if name == "surface_locate":
+        # the three flag planes bit for bit; d_pred where both hit
+        agree = min(float((g == w).float().mean())
+                    for g, w in zip(got[1:], want[1:]))
+        both = got[1] & want[1]
+        if not bool(both.any()):
+            raise AssertionError("surface_locate: no ray hit")
+        err, share = compare([got[0][both]], [want[0][both]], tol)
+        need = LOCATE_MASK_AGREE[key]
+        return (err, share, share >= tol["frac"] and agree >= need,
+                {"mask_agree": agree, "min_mask_agree": need})
+    if name.startswith("candidate_field"):
+        if (got[1] is None) != (want[1] is None) or \
+                (got[2] is None) != (want[2] is None):
+            raise AssertionError(f"{name}/{mode}: outputs differ in kind")
+        e1, s1 = compare([g for g in (got[0], got[2]) if g is not None],
+                         [w for w in (want[0], want[2]) if w is not None],
+                         tol)
+        if got[1] is not None:
+            e2, s2 = compare([got[1]], [want[1]], TOL["f32_nabla"])
+            e1, s1 = max(e1, e2), min(s1, s2)
+        return e1, s1, s1 >= tol["frac"], {}
+    got = got if isinstance(got, list) else [got]
+    want = want if isinstance(want, list) else [want]
+    if name == "field_fused" and mode in ("density_nabla", "full") \
+            and key == "f32":
+        # sdf and rgb at the f32 tolerance, nabla at its own
+        idx = [0] + ([4, 5, 6] if mode == "full" else [])
+        e1, s1 = compare([got[i] for i in idx], [want[i] for i in idx], tol)
+        e2, s2 = compare(got[1:4], want[1:4], TOL["f32_nabla"])
+        err, share = max(e1, e2), min(s1, s2)
+    else:
+        err, share = compare(got, want, tol)
+    return err, share, share >= tol["frac"], {}
 
 
 def check_kernels(variants):
@@ -309,71 +530,48 @@ def check_kernels(variants):
     import torch
     from neumesh_tpu_torch.ops import kernels
     rows = {}
-    for name, mode, var, args, kw, tol in variants:
-        fn = getattr(kernels, name)
-        plain = getattr(kernels, name + "_plain")
-        got = fn(*args, **kw)
-        want = plain(*args, **kw)
+    for name, mode, var, args, kw, key in variants:
+        got = getattr(kernels, name)(*args, **kw)
+        want = getattr(kernels, name + "_plain")(*args, **kw)
         torch.cuda.synchronize()
-        got = got if isinstance(got, list) else [got]
-        want = want if isinstance(want, list) else [want]
-        if name == "field_fused" and mode in ("density_nabla", "full") \
-                and var in ("f32", "ref_f32"):
-            # sdf and rgb at the f32 tolerance, nabla at its own
-            idx = [0] + ([4, 5, 6] if mode == "full" else [])
-            e1, s1 = compare([got[i] for i in idx], [want[i] for i in idx],
-                             tol)
-            e2, s2 = compare(got[1:4], want[1:4], TOL["f32_nabla"])
-            err, share = max(e1, e2), min(s1, s2)
-        else:
-            err, share = compare(got, want, tol)
-        ok = share >= tol["frac"]
-        log(f"[check] {name}/{mode} {var}: max|err| {err:.3e}, "
-            f"within tol {share:.5f} ({'ok' if ok else 'FAIL'})")
+        err, share, ok, extra = check_outputs(name, mode, key, got, want)
+        log(f"[check] {name}/{mode} {var} ({key}): max|err| {err:.3e}, "
+            f"within tol {share:.5f}"
+            + "".join(f", {k} {v:.5f}" for k, v in extra.items())
+            + f" ({'ok' if ok else 'FAIL'})")
         if not ok:
             raise AssertionError(f"{name}/{mode} {var} disagrees with its "
-                                 f"plain version: {share:.4f} within tol")
+                                 f"plain version: {share:.4f} within tol "
+                                 f"{extra}")
+        tol = TOL[key]
         row = rows.setdefault((name, mode), {"checks": []})
         row["checks"].append({"variant": var, "max_abs_err": err,
                               "frac_within_tol": share,
                               "atol": tol["atol"], "rtol": tol["rtol"],
-                              "min_frac": tol["frac"]})
+                              "min_frac": tol["frac"], **extra})
     return rows
 
 
-def time_kernels(rec, rows):
+def time_kernels(timed, rows):
+    """Kernel and plain ms, bound and shapes of each mode at its timed
+    call; the headline error is that call's check."""
     from neumesh_tpu_torch.ops import kernels
     for (name, mode), row in rows.items():
-        key = (name, mode)
-        if key in rec:
-            a, kw = rec[key]
-        elif name == "field_fused" and mode == "density_nabla":
-            a, kw = rec[("field_fused", "density")]
-            kw = dict(kw, want="density_nabla")
-        else:
-            a, kw = rec[("secant_refine", "rebracket")]
-            kw = dict(kw, frozen_knn=mode.startswith("frozen"))
-            if not mode.endswith("rebracket"):
-                kw.update(d_low_w=None, d_high_w=None)
+        var, a, kw = timed[(name, mode)]
         fn = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
         row["ms"] = cuda_ms(lambda: fn(*a, **kw))
         row["plain_ms"] = cuda_ms(lambda: plain(*a, **kw), reps=2)
-        row["bound_ms"], row["bound_by"] = (
-            field_bound(a, kw) if name == "field_fused"
-            else secant_bound(a, kw))
+        row["bound_ms"], row["bound_by"] = kernel_bound(name, a, kw)
         row["shapes"] = _shape_note(name, a)
-        # the variant the serving path runs (recorded dtype) is the headline
-        main = [c for c in row["checks"]
-                if c["variant"] == ("bf16" if kw.get("dtype") is not None
-                                    else "f32")]
-        row["max_abs_err"] = max(c["max_abs_err"] for c in main or
-                                 row["checks"])
+        row["timed_variant"] = var
+        row["max_abs_err"] = next(c["max_abs_err"] for c in row["checks"]
+                                  if c["variant"] == var)
 
 
 def profile_frame(fn):
     """Device time by kernel over one traced call of fn (torch.profiler):
-    the port's two kernels, every other device op, busy time against the
+    the port's kernels, every other device op, busy time against the
     traced wall time (the profiler's own overhead is in that wall)."""
     import torch
     from torch.autograd import DeviceType
@@ -385,7 +583,7 @@ def profile_frame(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by = {"field_fused": 0.0, "secant_refine": 0.0, "other": 0.0}
+    by = {k: 0.0 for k in (*KERNELS, "other")}
     for ev in prof.key_averages():
         # only the device's own events: an aten op on the host carries the
         # time of the kernels it launched, which are listed besides
@@ -395,26 +593,32 @@ def profile_frame(fn):
         us = float(ev.self_device_time_total or 0.0)
         if us <= 0:
             continue
-        key = next((k for k in ("field_fused", "secant_refine")
-                    if k + "_kernel" in ev.key), "other")
+        # no kernel's symbol contains another's ("candidate_field_kernel"
+        # is not in "candidate_field_v3_kernel")
+        key = next((k for k in KERNELS if k + "_kernel" in ev.key), "other")
         by[key] += us / 1e3
     busy = sum(by.values())
     return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / wall_ms) if busy > 0 else None,
-            "device_ms_by_kernel": by}
+            "device_ms_by_kernel": {k: v for k, v in by.items() if v}}
 
 
 def _shape_note(name, a):
-    if name == "field_fused":
+    if name == "field_fused" or name == "candidate_field_v3":
         B, S, _ = a[0].shape
         return {"B": B, "S": S, "C": a[1].shape[2], "F": a[2].shape[-1]}
-    return {"R": a[0].shape[0], "B": a[6].shape[0], "C": a[6].shape[2],
-            "F": a[7].shape[-1]}
+    if name == "candidate_field":
+        R, S, _ = a[0].shape
+        return {"R": R, "S": S, "C": a[1].shape[1], "F": a[5].shape[-1]}
+    geo, feat = (a[6], a[7]) if name == "secant_refine" else (a[4], a[5])
+    return {"R": a[0].shape[0], "B": geo.shape[0], "C": geo.shape[2],
+            "F": feat.shape[-1]}
 
 
 def build_scene(tmp, device):
-    """Flagship NeuMesh on the 163,842-vertex icosphere, parameters from a
-    numpy seed, round-tripped through a reference-format .pt and a .ply."""
+    """Every model of MODELS on the 163,842-vertex icosphere, parameters
+    from a numpy seed (one source model with nablas input, one without),
+    round-tripped through reference-format .pt files and a .ply."""
     import torch
     from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
     from neumesh_tpu_torch.mesh.grid import MeshGrid
@@ -425,23 +629,30 @@ def build_scene(tmp, device):
     t0 = time.perf_counter()
     mesh = icosphere_mesh(0.5, subdivisions=7)
     mg = MeshGrid(mesh, device=device)
-    src = NeuMesh(mg, device=device, **FLAGSHIP).init(seed=0)
-    pt = save_reference_pt(os.path.join(tmp, "neumesh.pt"), src)
+    pts = {}
+    for nablas in (True, False):
+        src = NeuMesh(mg, device=device,
+                      **dict(FLAGSHIP, enable_nablas_input=nablas)).init(
+                          seed=0)
+        pts[nablas] = save_reference_pt(
+            os.path.join(tmp, f"neumesh_{int(nablas)}.pt"), src)
+        if nablas:
+            src_params = [p.clone() for p in src.parameters()]
+        del src
     save_ply(mesh, os.path.join(tmp, "mesh.ply"))
-    mesh2 = load_ply(os.path.join(tmp, "mesh.ply"))
-    mg2 = MeshGrid(mesh2, device=device)
+    mg2 = MeshGrid(load_ply(os.path.join(tmp, "mesh.ply")), device=device)
     models = {}
-    for tag, dt in (("bf16", torch.bfloat16), ("f32", None)):
-        m = NeuMesh(mg2, device=device, compute_dtype=dt, **VOL_MODEL,
-                    **FLAGSHIP)
-        load_reference_pt(pt, m)
+    for tag, (serving, bf16, extra) in MODELS.items():
+        kw = dict(FLAGSHIP, **serving, **extra)
+        m = NeuMesh(mg2, device=device,
+                    compute_dtype=torch.bfloat16 if bf16 else None, **kw)
+        load_reference_pt(pts[kw["enable_nablas_input"]], m)
         models[tag] = m
-    same = all(torch.equal(a, b) for a, b in
-               zip(src.parameters(), models["f32"].parameters()))
-    if not same:
+    if not all(torch.equal(a, b) for a, b in
+               zip(src_params, models["vol_f32"].parameters())):
         raise AssertionError("weights changed through the .pt round trip")
     log(f"[scene] {mg2.get_number_of_vertices()} vertices, grid dims "
-        f"{mg2.grid.dims} Kp {mg2.grid.Kp}, "
+        f"{mg2.grid.dims} Kp {mg2.grid.Kp}, {len(models)} models, "
         f"{time.perf_counter() - t0:.1f} s")
     return models
 
@@ -459,20 +670,24 @@ def camera(H, W, half_fov=0.2, crop=None):
     return c2w, K, h, w
 
 
-def render(model, H, W, crop=None, **kw):
+def render(model, kind, H, crop=None, **kw):
+    """One HxH frame (or its central crop) through the volume or surface
+    frame entry -> (rgb, depth, extras)."""
+    from neumesh_tpu_torch.render.ray_casting import render_surface_image
     from neumesh_tpu_torch.render.volume import render_image
-    c2w, K, h, w = camera(H, W, crop=crop)
-    return render_image(model, c2w, K, h, w, device="cuda", **kw)
+    c2w, K, h, w = camera(H, H, crop=crop)
+    fn = render_image if kind == "volume" else render_surface_image
+    return fn(model, c2w, K, h, w, device="cuda", **kw)
 
 
-def counted(model, H, W, **kw):
+def counted(model, kind, H, **kw):
     """One render with the launch counters set to 0 just before and read
     just after."""
     import torch
     from neumesh_tpu_torch.ops import kernels
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
-    rgb, depth, ret = render(model, H, W, **kw)
+    rgb, depth, ret = render(model, kind, H, **kw)
     torch.cuda.synchronize()
     counts = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
     return rgb, depth, ret, counts
@@ -497,7 +712,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import neumesh_tpu_torch
-    from neumesh_tpu_torch.ops import kernels
 
     neumesh_tpu_torch.set_fp32_precision()
     name = torch.cuda.get_device_name(0)
@@ -508,89 +722,103 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         models = build_scene(tmp, "cuda")
-    mb, mf = models["bf16"], models["f32"]
 
-    # ---- the main path: counters around each structure's render, after a
+    # ---- the main paths: counters around each structure's render, after a
     # warm-up render; the peak memory holds nothing kept by the checks
-    render(mb, 256, 256, **VOL_RENDER)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rgb_b, dep_b, _, cnt_b = counted(mb, 256, 256, **VOL_RENDER)
-    peak_b = torch.cuda.max_memory_allocated()
-    check_image("serving bf16", rgb_b, dep_b, 256, 256)
-    render(mf, 128, 128, **REF_RENDER)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    rgb_a, dep_a, _, cnt_a = counted(mf, 128, 128, **REF_RENDER)
-    peak_a = torch.cuda.max_memory_allocated()
-    check_image("reference f32", rgb_a, dep_a, 128, 128)
-    log(f"[render] serving launches {cnt_b}; reference launches {cnt_a}")
-    for kname, mode in ON_PATH:
-        if cnt_b[kname][mode] <= 0:
-            raise AssertionError(f"{kname}/{mode} never launched on the "
-                                 "serving path")
-    if cnt_a["field_fused"]["density"] <= 0 or \
-            cnt_a["field_fused"]["full"] <= 0:
-        raise AssertionError("reference structure missed a kernel")
+    frame, counts = {}, {}
+    for st, (mkey, kind, H, kw, must, _) in STRUCTURES.items():
+        m = models[mkey]
+        render(m, kind, H, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        rgb, depth, ret, cnt = counted(m, kind, H, **kw)
+        peak = torch.cuda.max_memory_allocated()
+        check_image(st, rgb, depth, H, H)
+        missed = [f"{k}/{md}" for k, md in sorted(must) if cnt[k][md] <= 0]
+        if missed:
+            raise AssertionError(f"{st}: never launched {missed}")
+        counts[st] = cnt
+        # the frame's own peak: above every model's resident parameters
+        frame[st] = {"rays": H * H, "peak_mem_bytes": peak,
+                     "frame_peak_bytes": peak - resident,
+                     "resident_bytes": resident,
+                     "launches": {k: {md: v for md, v in modes.items() if v}
+                                  for k, modes in cnt.items()}}
+        if kind == "surface":
+            frame[st]["hit_share"] = float(
+                ret["mask_surface"].float().mean())
+        log(f"[render] {st}: launches {frame[st]['launches']}")
 
     # ---- kernels against their plain versions, on the inputs each
     # structure's render gives them
-    rec, rec_a = {}, {}
-    with record_inputs(rec):
-        render(mb, 256, 256, **VOL_RENDER)
-    with record_inputs(rec_a):
-        render(mf, 128, 128, **REF_RENDER)
-    rows = check_kernels(kernel_variants(rec, mb, rec_a))
-    time_kernels(rec, rows)
+    rec = {}
+    for st, (mkey, kind, H, kw, _, _) in STRUCTURES.items():
+        rec[st] = {}
+        with record_inputs(rec[st]):
+            render(models[mkey], kind, H, **kw)
+    variants, timed = kernel_variants(rec, models)
+    rows = check_kernels(variants)
+    time_kernels(timed, rows)
+    del rec, variants, timed
 
-    # ---- crop through the plain versions on the card
-    crop_k, _, _ = render(mb, 256, 256, crop=(64, 64), **VOL_RENDER)
-    with plain_on_card():
-        crop_p, _, _ = render(mb, 256, 256, crop=(64, 64), **VOL_RENDER)
-    mse = float(((crop_k - crop_p) ** 2).mean())
-    psnr = 10 * math.log10(1.0 / max(mse, 1e-20))
-    crop_a_k, _, _ = render(mf, 256, 256, crop=(64, 64), **REF_RENDER)
-    with plain_on_card():
-        crop_a_p, _, _ = render(mf, 256, 256, crop=(64, 64), **REF_RENDER)
-    mse_a = float(((crop_a_k - crop_a_p) ** 2).mean())
-    psnr_a = 10 * math.log10(1.0 / max(mse_a, 1e-20))
-    log(f"[crop] kernel vs plain PSNR: serving bf16 {psnr:.2f} dB, "
-        f"reference f32 {psnr_a:.2f} dB")
-    if psnr < 30.0 or psnr_a < 55.0:
-        raise AssertionError("crop render disagrees with the plain path")
+    # ---- crops through the plain versions on the card: rgb, and the
+    # normals of the surface structures (peak-to-peak 2)
+    psnr = {}
+    for st, (mkey, kind, H, kw, _, _) in STRUCTURES.items():
+        limit = CROP_PSNR["bf16" if MODELS[mkey][1] else "f32"]
+        crop_k, _, ret_k = render(models[mkey], kind, 256, crop=(64, 64),
+                                  **kw)
+        with plain_on_card():
+            crop_p, _, ret_p = render(models[mkey], kind, 256,
+                                      crop=(64, 64), **kw)
+        pairs = {"rgb": (crop_k, crop_p, 1.0)}
+        if kind == "surface":
+            pairs["normals"] = (ret_k["normals_surface"],
+                                ret_p["normals_surface"], 2.0)
+        for what, (a, b, peak) in pairs.items():
+            mse = float(((a - b) ** 2).mean())
+            db = 10 * math.log10(peak * peak / max(mse, 1e-20))
+            psnr[f"{st}/{what}"] = db
+            log(f"[crop] {st} {what}: kernel vs plain PSNR {db:.2f} dB "
+                f"(limit {limit})")
+            if db < limit:
+                raise AssertionError(f"{st}: crop {what} disagrees with the "
+                                     "plain path")
 
-    # ---- throughput
-    ms_b = cuda_ms(lambda: render(mb, 256, 256, **VOL_RENDER), reps=5)
-    ms_a = cuda_ms(lambda: render(mf, 128, 128, **REF_RENDER), reps=3)
-    prof_b = profile_frame(lambda: render(mb, 256, 256, **VOL_RENDER))
-    prof_a = profile_frame(lambda: render(mf, 128, 128, **REF_RENDER))
-    frame = {
-        "serving_bf16": {"rays": 65536, "ms": ms_b,
-                         "mrays_s": 65536 / ms_b / 1e3,
-                         "peak_mem_bytes": peak_b, "launches": cnt_b,
-                         "profile": prof_b},
-        "reference_f32": {"rays": 16384, "ms": ms_a,
-                          "mrays_s": 16384 / ms_a / 1e3,
-                          "peak_mem_bytes": peak_a, "launches": cnt_a,
-                          "profile": prof_a},
-        "crop_psnr_db": {"serving_bf16": psnr, "reference_f32": psnr_a},
-        "build_s": build_s, "total_s": time.perf_counter() - t_start,
-    }
-    print(json.dumps({"frame": frame, "card": card}))
+    # ---- throughput and the traced frame of every structure
+    for st, (mkey, kind, H, kw, _, reps) in STRUCTURES.items():
+        m = models[mkey]
+        ms = cuda_ms(lambda: render(m, kind, H, **kw), reps=reps)
+        frame[st].update(ms=ms, mrays_s=H * H / ms / 1e3,
+                         profile=profile_frame(
+                             lambda: render(m, kind, H, **kw)))
+        log(f"[frame] {st}: {ms:.2f} ms, {H * H / ms / 1e3:.4f} Mrays/s, "
+            f"idle share {frame[st]['profile']['idle_share']}")
+    print(json.dumps({"frame": frame, "crop_psnr_db": psnr,
+                      "build_s": build_s,
+                      "total_s": time.perf_counter() - t_start,
+                      "card": card}))
 
+    on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
         src, rep = SOURCES[kname]
+        by_st = {st: counts[st][kname][mode] for st in STRUCTURES}
+        home = LAUNCHES_OF[kname]
         kernels_out.append({
             "name": f"{kname}/{mode}", "route": "cuda", "source": src,
-            "replaces": rep, "launches": cnt_b[kname][mode],
-            "launches_reference_structure": cnt_a[kname][mode],
-            "on_path": (kname, mode) in ON_PATH,
+            "replaces": rep, "launches": by_st[home] if home else 0,
+            "launches_structure": home,
+            "launches_all_structures": sum(by_st.values()),
+            "launches_by_structure": by_st,
+            "launches_reference_structure": by_st["reference_f32"],
+            "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "card": card, "shapes": row["shapes"],
-            "checks": row["checks"]})
+            "timed_variant": row["timed_variant"], "checks": row["checks"]})
     print(json.dumps({"kernels": kernels_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
-// Device code shared by field_fused.cu and secant_refine.cu: the NeuMesh
-// field chain of neumesh_tpu/ops/pallas_kernels.py (_interp_distance,
-// _feat_dot, _emb_cols, _emb_cols_rec, _density_mlp, the colour MLP of
-// _field_kernel) for a block of SB samples against one tile's candidate
-// context.
+// Device code shared by field_fused.cu, secant_refine.cu,
+// surface_locate.cu and candidate_field.cu: the NeuMesh field chain of
+// neumesh_tpu/ops/pallas_kernels.py (_interp_distance, _feat_dot,
+// _emb_cols, _emb_cols_rec, _density_mlp, the colour MLP of _field_kernel)
+// for a block of SB samples against one tile's candidate context.
 //
 // Block shape: NT = 256 threads, SB = 32 samples. Candidate passes run
 // LPS = 8 lanes per sample (consecutive lanes of one warp, reduced with
@@ -61,15 +61,35 @@ struct FieldArgs {
   float w1;
   MLPDesc dens, col;
 };
-struct SecantArgs {
-  const float *rays_o, *rays_d, *d_low, *d_high, *f_low, *f_high, *d_low_w,
-      *d_high_w, *geo;
+// The density field along R rays grouped into B tiles of T: what
+// secant_refine and surface_locate share.
+struct RayField {
+  const float *rays_o, *rays_d, *geo;
   const void* feat;
   float* out;
-  int feat_bf16, R, B, T, C, F, k, n_iters, md, mfg, gd, lowp, ldx,
-      rebracket, frozen;
+  int feat_bf16, R, B, T, C, F, k, md, mfg, gd, lowp, ldx;
   float w1, tau;
   MLPDesc dens;
+};
+struct SecantArgs {
+  RayField f;         // out: d_pred (R,)
+  const float *d_low, *d_high, *f_low, *f_high, *d_low_w, *d_high_w;
+  int n_iters, rebracket, frozen;
+};
+// candidate_field_v3 reads geo (B, 8, C); candidate_field (v2) reads the
+// per-ray pts/ind (B, C, 3) and pp/vn (B, C). v3 writes ds | [ds dh] packed
+// into out_d (B, S, 1 | 4); v2 writes ds (B, S) to out_d and dh (B, S, 3)
+// to out_dh. feats (B, S, F) go to out_feat.
+struct CandArgs {
+  const float *xyz, *geo, *pts, *pp, *ind, *vn, *feat;
+  float *out_d, *out_dh, *out_feat;
+  int B, S, C, F, k, want_dh, want_feat;
+  float w1;
+};
+struct LocateArgs {
+  RayField f;         // out: (4, R) d_pred, mask, mask_sign_change, val0_pos
+  const float *near, *far;
+  int n_steps, n_secant;
 };
 
 // ---- exact f32 element-wise arithmetic (no FMA contraction)
@@ -139,9 +159,14 @@ struct Interp {
 // geo: (8, C) rows [px py pz ix iy iz pp vn] in shared memory. Writes the
 // normalised kNN weights of every candidate to Wrow (zeros off the kNN
 // set; the one-hot argmin for the k = 1 distance proxy).
+// k1_proxy: k = 1 without dh takes the nearest-tangent-plane proxy of the
+// field kernels (the candidate_field kernels have no such path). v2_dh: the
+// gradient in candidate_field (v2)'s order, A = (W w1) inv and
+// dh = sum(A n) + sB x - sum(B v), instead of sum(A n - B v) + sB x.
 __device__ void interp_sample(const float* geo, int C, float x0, float x1,
                               float x2, float w1, int k, bool want_dh,
-                              int lane, float* Wrow, Interp& out) {
+                              int lane, float* Wrow, Interp& out,
+                              bool k1_proxy = true, bool v2_dh = false) {
   const float *px = geo, *py = geo + C, *pz = geo + 2 * C, *ix = geo + 3 * C,
               *iy = geo + 4 * C, *iz = geo + 5 * C, *pp = geo + 6 * C,
               *vn = geo + 7 * C;
@@ -159,7 +184,7 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
   };
   out.dh0 = out.dh1 = out.dh2 = 0.f;
 
-  if (k == 1 && !want_dh) {
+  if (k1_proxy && k == 1 && !want_dh) {
     // nearest-tangent-plane proxy: sums over the one-hot argmin set
     float m = INFINITY;
     for (int c = lane; c < C; c += LPS) m = fminf(m, tb(c, d2_at(c)));
@@ -199,6 +224,7 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
   }
   sw = gsum(sw);
   float ds = 0.f, sB = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
+  float bx = 0.f, by = 0.f, bz = 0.f;     // v2_dh: sum(B v) apart
   for (int c = lane; c < C; c += LPS) {
     const float d2 = d2_at(c);
     float W = 0.f;
@@ -210,16 +236,25 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
       const float term = fadd(fmul(w1, fsub(xn_at(c), vn[c])), fmul(d, d2));
       ds = fadd(ds, fmul(fmul(W, term), inv));
       if (want_dh) {
-        const float A = fmul(W, fmul(w1, inv));
+        const float A = v2_dh ? fmul(fmul(W, w1), inv) : fmul(W, fmul(w1, inv));
         const float Bc = fdiv(
             fmul(fmul(fmul(W, fsub(fmul(fmul(3.f, d2), fadd(w1, d)), term)),
                       inv),
                  inv),
             d);
         sB = fadd(sB, Bc);
-        ax = fadd(ax, fsub(fmul(A, ix[c]), fmul(Bc, px[c])));
-        ay = fadd(ay, fsub(fmul(A, iy[c]), fmul(Bc, py[c])));
-        az = fadd(az, fsub(fmul(A, iz[c]), fmul(Bc, pz[c])));
+        if (v2_dh) {
+          ax = fadd(ax, fmul(A, ix[c]));
+          ay = fadd(ay, fmul(A, iy[c]));
+          az = fadd(az, fmul(A, iz[c]));
+          bx = fadd(bx, fmul(Bc, px[c]));
+          by = fadd(by, fmul(Bc, py[c]));
+          bz = fadd(bz, fmul(Bc, pz[c]));
+        } else {
+          ax = fadd(ax, fsub(fmul(A, ix[c]), fmul(Bc, px[c])));
+          ay = fadd(ay, fsub(fmul(A, iy[c]), fmul(Bc, py[c])));
+          az = fadd(az, fsub(fmul(A, iz[c]), fmul(Bc, pz[c])));
+        }
       }
     }
     Wrow[c] = W;
@@ -230,6 +265,11 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
     out.dh0 = fadd(gsum(ax), fmul(sB, x0));
     out.dh1 = fadd(gsum(ay), fmul(sB, x1));
     out.dh2 = fadd(gsum(az), fmul(sB, x2));
+    if (v2_dh) {
+      out.dh0 = fsub(out.dh0, gsum(bx));
+      out.dh1 = fsub(out.dh1, gsum(by));
+      out.dh2 = fsub(out.dh2, gsum(bz));
+    }
   }
 }
 
@@ -479,6 +519,119 @@ __device__ void color_stage(const MLPDesc& Cm, float* sX, int ldx,
     dense_layer(Cm.l[l], sX, nullptr, ldx, l == 0 ? xoff2 : 0, ACT_RELU,
                 Cm.l[l + 1].bf16, false);
   head_layer(Cm.l[Cm.n - 1], sX, nullptr, ldx, false, true, srgb, nullptr);
+}
+
+// ---------------------------------------------------------------------------
+// root search along rays (secant_refine, surface_locate): one block takes SB
+// rays of one tile; thread s < SB owns ray r0 + s and keeps its bracket in
+// registers, the tile context stays in shared memory, and nothing leaves the
+// chip between the sequential field evaluations.
+// ---------------------------------------------------------------------------
+
+// Shared memory of a ray block; the kernel's own buffers follow at `end`
+// (a multiple of 4 floats from the start).
+struct RayTile {
+  float *geo;         // 8 * C
+  float *o, *r, *xyz; // SB * 4 each: origin, direction, current point
+  float *ds, *dens;   // SB each
+  float *FB;          // SB * F blended features
+  float *W;           // SB * C kNN weights
+  float *X;           // SB * ldx MLP activations
+  float *end;
+};
+
+__host__ __device__ inline size_t ray_tile_floats(const RayField& f) {
+  return 8 * (size_t)f.C + SB * (3 * 4 + 2) + SB * ((size_t)f.F + f.C + f.ldx);
+}
+
+// Carve the block's shared memory, load tile b's context and the owner
+// rays' origins and directions (the last ray repeated past T).
+__device__ RayTile ray_tile_load(const RayField& f, float* smem, int b,
+                                 int r0) {
+  RayTile t;
+  t.geo = smem;
+  t.o = t.geo + 8 * f.C;
+  t.r = t.o + SB * 4;
+  t.xyz = t.r + SB * 4;
+  t.ds = t.xyz + SB * 4;
+  t.dens = t.ds + SB;
+  t.FB = t.dens + SB;
+  t.W = t.FB + SB * f.F;
+  t.X = t.W + SB * f.C;
+  t.end = t.X + SB * f.ldx;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 8 * f.C; i += NT)
+    t.geo[i] = f.geo[(size_t)b * 8 * f.C + i];
+  if (tid < SB) {
+    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
+    for (int i = 0; i < 3; ++i) {
+      t.o[tid * 4 + i] = f.rays_o[ray * 3 + i];
+      t.r[tid * 4 + i] = f.rays_d[ray * 3 + i];
+    }
+  }
+  return t;
+}
+
+// Interpolated distance at o + dv r of each owner's ray into t.ds, the kNN
+// weights into t.W (all threads call).
+__device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
+  const int tid = threadIdx.x;
+  if (tid < SB)
+    for (int i = 0; i < 3; ++i)
+      t.xyz[tid * 4 + i] = fadd(t.o[tid * 4 + i], fmul(dv, t.r[tid * 4 + i]));
+  __syncthreads();
+  const int s = tid / LPS, lane = tid % LPS;
+  Interp r;
+  interp_sample(t.geo, f.C, t.xyz[s * 4], t.xyz[s * 4 + 1], t.xyz[s * 4 + 2],
+                f.w1, f.k, false, lane, t.W + s * f.C, r);
+  if (lane == 0) t.ds[s] = r.ds;
+  __syncthreads();
+}
+
+// Density minus tau of each owner's ray from t.ds and the kNN weights in
+// t.W (all threads call; 0 on the other threads).
+__device__ float ray_density(const RayField& f, const RayTile& t, int b) {
+  blend_stage(f.feat, (size_t)b * f.C * f.F, f.feat_bf16, f.F, f.gd, t.W,
+              f.C, t.FB);
+  __syncthreads();
+  density_stage(f.dens, t.X, nullptr, f.ldx, t.ds, t.FB, f.F, f.md, f.mfg,
+                f.gd, f.lowp, false, t.dens, nullptr);
+  return threadIdx.x < SB ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;
+}
+
+__device__ float ray_density_at(const RayField& f, const RayTile& t, int b,
+                                float dv) {
+  ray_interp_at(f, t, dv);
+  return ray_density(f, t, b);
+}
+
+// Secant bracket of one owner ray: the field is below 0 at dl, above at dh.
+struct Bracket {
+  float dl, fl, dh, fh;
+  __device__ float pred() const {
+    float denom = fsub(fh, fl);
+    if (fabsf(denom) < 1e-12f) denom = 1e-12f;
+    return fadd(fdiv(fmul(-fl, fsub(dh, dl)), denom), dl);
+  }
+};
+
+// n secant steps on field(dv) (every thread calls field); returns the last
+// prediction.
+template <class Field>
+__device__ float secant_steps(Bracket& br, int n, Field field) {
+  float dp = br.pred();
+  for (int it = 0; it < n; ++it) {
+    const float fm = field(dp);
+    if (fm < 0.f) {
+      br.dl = dp;
+      br.fl = fm;
+    } else {
+      br.dh = dp;
+      br.fh = fm;
+    }
+    dp = br.pred();
+  }
+  return dp;
 }
 
 }  // namespace nm

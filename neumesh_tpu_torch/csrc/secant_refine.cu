@@ -24,60 +24,43 @@ namespace nm {
 
 __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * SB;
-  const int C = a.C, T = a.T, tid = threadIdx.x, k = a.k, ldx = a.ldx;
-  float* sgeo = smem;                  // 8 * C
-  float* so = sgeo + 8 * C;            // SB * 4
-  float* sr = so + SB * 4;             // SB * 4
-  float* sxyz = sr + SB * 4;           // SB * 4
-  float* sds = sxyz + SB * 4;          // SB
-  float* sdens = sds + SB;             // SB
-  float* sdev = sdens + SB;            // SB
+  const RayField& f = a.f;
+  const int b = blockIdx.y, r0 = blockIdx.x * SB, tid = threadIdx.x;
+  const int C = f.C, k = f.k;
+  const RayTile t = ray_tile_load(f, smem, b, r0);
+  float* sdev = t.end;                 // SB
   float* sdm = sdev + SB;              // SB
-  float* sFB = sdm + SB;               // SB * F
-  float* sW = sFB + SB * a.F;          // SB * C
-  float* sX = sW + SB * C;             // SB * ldx
-  float* sA = sX + SB * ldx;           // SB * KSEL (frozen picks)
+  float* sA = sdm + SB;                // SB * KSEL (frozen picks)
   float* sBq = sA + SB * KSEL;
   float* sE = sBq + SB * KSEL;
   float* sF = sE + SB * KSEL;
   float* sW8 = sF + SB * KSEL;
   unsigned char* srank = reinterpret_cast<unsigned char*>(sW8 + SB * KSEL);
 
-  for (int i = tid; i < 8 * C; i += NT) sgeo[i] = a.geo[(size_t)b * 8 * C + i];
-  // owner thread s < SB holds ray r0 + s's bracket state
   const bool owner = tid < SB;
-  const bool valid = owner && r0 + tid < T;
-  float dl = 0.f, dh = 0.f, fl = 0.f, fh = 0.f, dlw = 0.f, dhw = 0.f;
+  Bracket br{0.f, 0.f, 0.f, 0.f};
+  float dlw = 0.f, dhw = 0.f;
   if (owner) {
-    const size_t ray = (size_t)b * T + min(r0 + tid, T - 1);
-    for (int i = 0; i < 3; ++i) {
-      so[tid * 4 + i] = a.rays_o[ray * 3 + i];
-      sr[tid * 4 + i] = a.rays_d[ray * 3 + i];
-    }
-    dl = a.d_low[ray];
-    dh = a.d_high[ray];
-    fl = a.f_low[ray];
-    fh = a.f_high[ray];
+    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
+    br = Bracket{a.d_low[ray], a.f_low[ray], a.d_high[ray], a.f_high[ray]};
     if (a.rebracket) {
       dlw = a.d_low_w[ray];
       dhw = a.d_high_w[ray];
     }
     sdm[tid] = a.rebracket ? fmul(0.5f, fadd(dlw, dhw))
-                           : fmul(0.5f, fadd(dl, dh));
+                           : fmul(0.5f, fadd(br.dl, br.dh));
   }
   __syncthreads();
 
   const int s = tid / LPS, lane = tid % LPS;
-  const float *px = sgeo, *py = sgeo + C, *pz = sgeo + 2 * C,
-              *ix = sgeo + 3 * C, *iy = sgeo + 4 * C, *iz = sgeo + 5 * C,
-              *pp = sgeo + 6 * C, *vn = sgeo + 7 * C;
+  const float *px = t.geo, *py = t.geo + C, *pz = t.geo + 2 * C,
+              *ix = t.geo + 3 * C, *iy = t.geo + 4 * C, *iz = t.geo + 5 * C,
+              *pp = t.geo + 6 * C, *vn = t.geo + 7 * C;
 
   if (a.frozen) {
     // one-time selection at the bracket midpoint x_mid = o + d_mid r
-    const float o0 = so[s * 4], o1 = so[s * 4 + 1], o2 = so[s * 4 + 2];
-    const float q0 = sr[s * 4], q1 = sr[s * 4 + 1], q2 = sr[s * 4 + 2];
+    const float o0 = t.o[s * 4], o1 = t.o[s * 4 + 1], o2 = t.o[s * 4 + 2];
+    const float q0 = t.r[s * 4], q1 = t.r[s * 4 + 1], q2 = t.r[s * 4 + 2];
     const float dm = sdm[s];
     const float xm0 = fadd(o0, fmul(dm, q0)), xm1 = fadd(o1, fmul(dm, q1)),
                 xm2 = fadd(o2, fmul(dm, q2));
@@ -105,8 +88,8 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
       if (it < k) {
         float m = INFINITY;
         for (int c = lane; c < C; c += LPS) {
-          const float t = cur_at(c);
-          if (t > prev) m = fminf(m, t);
+          const float v = cur_at(c);
+          if (v > prev) m = fminf(m, v);
         }
         prev = gmin(m);
         thr[it] = prev;
@@ -116,11 +99,11 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
 #pragma unroll
     for (int it = 0; it < KSEL; ++it) pa[it] = pb[it] = pe[it] = pf[it] = 0.f;
     for (int c = lane; c < C; c += LPS) {
-      const float t = cur_at(c);
+      const float v = cur_at(c);
       int rank = 255;
 #pragma unroll
       for (int it = KSEL - 1; it >= 0; --it)
-        if (it < k && t <= thr[it]) rank = it;
+        if (it < k && v <= thr[it]) rank = it;
       srank[s * C + c] = (unsigned char)rank;
       if (rank < k) {
         float A, Bq, E, F;
@@ -153,95 +136,60 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
 
   // density (minus tau) at depth dv of each owner's ray; all threads call
   auto field = [&](float dv) -> float {
-    if (owner) {
-      sdev[tid] = dv;
-      for (int i = 0; i < 3; ++i)
-        sxyz[tid * 4 + i] = fadd(so[tid * 4 + i], fmul(dv, sr[tid * 4 + i]));
-    }
+    if (!a.frozen) return ray_density_at(f, t, b, dv);
+    if (owner) sdev[tid] = dv;
     __syncthreads();
-    float* Wrow = sW + s * C;
-    if (!a.frozen) {
-      Interp r;
-      interp_sample(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1], sxyz[s * 4 + 2],
-                    a.w1, k, false, lane, Wrow, r);
-      if (lane == 0) sds[s] = r.ds;
-    } else {
-      const float de = fsub(sdev[s], sdm[s]);
-      float d_[2], d2_[2], wr_[2];
-      float sw = 0.f;
+    // |x_mid + de r - p|^2 = A + 2 de B + de^2 on the k frozen picks
+    const float de = fsub(sdev[s], sdm[s]);
+    float d_[2], d2_[2], wr_[2];
+    float sw = 0.f;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int rr = lane + u * LPS;
-        d_[u] = d2_[u] = wr_[u] = 0.f;
-        if (rr < k) {
-          const float A = sA[s * KSEL + rr], Bq = sBq[s * KSEL + rr];
-          d2_[u] = fmaxf(fadd(fadd(A, fmul(fmul(2.f, de), Bq)), fmul(de, de)),
-                         1e-20f);
-          d_[u] = sqrtf(d2_[u]);
-          wr_[u] = fdiv(1.f, fadd(d_[u], 1e-7f));
-          sw = fadd(sw, wr_[u]);
-        }
+    for (int u = 0; u < 2; ++u) {
+      const int rr = lane + u * LPS;
+      d_[u] = d2_[u] = wr_[u] = 0.f;
+      if (rr < k) {
+        const float A = sA[s * KSEL + rr], Bq = sBq[s * KSEL + rr];
+        d2_[u] = fmaxf(fadd(fadd(A, fmul(fmul(2.f, de), Bq)), fmul(de, de)),
+                       1e-20f);
+        d_[u] = sqrtf(d2_[u]);
+        wr_[u] = fdiv(1.f, fadd(d_[u], 1e-7f));
+        sw = fadd(sw, wr_[u]);
       }
-      sw = gsum(sw);
-      float ds = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int rr = lane + u * LPS;
-        if (rr < k) {
-          const float W8 = fdiv(wr_[u], sw);
-          const float term =
-              fadd(fmul(a.w1, fadd(sE[s * KSEL + rr],
-                                   fmul(de, sF[s * KSEL + rr]))),
-                   fmul(d_[u], d2_[u]));
-          ds = fadd(ds, fdiv(fmul(W8, term), fadd(a.w1, d_[u])));
-          sW8[s * KSEL + rr] = W8;
-        }
-      }
-      ds = gsum(ds);
-      __syncwarp();
-      for (int c = lane; c < C; c += LPS) {
-        const int rk = srank[s * C + c];
-        Wrow[c] = rk < k ? sW8[s * KSEL + rk] : 0.f;
-      }
-      if (lane == 0) sds[s] = ds;
     }
+    sw = gsum(sw);
+    float ds = 0.f;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int rr = lane + u * LPS;
+      if (rr < k) {
+        const float W8 = fdiv(wr_[u], sw);
+        const float term =
+            fadd(fmul(f.w1, fadd(sE[s * KSEL + rr],
+                                 fmul(de, sF[s * KSEL + rr]))),
+                 fmul(d_[u], d2_[u]));
+        ds = fadd(ds, fdiv(fmul(W8, term), fadd(f.w1, d_[u])));
+        sW8[s * KSEL + rr] = W8;
+      }
+    }
+    ds = gsum(ds);
+    __syncwarp();
+    float* Wrow = t.W + s * C;
+    for (int c = lane; c < C; c += LPS) {
+      const int rk = srank[s * C + c];
+      Wrow[c] = rk < k ? sW8[s * KSEL + rk] : 0.f;
+    }
+    if (lane == 0) t.ds[s] = ds;
     __syncthreads();
-    blend_stage(a.feat, (size_t)b * C * a.F, a.feat_bf16, a.F, a.gd, sW, C,
-                sFB);
-    __syncthreads();
-    density_stage(a.dens, sX, nullptr, ldx, sds, sFB, a.F, a.md, a.mfg,
-                  a.gd, a.lowp, false, sdens, nullptr);
-    return owner ? fsub(sdens[tid], a.tau) : 0.f;
-  };
-  auto pred = [&]() {
-    float denom = fsub(fh, fl);
-    if (fabsf(denom) < 1e-12f) denom = 1e-12f;
-    return fadd(fdiv(fmul(-fl, fsub(dh, dl)), denom), dl);
+    return ray_density(f, t, b);
   };
 
   if (a.rebracket) {
     const float fhr = field(dhw);
     const float flr = field(dlw);
-    if (fhr > 0.f && flr < 0.f) {
-      fh = fhr;
-      fl = flr;
-      dh = dhw;
-      dl = dlw;
-    }
+    if (fhr > 0.f && flr < 0.f) br = Bracket{dlw, flr, dhw, fhr};
   }
-  float dp = pred();
-  for (int it = 0; it < a.n_iters; ++it) {
-    const float fm = field(dp);
-    if (fm < 0.f) {
-      dl = dp;
-      fl = fm;
-    } else {
-      dh = dp;
-      fh = fm;
-    }
-    dp = pred();
-  }
-  if (valid) a.out[(size_t)b * T + r0 + tid] = dp;
+  const float dp = secant_steps(br, a.n_iters, field);
+  if (owner && r0 + tid < f.T) f.out[(size_t)b * f.T + r0 + tid] = dp;
 }
 
 }  // namespace nm
@@ -250,16 +198,16 @@ extern "C" {
 
 size_t nm_secant_refine_smem(const nm::SecantArgs* a) {
   const size_t SB = nm::SB;
-  return sizeof(float) * (8 * (size_t)a->C + SB * (3 * 4 + 4) +
-                          SB * a->F + SB * a->C + SB * a->ldx +
+  return sizeof(float) * (nm::ray_tile_floats(a->f) + 2 * SB +
                           5 * SB * nm::KSEL) +
-         SB * a->C;
+         SB * a->f.C;
 }
 
 int nm_secant_refine(const nm::SecantArgs* a, void* stream) {
-  if (a->R <= 0) return 0;
-  if (a->B <= 0 || a->B > 65535 || a->T * a->B != a->R || a->k < 1 ||
-      a->k > nm::KSEL || (a->ldx & 3) || a->ldx < 4)
+  const nm::RayField& f = a->f;
+  if (f.R <= 0) return 0;
+  if (f.B <= 0 || f.B > 65535 || f.T * f.B != f.R || f.k < 1 ||
+      f.k > nm::KSEL || (f.ldx & 3) || f.ldx < 4)
     return (int)cudaErrorInvalidValue;
   const size_t smem = nm_secant_refine_smem(a);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -267,7 +215,7 @@ int nm_secant_refine(const nm::SecantArgs* a, void* stream) {
       nm::secant_refine_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a->T + nm::SB - 1) / nm::SB, a->B);
+  dim3 grid((f.T + nm::SB - 1) / nm::SB, f.B);
   nm::secant_refine_kernel<<<grid, nm::NT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -22,7 +22,8 @@ from torch import nn
 
 from ... import resolve_device
 from ...mesh.grid import MeshGrid
-from ...nn import get_embedder, wnorm_weight
+from ...nn import (get_embedder, maybe_wnorm_apply, maybe_wnorm_apply_parts,
+                   softplus100, wnorm_weight)
 from ...ops import kernels
 
 
@@ -68,6 +69,7 @@ class NeuMesh(nn.Module):
                  learn_indicator_weight: bool = True, compute_dtype=None,
                  max_candidates: int = 96, f32_layers: tuple = (),
                  scan_candidates: int = 0, tile_kp_per_probe: int = 0,
+                 use_fused_locate: bool = False,
                  secant_full_precision: bool = True, scan_knn_k: int = 0,
                  tile_cell_budget: int = 0, secant_rebracket: bool = True,
                  secant_frozen_knn: bool = False, eval_candidates: int = 0,
@@ -91,6 +93,9 @@ class NeuMesh(nn.Module):
         self.f32_layers = tuple(f32_layers)
         self.scan_candidates = scan_candidates
         self.tile_kp_per_probe = tile_kp_per_probe
+        # the surface render's whole root search in one surface_locate
+        # launch instead of the scan + fused secant
+        self.use_fused_locate = use_fused_locate
         self.secant_full_precision = secant_full_precision
         self.scan_knn_k = scan_knn_k
         self.tile_cell_budget = tile_cell_budget
@@ -173,6 +178,37 @@ class NeuMesh(nn.Module):
         if self.learn_indicator_weight:
             return torch.sigmoid(self.indicator_weight_raw[0])
         return torch.tensor(0.1, device=self.device)
+
+    # ------------------------------------------------------------------
+    # MLPs on interpolated inputs (plain torch, outside any kernel)
+    # ------------------------------------------------------------------
+    def _density_from_interp(self, ds, fg):
+        """Geometry MLP on (embedded ds, embedded fg) -> (density (..., 1)
+        f32, d_emb). Every layer runs in compute_dtype (f32_layers do not
+        apply here); d_emb stays f32 and fg is embedded after the cast."""
+        dt = self.compute_dtype
+        d_emb = self.embed_fn_d(ds)
+        fg_emb = self.embed_fn_fg(fg if dt is None else fg.to(dt))
+        h = softplus100(maybe_wnorm_apply_parts(self.pts_linears[0],
+                                                [d_emb, fg_emb], dt))
+        for p in self.pts_linears[1:]:
+            h = softplus100(maybe_wnorm_apply(p, h, dt))
+        density = maybe_wnorm_apply(self.density_linear, h, dt)
+        return density.to(torch.float32), d_emb
+
+    def _color_from_interp(self, d_emb, view_dirs, ft, nabla):
+        """Colour MLP on [nabla (with nablas input), d_emb, view_emb,
+        ft_emb] -> rgb (..., 3) f32, every layer in compute_dtype."""
+        dt = self.compute_dtype
+        parts = [nabla] if self.enable_nablas_input else []
+        parts += [d_emb, self.embed_fn_view(view_dirs),
+                  self.embed_fn_ft(ft if dt is None else ft.to(dt))]
+        h = torch.relu(maybe_wnorm_apply_parts(self.views_linears[0], parts,
+                                               dt))
+        for p in self.views_linears[1:]:
+            h = torch.relu(maybe_wnorm_apply(p, h, dt))
+        logits = maybe_wnorm_apply(self.color_linear, h, dt)
+        return torch.sigmoid(logits.to(torch.float32))
 
     # ------------------------------------------------------------------
     # tile-shared candidate contexts
@@ -490,6 +526,38 @@ class TileBoundNeuMesh:
             logit_tau=logit_tau, d_low_w=d_low_w, d_high_w=d_high_w,
             frozen_knn=m.secant_frozen_knn)
 
+    def _fused_density(self, xyz, need_ft: bool):
+        """Density from the candidate_field_v3 kernel (ds + feature blend,
+        full tile context) and the plain-torch density MLP ->
+        (density (B, S', 1), d_emb, ft | None). The reachable branch of the
+        JAX _fused_density_nabla: its callers never ask for nablas."""
+        m = self.model
+        gd = m.geometry_dim
+        feat = self.ctx["feat"] if need_ft else self.ctx["feat"][..., :gd]
+        ds, _, feats = kernels.candidate_field_v3(
+            xyz, self.ctx["geo"], feat, self._indicator_weight(),
+            want_dh=False)
+        density, d_emb = m._density_from_interp(ds, feats[..., :gd])
+        return density, d_emb, feats[..., gd:] if need_ft else None
+
+    def fused_locate(self, rays_o, rays_d, near, far, n_steps: int = 24,
+                     n_secant: int = 6, logit_tau: float = 0.0):
+        """The whole surface root search (distance scan, bracket, density
+        re-bracket, secant) in one surface_locate launch; rays in binding
+        order, near/far (R,). The kernel's default k = 8 governs both the
+        scan and the density, and the f32_layers are kept. Returns (d_pred,
+        mask, mask_sign_change, val0_pos)."""
+        m = self.model
+        dws, _ = self._field_weights()
+        geo, feat = self._scan_ctx_slice(
+            self.ctx["geo"], self.ctx["feat"][..., :m.geometry_dim])
+        return kernels.surface_locate(
+            rays_o, rays_d, near, far, geo, feat, self._indicator_weight(),
+            dws, n_steps=n_steps, n_secant=n_secant,
+            multires_d=m.embed_fn_d.multires,
+            multires_fg=m.embed_fn_fg.multires, geometry_dim=m.geometry_dim,
+            dtype=m.compute_dtype, logit_tau=logit_tau)
+
     def compute_distance(self, xyz):
         """Interpolated mesh distance (R, S, 1) (the scan proxy, k =
         scan_knn_k or 8)."""
@@ -501,12 +569,35 @@ class TileBoundNeuMesh:
         return self._unflat(self._fused_field(self._flat(xyz),
                                               "density")[0])
 
-    def forward(self, xyz, view_dirs):
-        """(sdf (R, S), rgb (R, S, 3)) from one fused 'full' launch."""
-        if not self.model.enable_nablas_input:
-            raise NotImplementedError(
-                "the fused colour path needs enable_nablas_input=True")
-        out = self._fused_field(self._flat(xyz), "full",
-                                dirs=self._flat(view_dirs))
+    def forward_with_nablas(self, xyz):
+        """(sdf (R, S), nablas (R, S, 3)) from one fused 'density_nabla'
+        launch."""
+        out = self._fused_field(self._flat(xyz), "density_nabla")
         return (self._unflat(out[0]),
-                self._unflat(torch.stack(out[4:7], dim=-1)))
+                self._unflat(torch.stack(out[1:4], dim=-1)))
+
+    def forward_full(self, xyz, view_dirs):
+        """(sdf, rgb, nablas) at the same points: one fused 'full' launch
+        with nablas input, else forward + forward_with_nablas."""
+        if self.model.enable_nablas_input and view_dirs is not None:
+            out = self._fused_field(self._flat(xyz), "full",
+                                    dirs=self._flat(view_dirs))
+            return (self._unflat(out[0]),
+                    self._unflat(torch.stack(out[4:7], dim=-1)),
+                    self._unflat(torch.stack(out[1:4], dim=-1)))
+        sdf, rgb = self.forward(xyz, view_dirs)
+        _, nablas = self.forward_with_nablas(xyz)
+        return sdf, rgb, nablas
+
+    def forward(self, xyz, view_dirs):
+        """(sdf (R, S), rgb (R, S, 3)): one fused 'full' launch with nablas
+        input; else candidate_field_v3 and the plain-torch MLPs."""
+        m = self.model
+        x, v = self._flat(xyz), self._flat(view_dirs)
+        if m.enable_nablas_input:
+            out = self._fused_field(x, "full", dirs=v)
+            return (self._unflat(out[0]),
+                    self._unflat(torch.stack(out[4:7], dim=-1)))
+        density, d_emb, ft = self._fused_density(x, need_ft=True)
+        color = m._color_from_interp(d_emb, v, ft, None)
+        return self._unflat(density[..., 0]), self._unflat(color)

@@ -16,6 +16,30 @@ def wnorm_weight(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v * (g / torch.clamp(norm, min=1e-12))
 
 
+def maybe_wnorm_apply(layer, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """x @ w + b for a layer with `weight()` (in, out) and `b` (out,).
+    With `dtype` the product is rounded to it and the bias added in it
+    (the layer runs and returns in `dtype`); without, true f32."""
+    return maybe_wnorm_apply_parts(layer, [x], dtype)
+
+
+def maybe_wnorm_apply_parts(layer, parts, dtype=None) -> torch.Tensor:
+    """linear(concat(parts, -1)) as a sum of per-part products over the
+    matching weight row blocks, starting from the bias; with `dtype` each
+    product is rounded to it and the sum runs in it."""
+    w = layer.weight()
+    out = layer.b if dtype is None else layer.b.to(dtype)
+    lo = 0
+    for x in parts:
+        wi = w[lo:lo + x.shape[-1]]
+        lo += x.shape[-1]
+        if dtype is None:
+            out = out + x.to(torch.float32) @ wi
+        else:
+            out = out + x.to(dtype) @ wi.to(dtype)
+    return out
+
+
 def softplus100(x: torch.Tensor) -> torch.Tensor:
     """Softplus with beta=100 and torch's threshold 20 (identity above)."""
     bx = 100.0 * x

@@ -29,9 +29,15 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "neumesh_tpu_torch")
 SOURCES = {"field_fused": "field_fused.cu",
-           "secant_refine": "secant_refine.cu"}
-ENTRY = {"field_fused": "nm_field_fused",
-         "secant_refine": "nm_secant_refine"}
+           "secant_refine": "secant_refine.cu",
+           "surface_locate": "surface_locate.cu",
+           "candidate_field": "candidate_field.cu"}
+# kernel -> (library built from SOURCES, C entry point)
+ENTRY = {"field_fused": ("field_fused", "nm_field_fused"),
+         "secant_refine": ("secant_refine", "nm_secant_refine"),
+         "surface_locate": ("surface_locate", "nm_surface_locate"),
+         "candidate_field_v3": ("candidate_field", "nm_candidate_field_v3"),
+         "candidate_field": ("candidate_field", "nm_candidate_field")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -57,17 +63,39 @@ class FieldArgs(ctypes.Structure):
                    ("col", MLPDesc)])
 
 
-class SecantArgs(ctypes.Structure):
+class RayField(ctypes.Structure):
     _fields_ = ([(n, ctypes.c_void_p)
-                 for n in ("rays_o", "rays_d", "d_low", "d_high", "f_low",
-                           "f_high", "d_low_w", "d_high_w", "geo", "feat",
-                           "out")]
+                 for n in ("rays_o", "rays_d", "geo", "feat", "out")]
                 + [(n, ctypes.c_int)
-                   for n in ("feat_bf16", "R", "B", "T", "C", "F", "k",
-                             "n_iters", "md", "mfg", "gd", "lowp", "ldx",
-                             "rebracket", "frozen")]
+                   for n in ("feat_bf16", "R", "B", "T", "C", "F", "k", "md",
+                             "mfg", "gd", "lowp", "ldx")]
                 + [("w1", ctypes.c_float), ("tau", ctypes.c_float),
                    ("dens", MLPDesc)])
+
+
+class SecantArgs(ctypes.Structure):
+    _fields_ = ([("f", RayField)]
+                + [(n, ctypes.c_void_p)
+                   for n in ("d_low", "d_high", "f_low", "f_high", "d_low_w",
+                             "d_high_w")]
+                + [(n, ctypes.c_int)
+                   for n in ("n_iters", "rebracket", "frozen")])
+
+
+class CandArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("xyz", "geo", "pts", "pp", "ind", "vn", "feat",
+                           "out_d", "out_dh", "out_feat")]
+                + [(n, ctypes.c_int)
+                   for n in ("B", "S", "C", "F", "k", "want_dh",
+                             "want_feat")]
+                + [("w1", ctypes.c_float)])
+
+
+class LocateArgs(ctypes.Structure):
+    _fields_ = ([("f", RayField), ("near", ctypes.c_void_p),
+                 ("far", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in ("n_steps", "n_secant")])
 
 
 _LIBS: dict = {}
@@ -123,6 +151,7 @@ def build_all() -> dict:
 
 
 def _lib(name: str):
+    """The library built from SOURCES[name], every entry point bound."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
@@ -130,9 +159,11 @@ def _lib(name: str):
             if not os.path.exists(path):
                 build_all()
             lib = ctypes.CDLL(path)
-            fn = getattr(lib, ENTRY[name])
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
+            for src, entry in ENTRY.values():
+                if src == name:
+                    fn = getattr(lib, entry)
+                    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                    fn.restype = ctypes.c_int
             lib.nm_error_string.argtypes = [ctypes.c_int]
             lib.nm_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
@@ -141,10 +172,10 @@ def _lib(name: str):
 
 def launch(name: str, args) -> None:
     """Launch kernel `name` on PyTorch's current stream."""
-    lib = _lib(name)
+    src, entry = ENTRY[name]
+    lib = _lib(src)
     stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, ENTRY[name])(ctypes.addressof(args),
-                                   ctypes.c_void_p(stream))
+    rc = getattr(lib, entry)(ctypes.addressof(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cuda error {rc} "
                            f"({lib.nm_error_string(rc).decode()})")

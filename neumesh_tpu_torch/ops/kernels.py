@@ -1,10 +1,12 @@
-"""The two fused NeuMesh field kernels of the volume path: wrappers,
-launch counters and plain PyTorch versions.
+"""The NeuMesh field kernels: wrappers, launch counters and plain PyTorch
+versions.
 
-  field_fused    <- neumesh_tpu/ops/pallas_kernels.py::_field_kernel
-                    (csrc/field_fused.cu)
-  secant_refine  <- neumesh_tpu/ops/pallas_kernels.py::_secant_kernel
-                    (csrc/secant_refine.cu)
+  field_fused         <- neumesh_tpu/ops/pallas_kernels.py::_field_kernel
+                         (csrc/field_fused.cu)
+  secant_refine       <- ::_secant_kernel (csrc/secant_refine.cu)
+  surface_locate      <- ::_locate_kernel (csrc/surface_locate.cu)
+  candidate_field_v3  <- ::_v3_kernel (csrc/candidate_field.cu)
+  candidate_field     <- ::_kernel, v2 (csrc/candidate_field.cu)
 
 A wrapper launches its CUDA kernel for CUDA tensors (or raises) and uses
 the plain version only for CPU tensors; nothing falls back. The plain
@@ -24,12 +26,16 @@ import torch
 from ..nn import softplus100, softplus100_grad
 
 _N_OUT = {"distance": 1, "density": 1, "density_nabla": 4, "full": 7}
+_CAND_MODES = ("ds_feat", "ds_nofeat", "ds_dh_feat", "ds_dh_nofeat")
 
 # launches of each kernel per mode, counted where the kernel is launched
 LAUNCHES = {
     "field_fused": {w: 0 for w in _N_OUT},
     "secant_refine": {"plain": 0, "rebracket": 0, "frozen": 0,
                       "frozen_rebracket": 0},
+    "surface_locate": {"bf16": 0, "f32": 0},
+    "candidate_field_v3": {m: 0 for m in _CAND_MODES},
+    "candidate_field": {m: 0 for m in _CAND_MODES},
 }
 
 
@@ -43,6 +49,11 @@ def secant_mode(rebracket: bool, frozen: bool) -> str:
     if frozen:
         return "frozen_rebracket" if rebracket else "frozen"
     return "rebracket" if rebracket else "plain"
+
+
+def candidate_mode(want_dh: bool, want_feat: bool) -> str:
+    return ("ds_dh" if want_dh else "ds") + ("_feat" if want_feat
+                                            else "_nofeat")
 
 
 # ---------------------------------------------------------------------------
@@ -111,9 +122,12 @@ def _geo_rows(geo):
     return [geo[:, i:i + 1, :] for i in range(8)]          # (B, 1, C) each
 
 
-def _interp_distance(x0, x1, x2, geo, w1, k: int, want_dh: bool):
+def _interp_distance(x0, x1, x2, geo, w1, k: int, want_dh: bool,
+                     k1_proxy: bool = True, v2_dh: bool = False):
     """Interpolated distance of (B, S, 1) points against (B, 8, C) contexts
-    -> (ds (B, S, 1), W (B, S, C)[, (dhx, dhy, dhz)])."""
+    -> (ds (B, S, 1), W (B, S, C)[, (dhx, dhy, dhz)]). k1_proxy: k = 1
+    without dh takes the field kernels' nearest-tangent-plane proxy;
+    v2_dh: dh in candidate_field (v2)'s summation order."""
     px, py, pz, ix, iy, iz, pp, vn = _geo_rows(geo)
     C = geo.shape[-1]
     iota = torch.arange(C, device=geo.device, dtype=torch.float32)
@@ -122,7 +136,7 @@ def _interp_distance(x0, x1, x2, geo, w1, k: int, want_dh: bool):
     d2 = torch.clamp(xx + pp - 2.0 * xv, min=0.0)
     d2_tb = d2 * (1.0 + iota * 2e-7)
 
-    if k == 1 and not want_dh:
+    if k1_proxy and k == 1 and not want_dh:
         # nearest-tangent-plane proxy: one-hot argmin, then the sqrt/divide
         # chain on a single column
         thr1 = torch.amin(d2_tb, dim=-1, keepdim=True)
@@ -149,9 +163,16 @@ def _interp_distance(x0, x1, x2, geo, w1, k: int, want_dh: bool):
     ds = torch.sum(W * term * inv, dim=-1, keepdim=True)
     if not want_dh:
         return ds, W
-    A = W * (w1 * inv)
     B = W * (3.0 * d2 * (w1 + d) - term) * inv * inv / d
     sB = torch.sum(B, dim=-1, keepdim=True)
+    if v2_dh:
+        A = W * w1 * inv
+
+        def col(n, p, x):
+            return (torch.sum(A * n, dim=-1, keepdim=True) + sB * x
+                    - torch.sum(B * p, dim=-1, keepdim=True))
+        return ds, W, (col(ix, px, x0), col(iy, py, x1), col(iz, pz, x2))
+    A = W * (w1 * inv)
     dhx = torch.sum(A * ix - B * px, dim=-1, keepdim=True) + sB * x0
     dhy = torch.sum(A * iy - B * py, dim=-1, keepdim=True) + sB * x1
     dhz = torch.sum(A * iz - B * pz, dim=-1, keepdim=True) + sB * x2
@@ -454,13 +475,6 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
     from . import _build
 
     R = rays_o.shape[0]
-    B, _, C = geo.shape
-    if R % B:
-        raise ValueError(f"secant_refine: {R} rays do not tile {B} contexts")
-    if dtype is not None:
-        feat = feat.to(dtype)
-    feat = feat.contiguous()
-    _check_inputs(rays_o, geo, feat, rays_d)
     for v in (d_low, d_high, f_low, f_high, d_low_w, d_high_w):
         if v is not None and tuple(v.shape) != (R,):
             raise ValueError(f"secant_refine: bracket {tuple(v.shape)}, "
@@ -472,28 +486,282 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
     if R == 0:
         return out
     keep = []
-    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
+    field = _ray_field("secant_refine", rays_o, rays_d, geo, feat, w1,
+                       dens_ws, out, k, multires_d, multires_fg,
+                       geometry_dim, dtype, logit_tau, keep)
     vec = [v.to(torch.float32).contiguous()
            for v in (d_low, d_high, f_low, f_high)]
     wvec = ([d_low_w.to(torch.float32).contiguous(),
              d_high_w.to(torch.float32).contiguous()] if rebracket
             else [None, None])
     args = _build.SecantArgs(
-        rays_o=_ptr(rays_o.contiguous(), keep),
-        rays_d=_ptr(rays_d.contiguous(), keep),
-        d_low=_ptr(vec[0], keep), d_high=_ptr(vec[1], keep),
+        f=field, d_low=_ptr(vec[0], keep), d_high=_ptr(vec[1], keep),
         f_low=_ptr(vec[2], keep), f_high=_ptr(vec[3], keep),
         d_low_w=_ptr(wvec[0], keep), d_high_w=_ptr(wvec[1], keep),
-        geo=_ptr(geo.contiguous(), keep), feat=_ptr(feat, keep),
-        out=out.data_ptr(), feat_bf16=int(feat.dtype == torch.bfloat16),
-        R=R, B=B, T=R // B, C=C, F=feat.shape[-1], k=k, n_iters=n_iters,
-        md=multires_d, mfg=multires_fg, gd=geometry_dim,
-        lowp=int(dtype is not None), ldx=ldx, rebracket=int(rebracket),
-        frozen=int(frozen_knn), w1=float(w1), tau=float(logit_tau),
-        dens=dens_d)
+        n_iters=n_iters, rebracket=int(rebracket), frozen=int(frozen_knn))
     _build.launch("secant_refine", args)
     LAUNCHES["secant_refine"][secant_mode(rebracket, frozen_knn)] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# surface_locate
+# ---------------------------------------------------------------------------
+
+def _pad_candidates(geo, feat=None):
+    """C padded to a multiple of 128 with (v = 0, pp = 1e12) sentinel
+    columns and zero features, as the TPU kernels pad. The sentinel d2 ~
+    1e12 is never selected while k real candidates exist and keeps
+    d * d2 ~ 1e18 finite (a 1e9 position with pp = 0 would clamp d2 to 0
+    and make the pad the nearest candidate)."""
+    B, _, C = geo.shape
+    cpad = (-C) % 128
+    if not cpad:
+        return geo, feat
+    fill = torch.zeros((B, 8, cpad), device=geo.device, dtype=geo.dtype)
+    fill[:, 6] = 1e12
+    geo = torch.cat([geo, fill], dim=2)
+    if feat is not None:
+        feat = torch.cat([feat, feat.new_zeros((B, cpad, feat.shape[-1]))],
+                         dim=1)
+    return geo, feat
+
+
+def surface_locate_plain(rays_o, rays_d, near, far, geo, feat, w1, dens_ws,
+                         *, n_steps: int = 24, n_secant: int = 6, k: int = 8,
+                         multires_d: int = 8, multires_fg: int = 2,
+                         geometry_dim: int = 32, dtype=None,
+                         logit_tau: float = 0.0):
+    """Plain PyTorch version of surface_locate (same signature)."""
+    R = rays_o.shape[0]
+    B = geo.shape[0]
+    T = R // B
+    geo, feat = _pad_candidates(geo, feat)
+    if dtype is not None:
+        feat = feat.to(dtype)
+
+    def tiles(v):
+        return v.reshape(B, T, 1)
+
+    o = [tiles(rays_o[:, i]) for i in range(3)]
+    r = [tiles(rays_d[:, i]) for i in range(3)]
+    near, far = tiles(near), tiles(far)
+    step = (far - near) / max(n_steps - 1, 1)
+
+    def interp(dv):
+        return _interp_distance(o[0] + dv * r[0], o[1] + dv * r[1],
+                                o[2] + dv * r[2], geo, w1, k, False)
+
+    def dist(dv):
+        return interp(dv)[0] - logit_tau
+
+    def dens(dv):
+        ds, W = interp(dv)
+        fg = _feat_dot(W, feat)[..., :geometry_dim]
+        f, _ = _density_mlp(ds, fg, dens_ws, multires_d, multires_fg, dtype,
+                            False)
+        return f - logit_tau
+
+    # first sign change of the distance, carried as f32 0/1 flags and
+    # arithmetic selects like the TPU kernel
+    f_prev = dist(near)
+    d_prev = near
+    one = torch.ones_like(f_prev)
+    val0_pos = (f_prev > 0).to(torch.float32)
+    found = torch.zeros_like(f_prev)
+    pos2neg = torch.zeros_like(f_prev)
+    d_high, f_high, d_low, f_low = near, one, far, -one
+    for j in range(1, n_steps):
+        dv = near + step * j
+        f_cur = dist(dv)
+        crossed = (torch.sign(f_prev) * torch.sign(f_cur) < 0).to(
+            torch.float32)
+        cross = crossed * (1.0 - found)
+        d_high = d_high + cross * (d_prev - d_high)
+        f_high = f_high + cross * (f_prev - f_high)
+        d_low = d_low + cross * (dv - d_low)
+        f_low = f_low + cross * (f_cur - f_low)
+        pos2neg = pos2neg + cross * (f_prev > 0).to(torch.float32)
+        found = found + cross
+        d_prev, f_prev = dv, f_cur
+    mask = found * pos2neg * val0_pos
+
+    # density re-bracket at the half-step-widened endpoints
+    d_high_w = torch.maximum(d_high - 0.5 * step, near)
+    d_low_w = torch.minimum(d_low + 0.5 * step, far)
+    f_high_r = dens(d_high_w)
+    f_low_r = dens(d_low_w)
+    ok = ((f_high_r > 0) & (f_low_r < 0)).to(torch.float32)
+    f_high = f_high + ok * (f_high_r - f_high)
+    f_low = f_low + ok * (f_low_r - f_low)
+    d_high = d_high + ok * (d_high_w - d_high)
+    d_low = d_low + ok * (d_low_w - d_low)
+
+    d_pred = secant_pred(f_low, f_high, d_low, d_high)
+    for _ in range(n_secant):
+        f_mid = dens(d_pred)
+        low = f_mid < 0
+        d_low = torch.where(low, d_pred, d_low)
+        f_low = torch.where(low, f_mid, f_low)
+        d_high = torch.where(low, d_high, d_pred)
+        f_high = torch.where(low, f_high, f_mid)
+        d_pred = secant_pred(f_low, f_high, d_low, d_high)
+    return (d_pred.reshape(R), mask.reshape(R) > 0.5,
+            found.reshape(R) > 0.5, val0_pos.reshape(R) > 0.5)
+
+
+def surface_locate(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, *,
+                   n_steps: int = 24, n_secant: int = 6, k: int = 8,
+                   multires_d: int = 8, multires_fg: int = 2,
+                   geometry_dim: int = 32, dtype=None,
+                   logit_tau: float = 0.0):
+    """The whole surface root search in one launch: the n_steps distance
+    scan over [near, far], the first crossing, the density re-bracket at
+    the half-step-widened endpoints and n_secant secant steps. rays_o/d
+    (R, 3) with consecutive rays grouped into R // B tiles matching geo
+    (B, 8, C) / feat (B, C, F); near/far (R,). Returns (d_pred (R,),
+    mask, mask_sign_change, val0_pos (R,) bool)."""
+    kw = dict(n_steps=n_steps, n_secant=n_secant, k=k,
+              multires_d=multires_d, multires_fg=multires_fg,
+              geometry_dim=geometry_dim, dtype=dtype, logit_tau=logit_tau)
+    if not rays_o.is_cuda:
+        return surface_locate_plain(rays_o, rays_d, near, far, geo, feat, w1,
+                                    dens_ws, **kw)
+    from . import _build
+
+    R = rays_o.shape[0]
+    geo, feat = _pad_candidates(geo, feat)
+    for v in (near, far):
+        if tuple(v.shape) != (R,) or v.device != rays_o.device:
+            raise ValueError(f"surface_locate: near/far {tuple(v.shape)} on "
+                             f"{v.device}, want ({R},) on {rays_o.device}")
+    out = torch.empty((4, R), device=rays_o.device, dtype=torch.float32)
+    if R == 0:
+        return out[0], *(out[1:] > 0.5)
+    keep = []
+    field = _ray_field("surface_locate", rays_o, rays_d, geo, feat, w1,
+                       dens_ws, out, k, multires_d, multires_fg,
+                       geometry_dim, dtype, logit_tau, keep)
+    args = _build.LocateArgs(
+        f=field, near=_ptr(near.to(torch.float32).contiguous(), keep),
+        far=_ptr(far.to(torch.float32).contiguous(), keep),
+        n_steps=n_steps, n_secant=n_secant)
+    _build.launch("surface_locate", args)
+    LAUNCHES["surface_locate"]["f32" if dtype is None else "bf16"] += 1
+    return out[0], out[1] > 0.5, out[2] > 0.5, out[3] > 0.5
+
+
+# ---------------------------------------------------------------------------
+# candidate_field_v3 and candidate_field (v2)
+# ---------------------------------------------------------------------------
+
+def _candidate_plain(xyz, geo, feat, w1, k, want_dh, want_feat, v2):
+    x0, x1, x2 = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+    out = _interp_distance(x0, x1, x2, geo, w1, k, want_dh, k1_proxy=False,
+                           v2_dh=v2)
+    dh = torch.cat(out[2], dim=-1) if want_dh else None
+    feats = out[1] @ feat.to(torch.float32) if want_feat else None
+    return out[0], dh, feats
+
+
+def candidate_field_v3_plain(xyz, geo, feat, w1, *, k: int = 8,
+                             want_dh: bool = True, want_feat: bool = True):
+    """Plain PyTorch version of candidate_field_v3 (same signature)."""
+    geo, feat = _pad_candidates(geo, feat if want_feat else None)
+    return _candidate_plain(xyz, geo, feat, w1, k, want_dh, want_feat, False)
+
+
+def candidate_field_v3(xyz, geo, feat, w1, *, k: int = 8,
+                       want_dh: bool = True, want_feat: bool = True):
+    """The candidate stage alone for (B, S, 3) samples against (B, 8, C)
+    tile contexts: ds, optionally the closed-form dh, optionally the kNN
+    feature blend of (B, C, F) features in exact f32; C is padded to a
+    multiple of 128 with sentinels. Returns (ds (B, S, 1), dh (B, S, 3) |
+    None, feats (B, S, F) | None)."""
+    if not xyz.is_cuda:
+        return candidate_field_v3_plain(xyz, geo, feat, w1, k=k,
+                                        want_dh=want_dh, want_feat=want_feat)
+    from . import _build
+
+    geo, feat = _pad_candidates(geo, feat if want_feat else None)
+    B, S, _ = xyz.shape
+    C = geo.shape[2]
+    feat = (feat.to(torch.float32).contiguous() if want_feat
+            else geo.new_zeros((B, C, 1)))
+    _check_inputs(xyz, geo, feat, None)
+    F = feat.shape[-1] if want_feat else 0
+    dev = xyz.device
+    packed = torch.empty((B, S, 4 if want_dh else 1), device=dev,
+                         dtype=torch.float32)
+    feats = (torch.empty((B, S, F), device=dev, dtype=torch.float32)
+             if want_feat else None)
+    if B and S:
+        keep = []
+        args = _build.CandArgs(
+            xyz=_ptr(xyz.contiguous(), keep), geo=_ptr(geo.contiguous(), keep),
+            feat=_ptr(feat, keep), out_d=packed.data_ptr(),
+            out_feat=_ptr(feats, keep), B=B, S=S, C=C, F=F, k=k,
+            want_dh=int(want_dh), want_feat=int(want_feat), w1=float(w1))
+        _build.launch("candidate_field_v3", args)
+        LAUNCHES["candidate_field_v3"][candidate_mode(want_dh,
+                                                      want_feat)] += 1
+    return (packed[..., 0:1], packed[..., 1:4] if want_dh else None, feats)
+
+
+def candidate_field_plain(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
+                          want_dh: bool = True, want_feat: bool = True):
+    """Plain PyTorch version of candidate_field (same signature)."""
+    geo = torch.cat([pts.transpose(1, 2), ind.transpose(1, 2),
+                     pp[:, None, :], vn[:, None, :]], dim=1)
+    return _candidate_plain(xyz, geo, feat, w1, k, want_dh, want_feat, True)
+
+
+def candidate_field(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
+                    want_dh: bool = True, want_feat: bool = True):
+    """candidate_field_v3's maths in the per-ray layout: xyz (R, S, 3)
+    against each ray's own candidates pts/ind (R, C, 3), pp/vn (R, C),
+    feat (R, C, F); C is not padded and dh sums in v2's order. Returns
+    (ds (R, S, 1), dh (R, S, 3) | None, feats (R, S, F) | None)."""
+    if not xyz.is_cuda:
+        return candidate_field_plain(xyz, pts, pp, ind, vn, feat, w1, k=k,
+                                     want_dh=want_dh, want_feat=want_feat)
+    from . import _build
+
+    R, S, _ = xyz.shape
+    C = pts.shape[1]
+    for name, t, shape in (("pts", pts, (R, C, 3)), ("ind", ind, (R, C, 3)),
+                           ("pp", pp, (R, C)), ("vn", vn, (R, C)),
+                           ("xyz", xyz, (R, S, 3))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != xyz.device:
+            raise ValueError(f"candidate_field: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, want {shape} "
+                             f"float32 on {xyz.device}")
+    if want_feat and (feat.dim() != 3 or tuple(feat.shape[:2]) != (R, C)
+                      or feat.device != xyz.device):
+        raise ValueError(f"candidate_field: feat {tuple(feat.shape)}, want "
+                         f"({R}, {C}, F)")
+    dev = xyz.device
+    F = feat.shape[-1] if want_feat else 0
+    ds = torch.empty((R, S, 1), device=dev, dtype=torch.float32)
+    dh = (torch.empty((R, S, 3), device=dev, dtype=torch.float32)
+          if want_dh else None)
+    feats = (torch.empty((R, S, F), device=dev, dtype=torch.float32)
+             if want_feat else None)
+    if R and S:
+        keep = []
+        args = _build.CandArgs(
+            xyz=_ptr(xyz.contiguous(), keep), pts=_ptr(pts.contiguous(), keep),
+            pp=_ptr(pp.contiguous(), keep), ind=_ptr(ind.contiguous(), keep),
+            vn=_ptr(vn.contiguous(), keep),
+            feat=_ptr(feat.to(torch.float32).contiguous() if want_feat
+                      else None, keep),
+            out_d=ds.data_ptr(), out_dh=_ptr(dh, keep),
+            out_feat=_ptr(feats, keep), B=R, S=S, C=C, F=F, k=k,
+            want_dh=int(want_dh), want_feat=int(want_feat), w1=float(w1))
+        _build.launch("candidate_field", args)
+        LAUNCHES["candidate_field"][candidate_mode(want_dh, want_feat)] += 1
+    return ds, dh, feats
 
 
 # ---------------------------------------------------------------------------
@@ -555,6 +823,31 @@ def _mlp_desc(layers, keep):
     return desc, _align4(ldx)
 
 
+def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,
+               multires_d, multires_fg, geometry_dim, dtype, logit_tau, keep):
+    """The RayField block shared by secant_refine and surface_locate: R
+    rays in R // B consecutive tiles of geo (B, 8, C) / feat (B, C, F)."""
+    from . import _build
+
+    R = rays_o.shape[0]
+    B, _, C = geo.shape
+    if R % B:
+        raise ValueError(f"{name}: {R} rays do not tile {B} contexts")
+    if dtype is not None:
+        feat = feat.to(dtype)
+    feat = feat.contiguous()
+    _check_inputs(rays_o, geo, feat, rays_d)
+    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
+    return _build.RayField(
+        rays_o=_ptr(rays_o.contiguous(), keep),
+        rays_d=_ptr(rays_d.contiguous(), keep),
+        geo=_ptr(geo.contiguous(), keep), feat=_ptr(feat, keep),
+        out=out.data_ptr(), feat_bf16=int(feat.dtype == torch.bfloat16),
+        R=R, B=B, T=R // B, C=C, F=feat.shape[-1], k=k, md=multires_d,
+        mfg=multires_fg, gd=geometry_dim, lowp=int(dtype is not None),
+        ldx=ldx, w1=float(w1), tau=float(logit_tau), dens=dens_d)
+
+
 def _ptr(t, keep):
     if t is None:
         return None
@@ -592,5 +885,7 @@ def _check_inputs(xyz, geo, feat, dirs):
 
 
 __all__ = ["field_fused", "field_fused_plain", "secant_refine",
-           "secant_refine_plain", "secant_pred", "LAUNCHES",
-           "reset_launch_counts"]
+           "secant_refine_plain", "secant_pred", "surface_locate",
+           "surface_locate_plain", "candidate_field_v3",
+           "candidate_field_v3_plain", "candidate_field",
+           "candidate_field_plain", "LAUNCHES", "reset_launch_counts"]

@@ -1,11 +1,15 @@
-"""DVR-style root finding (counterpart of neumesh_tpu/render/ray_casting.py
-run_secant_method and root_finding_surface_points). Sign convention:
-(+) outside, (-) inside."""
+"""Surface rendering (counterpart of neumesh_tpu/render/ray_casting.py):
+DVR-style root finding and sphere tracing, composed into surface_render
+(tiled branch) and the frame entry render_surface_image. Sign
+convention: (+) outside, (-) inside."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .. import resolve_device, set_fp32_precision
 from ..ops.kernels import secant_pred
+from ..ops.rays import block_order_indices, get_rays, near_far_from_sphere
 
 
 def run_secant_method(f_low, f_high, d_low, d_high, rays_o, rays_d,
@@ -90,10 +94,208 @@ def root_finding_surface_points(surface_query_fn, rays_o, rays_d, near, far,
                                    rays_d, secant_fn, N_secant_steps,
                                    logit_tau)
 
+    d_out, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask,
+                                 mask_0_not_occupied, far, fill_inf)
+    return d_out, pt_pred, mask, mask_sign_change
+
+
+def _hit_points(rays_o, rays_d, d_pred, mask, val0_pos, far, fill_inf):
+    """(depth, point) per ray: misses get inf (fill_inf) or far and the
+    point (1, 1, 1); rays starting inside the surface get depth 0."""
     pt_pred = torch.where(mask[..., None],
                           rays_o + d_pred[..., None] * rays_d,
                           torch.ones_like(rays_o))
     miss = torch.full_like(far, float("inf")) if fill_inf else far
     d_out = torch.where(mask, d_pred, miss)
-    d_out = torch.where(mask_0_not_occupied, d_out, torch.zeros_like(d_out))
-    return d_out, pt_pred, mask, mask_sign_change
+    d_out = torch.where(val0_pos, d_out, torch.zeros_like(d_out))
+    return d_out, pt_pred
+
+
+def sphere_tracing_surface_points(surface_query_fn, rays_o, rays_d,
+                                  near=0.0, far=6.0, N_iters: int = 20):
+    """Sphere tracing: every ray steps by the queried value N_iters times
+    and leaves the mask once its depth passes far or goes below 0.
+    Returns (d_pred (R,), pts (R, 3), mask (R,))."""
+    shape = rays_o.shape[:-1]
+    d_preds = torch.broadcast_to(
+        torch.as_tensor(near, dtype=torch.float32, device=rays_o.device),
+        shape).clone()
+    mask = torch.ones(shape, dtype=torch.bool, device=rays_o.device)
+    for _ in range(N_iters):
+        pts = rays_o + rays_d * d_preds[..., None]
+        d_preds = torch.where(mask, d_preds + surface_query_fn(pts), d_preds)
+        mask = mask & (d_preds <= far) & (d_preds >= 0)
+    return d_preds, rays_o + rays_d * d_preds[..., None], mask
+
+
+@torch.no_grad()
+def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
+                   ray_casting_algo: str = "root_finding",
+                   ray_casting_cfgs=None, ray_tile: int = 0,
+                   scan_mode: str = "density", tile_max_candidates=None,
+                   shade_composite: int = 0, shade_topk: int = 0,
+                   shade_win_frac: float = 0.5, shade_window: float = 0.0,
+                   device="cuda"):
+    """Cast (..., 3) rays to the zero level set, then shade once per ray.
+
+    Rays bind to tile-shared candidate contexts of `ray_tile` consecutive
+    rays (ray_tile > 1 must divide the ray count); every query runs on the
+    bound model's kernels. scan_mode="distance" scans the interpolated
+    mesh distance and refines on the density (scan + fused secant, or one
+    surface_locate launch with use_fused_locate). The hit is shaded by one
+    fused (sdf, rgb, nablas) query, or with shade_composite > 0 by the
+    volume renderer's root-anchored tail (density at shade_composite
+    depths around the root, colour at the shade_topk highest-visibility
+    midpoints) with normals from one density_nabla query. Returns (rgb
+    (..., 3), depth (...), {"implicit_nablas", "mask_surface",
+    "normals_surface" (calc_normal)})."""
+    dev = resolve_device(device)
+    if model.device.type != dev.type:
+        raise ValueError(f"model on {model.device}, device={dev}")
+    if dev.type == "cuda":
+        set_fp32_precision()
+    cfgs = dict(ray_casting_cfgs or {})
+    shape = rays_o.shape[:-1]
+    rays_o = rays_o.reshape(-1, 3).to(torch.float32)
+    rays_d = rays_d.reshape(-1, 3).to(torch.float32)
+    rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    R = rays_o.shape[0]
+    near, far = near_far_from_sphere(rays_o, rays_d, keepdim=False)
+    tb = model.bind_rays_tiled(rays_o, rays_d, near[:, None], far[:, None],
+                               tile=ray_tile,
+                               max_candidates=tile_max_candidates)
+    if tb is None:
+        raise ValueError(
+            "surface_render needs the tiled candidate binding: ray_tile > 1 "
+            f"dividing the ray count (ray_tile={ray_tile}, rays={R})")
+    bound, near_b, far_b = tb
+    near, far = near_b[:, 0], far_b[:, 0]
+    for key, v in (("near", near), ("far", far)):
+        cfgs[key] = torch.broadcast_to(torch.as_tensor(
+            cfgs.get(key, v), dtype=torch.float32, device=rays_o.device),
+            (R,))
+
+    def query_fn(pts):
+        if pts.dim() == 2:      # (R, 3) secant / tracing queries
+            return bound.forward_density_only(pts[:, None, :])[..., 0]
+        return bound.forward_density_only(pts)
+
+    scan_fn, refine_fn = query_fn, None
+    if scan_mode == "distance":
+        def scan_fn(pts):
+            return bound.compute_distance(pts)[..., 0]
+        refine_fn = query_fn
+
+    def secant_override(f_low, f_high, d_low, d_high, n, tau, d_low_w=None,
+                        d_high_w=None):
+        return bound.fused_secant(rays_o, rays_d, d_low, d_high, f_low,
+                                  f_high, n_iters=n, logit_tau=tau,
+                                  d_low_w=d_low_w, d_high_w=d_high_w)
+
+    if (ray_casting_algo == "root_finding" and scan_mode == "distance"
+            and model.use_fused_locate):
+        d_pred, mask, _, val0_pos = bound.fused_locate(
+            rays_o, rays_d, cfgs["near"], cfgs["far"],
+            n_steps=cfgs.get("N_steps", 24),
+            n_secant=cfgs.get("N_secant_steps", 6),
+            logit_tau=cfgs.get("logit_tau", 0.0))
+        d_pred, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask, val0_pos,
+                                      cfgs["far"], cfgs.get("fill_inf", True))
+    elif ray_casting_algo == "root_finding":
+        cfgs.setdefault("rebracket", model.secant_rebracket)
+        d_pred, pt_pred, mask, _ = root_finding_surface_points(
+            scan_fn, rays_o, rays_d, refine_query_fn=refine_fn,
+            secant_override=secant_override, **cfgs)
+    elif ray_casting_algo == "sphere_tracing":
+        d_pred, pt_pred, mask = sphere_tracing_surface_points(
+            query_fn, rays_o, rays_d,
+            **{k: v for k, v in cfgs.items()
+               if k in ("near", "far", "N_iters")})
+    else:
+        raise NotImplementedError(ray_casting_algo)
+
+    if shade_composite > 0:
+        from .volume import _render_core, root_anchored_depths
+        win = (shade_window if shade_window
+               else torch.clamp(6.0 / bound.forward_s(), 0.02, 0.5))
+        d_shade = root_anchored_depths(near[:, None], far[:, None], d_pred,
+                                       mask, shade_composite, win,
+                                       shade_win_frac)
+        color = _render_core(
+            bound, rays_o, rays_d, near[:, None], far[:, None],
+            white_bkgd=False, perturb=False, generator=None,
+            N_samples=shade_composite, N_importance=0, N_upsample_iters=1,
+            phi_s_base=256.0, reuse_upsample_sdf=False,
+            color_topk=shade_topk, d_all_override=d_shade)["rgb"]
+        if calc_normal:
+            _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
+        else:
+            nablas = torch.zeros_like(pt_pred)[:, None, :]
+    else:
+        _, color, nablas = bound.forward_full(pt_pred[:, None, :],
+                                              rays_d[:, None, :])
+        color = color[:, 0]
+    color = torch.where(mask[:, None], color, torch.zeros_like(color))
+    nablas = nablas[:, 0]
+
+    extras = {"implicit_nablas": nablas, "mask_surface": mask}
+    if calc_normal:
+        normals = nablas / torch.clamp(
+            torch.linalg.vector_norm(nablas, dim=-1, keepdim=True), min=1e-12)
+        extras["normals_surface"] = torch.where(mask[:, None], normals,
+                                                torch.zeros_like(normals))
+    return (color.reshape(shape + (3,)), d_pred.reshape(shape),
+            {k: v.reshape(shape + v.shape[1:]) for k, v in extras.items()})
+
+
+@torch.no_grad()
+def render_surface_image(model, c2w, K, H: int, W: int, *,
+                         ray_tile: int = 128, rayschunk: int = 0,
+                         N_steps: int = 128, N_secant_steps: int = 8,
+                         scan_mode: str = "density", device="cuda",
+                         **kwargs):
+    """One surface-rendered frame (the render CLI's surface mode): camera
+    rays -> pixel blocks of ray_tile rays (block height int(sqrt(tile //
+    2)), halved until the block divides the frame) -> chunks of a
+    tile-multiple size, the last edge-padded -> surface_render with
+    fill_inf=False and normals -> raster order. c2w (4, 4), K (3|4, 3|4);
+    kwargs go to surface_render. Returns (rgb (H, W, 3), depth (H, W),
+    {"normals_surface" (H, W, 3), "mask_surface" (H, W)})."""
+    dev = resolve_device(device)
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
+    K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+    rays_o, rays_d = get_rays(c2w, K, H, W)
+    bh = max(1, int(np.sqrt(ray_tile // 2)))
+    bw = ray_tile // bh
+    while bh > 1 and (H % bh or W % bw):
+        bh //= 2
+        bw = ray_tile // bh
+    if ray_tile <= 1 or H % bh or W % bw:
+        raise ValueError(f"ray_tile={ray_tile}: no pixel block of that many "
+                         f"rays divides {H}x{W}")
+    perm, inv = block_order_indices(H, W, bh, bw)
+    perm = torch.as_tensor(perm, device=dev)
+    inv = torch.as_tensor(inv, device=dev)
+    ro, rd = rays_o[perm], rays_d[perm]
+    n = H * W
+    chunk = -(-(rayschunk or n) // ray_tile) * ray_tile
+    pad = (-n) % chunk
+    if pad:
+        ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
+        rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
+    cfgs = {"N_steps": N_steps, "N_secant_steps": N_secant_steps,
+            "fill_inf": False}
+    outs = [surface_render(model, ro[i:i + chunk], rd[i:i + chunk],
+                           calc_normal=True, ray_tile=ray_tile,
+                           scan_mode=scan_mode, ray_casting_cfgs=cfgs,
+                           device=device, **kwargs)
+            for i in range(0, n + pad, chunk)]
+
+    def frame(parts):
+        return torch.cat(parts, 0)[:n][inv].reshape(H, W, *parts[0].shape[1:])
+
+    rgb = frame([o[0] for o in outs])
+    depth = frame([o[1] for o in outs])
+    extras = {k: frame([o[2][k] for o in outs])
+              for k in ("normals_surface", "mask_surface")}
+    return rgb, depth, extras

@@ -7,6 +7,7 @@ numpy arrays; JAX stays on the CPU (tests/conftest.py)."""
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +38,7 @@ def small_scene(seed=0, jax_kw=None, torch_kw=None, subdivisions=3):
     adopted through CandidateGrid.from_arrays) and identical numpy-seeded
     parameters."""
     jm = JNeuMesh(JMeshGrid(jax_icosphere(0.5, subdivisions), "grid"),
-                  use_pallas=True, **SMALL, **(jax_kw or {}))
+                  use_pallas=True, **{**SMALL, **(jax_kw or {})})
     g = jm.mesh_grid.grid
     grid = CandidateGrid.from_arrays(
         np.asarray(g.cell_row), np.asarray(g.cand_idx),
@@ -45,7 +46,7 @@ def small_scene(seed=0, jax_kw=None, torch_kw=None, subdivisions=3):
         g.dims)
     tm = NeuMesh(MeshGrid(icosphere_mesh(0.5, subdivisions), device="cpu",
                           grid=grid),
-                 device="cpu", **SMALL, **(torch_kw or {})).init(seed)
+                 device="cpu", **{**SMALL, **(torch_kw or {})}).init(seed)
     return jm, jax_params_of(tm), tm
 
 
@@ -117,6 +118,42 @@ def test_nn_primitives_match_jax(rng):
             np.testing.assert_allclose(te(torch.from_numpy(xe)).numpy(),
                                        np.asarray(je(jnp.asarray(xe))),
                                        atol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_maybe_wnorm_apply_matches_jax(rng, dtype):
+    """A weight-norm linear on one input and on split parts: true f32
+    without a dtype; with bf16 each part's product is rounded to bf16 and
+    the sum runs in bf16 (one bf16 ulp of slack for the rounding points)."""
+    from neumesh_tpu import nn as jnn
+    from neumesh_tpu_torch import nn as tnn
+    v = rng.normal(size=(12, 6)).astype(np.float32)
+    g = rng.uniform(0.5, 2, size=(6,)).astype(np.float32)
+    b = rng.normal(size=(6,)).astype(np.float32)
+    xa = rng.normal(size=(40, 5)).astype(np.float32)
+    xb = rng.normal(size=(40, 7)).astype(np.float32)
+
+    lin = SimpleNamespace(
+        weight=lambda: tnn.wnorm_weight(torch.from_numpy(g),
+                                        torch.from_numpy(v)),
+        b=torch.from_numpy(b))
+    p = {"g": jnp.asarray(g), "v": jnp.asarray(v), "b": jnp.asarray(b)}
+    jdt = None if dtype is None else jnp.bfloat16
+    tdt = None if dtype is None else torch.bfloat16
+    want = [jnn.maybe_wnorm_apply(p, jnp.asarray(np.concatenate(
+                [xa, xb], -1)), jdt),
+            jnn.maybe_wnorm_apply_parts(p, [jnp.asarray(xa),
+                                            jnp.asarray(xb)], jdt)]
+    got = [tnn.maybe_wnorm_apply(lin, torch.from_numpy(np.concatenate(
+               [xa, xb], -1)), tdt),
+           tnn.maybe_wnorm_apply_parts(lin, [torch.from_numpy(xa),
+                                             torch.from_numpy(xb)], tdt)]
+    for gt, w in zip(got, want):
+        w = np.asarray(w.astype(jnp.float32))
+        assert gt.dtype == (torch.float32 if dtype is None else tdt)
+        tol = (dict(atol=1e-5, rtol=1e-5) if dtype is None
+               else dict(atol=2e-2, rtol=1e-2))
+        np.testing.assert_allclose(gt.float().numpy(), w, **tol)
 
 
 def test_alpha_matches_jax(rng):
@@ -247,6 +284,7 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import sys, neumesh_tpu_torch, neumesh_tpu_torch.render.volume, "
+        "neumesh_tpu_torch.render.ray_casting, "
         "neumesh_tpu_torch.utils.state, neumesh_tpu_torch.ops.kernels, "
         "neumesh_tpu_torch.ops._build\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or "

@@ -1,0 +1,68 @@
+"""candidate_field_v3 and candidate_field (v2): the port's plain versions
+against the JAX Pallas kernels (interpret mode) in every want_dh /
+want_feat variant, at k = 8 and k = 1, with ragged sample and ray counts
+and with 1e9 sentinel candidates, at the tolerances of
+tests/test_pallas.py. The CUDA kernels are held against the plain versions
+on a card in test_torch_cuda.py."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from neumesh_tpu.ops.pallas_kernels import candidate_field as jax_v2
+from neumesh_tpu.ops.pallas_kernels import candidate_field_v3 as jax_v3
+from test_torch_cuda import (CAND_CASES, assert_candidate_close, no_tie_mask,
+                             pack_geo, ray_contexts, torch_candidate)
+
+
+def _jax_candidate(c, v3, want_dh, want_feat, k, **kw):
+    if v3:
+        out = jax_v3(jnp.asarray(c["xyz"]), jnp.asarray(pack_geo(c)),
+                     jnp.asarray(c["feat"]), 0.12, k=k, want_dh=want_dh,
+                     want_feat=want_feat, interpret=True, **kw)
+    else:
+        out = jax_v2(*[jnp.asarray(c[n]) for n in ("xyz", "pts", "pp", "ind",
+                                                   "vn", "feat")],
+                     0.12, k=k, want_dh=want_dh, want_feat=want_feat,
+                     interpret=True, **kw)
+    return [None if o is None else np.asarray(o) for o in out]
+
+
+@pytest.mark.parametrize("want_dh,want_feat,k", CAND_CASES)
+def test_candidate_field_v3_plain_matches_pallas(want_dh, want_feat, k):
+    # S = 13 is not a sample-block multiple; C = 40 pads to 128
+    c = ray_contexts(seed=5, R=3, S=13, C=40, F=12)
+    ok = no_tie_mask(c["xyz"], pack_geo(c), k=k)
+    assert ok.mean() > 0.9
+    got = torch_candidate(c, True, want_dh, want_feat, k)
+    want = _jax_candidate(c, True, want_dh, want_feat, k, sample_block=32)
+    assert got[0].shape == (3, 13, 1)
+    assert_candidate_close(got, want, ok)
+
+
+@pytest.mark.parametrize("want_dh,want_feat,k", CAND_CASES)
+def test_candidate_field_v2_plain_matches_pallas(want_dh, want_feat, k):
+    # 5 rays in blocks of 4 exercise the kernel's ray padding; C unpadded
+    c = ray_contexts(seed=2, R=5, S=12, C=32, F=16)
+    ok = no_tie_mask(c["xyz"], pack_geo(c), k=k)
+    assert ok.mean() > 0.9
+    got = torch_candidate(c, False, want_dh, want_feat, k)
+    want = _jax_candidate(c, False, want_dh, want_feat, k, rays_per_block=4)
+    assert got[0].shape == (5, 12, 1)
+    assert_candidate_close(got, want, ok)
+
+
+@pytest.mark.parametrize("v3", [True, False])
+def test_candidate_sentinels_are_never_selected(v3):
+    """1e9 sentinel vertices (the context's duplicate/missing ids) next to
+    the 128-padding's pp = 1e12 columns: never selected, every output
+    finite, ds as the JAX kernel's, and every output equal to the same
+    contexts without them."""
+    c = ray_contexts(seed=1, R=4, S=16, C=40, F=8, n_sentinel=8)
+    got = torch_candidate(c, v3, True, True, 8)
+    want = _jax_candidate(c, v3, True, True, 8)
+    assert all(np.isfinite(a).all() for a in got)
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-4)
+    cut = {n: (a[:, :-8] if n != "xyz" else a) for n, a in c.items()}
+    trimmed = torch_candidate(cut, v3, True, True, 8)
+    for a, b in zip(got, trimmed):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)

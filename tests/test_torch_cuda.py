@@ -20,6 +20,9 @@ FIELD_CASES = [("distance", 1, None, ()), ("distance", 8, None, ()),
                ("full", 8, "bf16", ("d0", "dh", "c0", "ch"))]
 SECANT_CASES = [(rb, fr, dt) for rb in (True, False) for fr in (False, True)
                 for dt in (None, "bf16")]
+# (want_dh, want_feat, k) of candidate_field_v3 / candidate_field
+CAND_CASES = [(True, True, 8), (False, True, 8), (True, False, 8),
+              (False, False, 8), (True, True, 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -27,15 +30,19 @@ SECANT_CASES = [(rb, fr, dt) for rb in (True, False) for fr in (False, True)
 # ---------------------------------------------------------------------------
 
 def random_context(seed=0, B=3, S=75, C=70, gd=8, cd=8, W=32, md=4, mfg=1,
-                   mft=1, mv=2):
+                   mft=1, mv=2, outward=False):
     """Numpy inputs of the field kernels: samples near a random (8, C)
     candidate context per tile (C and S deliberately not multiples of any
     block), features, and density / colour weight lists in the field
-    kernels' layout."""
+    kernels' layout. Candidates lie on the 0.5-sphere; their indicator
+    vectors are random, or the outward normals (a signed distance with a
+    surface to find)."""
     rng = np.random.default_rng(seed)
     pts = rng.normal(size=(B, C, 3))
     pts = 0.5 * pts / np.linalg.norm(pts, axis=-1, keepdims=True)
     ind = rng.normal(size=(B, C, 3))
+    if outward:
+        ind = pts / 0.5
     xyz = pts[:, rng.integers(0, C, S)] + rng.normal(size=(B, S, 3)) * 0.03
     dirs = rng.normal(size=(B, S, 3))
     dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
@@ -185,6 +192,110 @@ def assert_roots_close(got, want, dtype):
         assert (np.abs(got - want) <= 2e-3).mean() >= 0.97
 
 
+def ray_contexts(seed=0, R=4, S=16, C=32, F=16, n_sentinel=0):
+    """Numpy inputs of the candidate kernels in the per-ray layout: xyz
+    (R, S, 3) near each ray's C candidates pts (R, C, 3) on the
+    0.5-sphere, ind, pp = |p|^2, vn = p.n, feat (R, C, F); the last
+    n_sentinel candidates of every ray are 1e9 sentinel vertices with zero
+    indicators."""
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(R, C, 3))
+    pts = 0.5 * pts / np.linalg.norm(pts, axis=-1, keepdims=True)
+    xyz = pts[:, np.arange(S) % C] + rng.normal(size=(R, S, 3)) * 0.02
+    ind = rng.normal(size=(R, C, 3))
+    feat = rng.normal(size=(R, C, F))
+    if n_sentinel:
+        pts[:, -n_sentinel:] = 1e9
+        ind[:, -n_sentinel:] = 0.0
+    f = np.float32
+    pts, ind = pts.astype(f), ind.astype(f)
+    return dict(xyz=xyz.astype(f), pts=pts, ind=ind,
+                pp=np.sum(pts * pts, -1), vn=np.sum(pts * ind, -1),
+                feat=feat.astype(f))
+
+
+def pack_geo(c):
+    """(R, 8, C) packed rows [px py pz ix iy iz pp vn] of ray_contexts."""
+    return np.concatenate([c["pts"].transpose(0, 2, 1),
+                           c["ind"].transpose(0, 2, 1), c["pp"][:, None],
+                           c["vn"][:, None]], 1)
+
+
+def torch_candidate(c, v3, want_dh, want_feat, k, device="cpu",
+                    plain=False):
+    """candidate_field_v3 (v3) / candidate_field (or a plain version) on
+    ray_contexts `c` -> numpy (ds, dh | None, feats | None)."""
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    kw = dict(k=k, want_dh=want_dh, want_feat=want_feat)
+    if v3:
+        fn = (kernels.candidate_field_v3_plain if plain
+              else kernels.candidate_field_v3)
+        out = fn(t(c["xyz"]), t(pack_geo(c)), t(c["feat"]), 0.12, **kw)
+    else:
+        fn = kernels.candidate_field_plain if plain else kernels.candidate_field
+        out = fn(*[t(c[n]) for n in ("xyz", "pts", "pp", "ind", "vn",
+                                     "feat")], 0.12, **kw)
+    return [None if o is None else o.cpu().numpy() for o in out]
+
+
+def assert_candidate_close(got, want, ok):
+    """ds 1e-5 + 1e-4 rel, dh 1e-4 + 1e-3 rel, feats 5e-5 + 1e-4 rel on the
+    no-tie samples `ok` (the tolerances of tests/test_pallas.py)."""
+    for g, w, (atol, rtol) in zip(got, want, ((1e-5, 1e-4), (1e-4, 1e-3),
+                                              (5e-5, 1e-4))):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert np.isfinite(g).all()
+            np.testing.assert_allclose(g[ok], w[ok], atol=atol, rtol=rtol)
+
+
+def locate_rays(seed, B, T, n_steps):
+    """Rays from (0, 0, -2.5) into the 0.5-sphere with near/far of the unit
+    sphere, and the (B, T * n_steps, 3) scan points of each tile."""
+    rng = np.random.default_rng(seed)
+    R = B * T
+    rd = rng.normal(size=(R, 3)) * 0.12 + np.array([0.0, 0.0, 1.0])
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    ro = np.tile([[0.0, 0.0, -2.5]], (R, 1))
+    mid = -np.sum(ro * rd, -1)
+    near, far = mid - 1.0, mid + 1.0
+    f = np.float32
+    step = (far - near) / max(n_steps - 1, 1)
+    d = near[:, None] + step[:, None] * np.arange(n_steps)
+    scan = (ro[:, None] + d[..., None] * rd[:, None]).reshape(B, -1, 3)
+    return dict(rays_o=ro.astype(f), rays_d=rd.astype(f),
+                near=near.astype(f), far=far.astype(f), scan=scan)
+
+
+def torch_locate(inp, lr, dtype, n_steps, device="cpu", plain=False):
+    """surface_locate (or its plain version) -> numpy (d_pred, mask,
+    mask_sign_change, val0_pos)."""
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    gd = inp["kw"]["geometry_dim"]
+    low = low_precision_mask(inp["dws"], dtype)
+    ws = [t(w).to(torch.bfloat16) if lo else t(w)
+          for w, lo in zip(inp["dws"], low)]
+    fn = kernels.surface_locate_plain if plain else kernels.surface_locate
+    out = fn(t(lr["rays_o"]), t(lr["rays_d"]), t(lr["near"]), t(lr["far"]),
+             t(inp["geo"]), t(inp["feat"][..., :gd]), inp["w1"], ws,
+             n_steps=n_steps, n_secant=3, multires_d=inp["kw"]["multires_d"],
+             multires_fg=inp["kw"]["multires_fg"], geometry_dim=gd,
+             dtype=None if dtype is None else torch.bfloat16)
+    return [o.cpu().numpy() for o in out]
+
+
+def assert_locate_close(got, want, ok, dtype):
+    """On the rays `ok` (no kNN tie at a scan point): mask bits equal, and
+    d_pred as assert_roots_close."""
+    for i in (1, 2, 3):
+        np.testing.assert_array_equal(got[i][ok], want[i][ok])
+    assert_roots_close(got[0][ok], want[0][ok], dtype)
+
+
 # ---------------------------------------------------------------------------
 # CPU routing and argument packing
 # ---------------------------------------------------------------------------
@@ -262,3 +373,99 @@ def test_secant_refine_kernel_matches_plain_on_card(rebracket, frozen,
         kernels.secant_mode(rebracket, frozen)] == 1
     ref = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", plain=True)
     assert_roots_close(got.cpu().numpy(), ref.cpu().numpy(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("v3", [True, False])
+@pytest.mark.parametrize("want_dh,want_feat,k", CAND_CASES)
+def test_candidate_kernels_match_plain_on_card(v3, want_dh, want_feat, k):
+    _need_card()
+    c = ray_contexts(seed=12, R=64, S=150, C=96, F=40, n_sentinel=4)
+    ok = no_tie_mask(c["xyz"], pack_geo(c), k=k)
+    name = "candidate_field_v3" if v3 else "candidate_field"
+    kernels.reset_launch_counts()
+    got = torch_candidate(c, v3, want_dh, want_feat, k, device="cuda")
+    assert kernels.LAUNCHES[name][kernels.candidate_mode(want_dh,
+                                                         want_feat)] == 1
+    want = torch_candidate(c, v3, want_dh, want_feat, k, device="cuda",
+                           plain=True)
+    assert_candidate_close(got, want, ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_surface_locate_kernel_matches_plain_on_card(dtype):
+    _need_card()
+    inp = random_context(seed=13, B=8, C=128, outward=True)
+    lr = locate_rays(14, 8, 100, 16)
+    ok = no_tie_mask(lr["scan"], inp["geo"]).reshape(-1, 16).all(-1)
+    kernels.reset_launch_counts()
+    got = torch_locate(inp, lr, dtype, 16, device="cuda")
+    assert kernels.LAUNCHES["surface_locate"][
+        "f32" if dtype is None else "bf16"] == 1
+    want = torch_locate(inp, lr, dtype, 16, device="cuda", plain=True)
+    assert got[1].mean() > 0.5
+    assert_locate_close(got, want, ok, dtype)
+
+
+def test_new_wrappers_take_the_plain_version_on_cpu_tensors():
+    c = ray_contexts(seed=3, R=3, S=10, C=40, F=8)
+    kernels.reset_launch_counts()
+    for v3 in (True, False):
+        got = torch_candidate(c, v3, True, True, 8)
+        want = torch_candidate(c, v3, True, True, 8, plain=True)
+        assert got[0].shape == (3, 10, 1) and got[1].shape == (3, 10, 3)
+        assert got[2].shape == (3, 10, 8)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    inp = random_context(seed=5, S=20, C=40, outward=True)
+    lr = locate_rays(2, 3, 8, 6)
+    got = torch_locate(inp, lr, None, 6)
+    want = torch_locate(inp, lr, None, 6, plain=True)
+    assert got[0].shape == (24,) and got[1].dtype == np.bool_
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert all(v == 0 for modes in kernels.LAUNCHES.values()
+               for v in modes.values())
+
+
+def test_params_from_jax_fills_a_no_nablas_model():
+    """A parameter tree in the JAX layout (numpy) for enable_nablas_input=
+    False: the colour MLP's first layer takes 3 fewer rows; a tree of the
+    nablas-input model does not fit it."""
+    from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
+    from neumesh_tpu_torch.mesh.grid import MeshGrid
+    from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+    from neumesh_tpu_torch.utils.state import params_from_jax
+
+    cfg = dict(D_density=2, D_color=2, W=16, geometry_dim=4, color_dim=4,
+               multires_d=2, multires_fg=1, multires_ft=1, multires_view=1)
+    mg = MeshGrid(icosphere_mesh(0.5, 1), device="cpu")
+    rng = np.random.default_rng(0)
+
+    def tree(model):
+        def arr(t):
+            return rng.normal(size=tuple(t.shape)).astype(np.float32)
+
+        def lin(m):
+            return ({"g": arr(m.g), "v": arr(m.v), "b": arr(m.b)}
+                    if hasattr(m, "g") else {"w": arr(m.w), "b": arr(m.b)})
+        p = {n: arr(getattr(model, n)) for n in
+             ("ln_s", "geometry_features", "color_features",
+              "indicator_vector", "indicator_weight_raw")}
+        p.update(pts_linears=[lin(m) for m in model.pts_linears],
+                 density_linear=lin(model.density_linear),
+                 views_linears=[lin(m) for m in model.views_linears],
+                 color_linear=lin(model.color_linear))
+        return p
+
+    plain = NeuMesh(mg, device="cpu", enable_nablas_input=False, **cfg)
+    with_nablas = NeuMesh(mg, device="cpu", enable_nablas_input=True, **cfg)
+    assert plain.views_linears[0].w.shape[0] + 3 == \
+        with_nablas.views_linears[0].w.shape[0]
+    p = tree(plain)
+    params_from_jax(p, plain)
+    np.testing.assert_array_equal(plain.views_linears[0].w.numpy(),
+                                  p["views_linears"][0]["w"])
+    np.testing.assert_array_equal(plain.pts_linears[1].v.numpy(),
+                                  p["pts_linears"][1]["v"])
+    with pytest.raises(RuntimeError):
+        params_from_jax(tree(with_nablas), plain)
