@@ -5,7 +5,10 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
  1. device: CUDA required; card name and power limit; build every kernel
-    from neumesh_tpu_torch/csrc (nvcc, all sources in parallel), timed.
+    from neumesh_tpu_torch/csrc (nvcc, all sources in parallel), timed;
+    the [build] lines give each kernel function's registers and spills
+    (ptxas), its HGMMA (wgmma) instructions (cuobjdump), and, after the
+    main paths, each kernel's dynamic shared memory per block.
  2. the port's paths at full width: the 163,842-vertex icosphere NeuMesh
     (W=256, D_density=3, D_color=4, dims 32/32, multires 8/2/2/4) with
     parameters from a numpy seed, written as a reference-format .pt and
@@ -28,8 +31,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     through the plain versions, PSNR of rgb (and of the surface normals)
     between them; frame time, Mrays/s, peak memory and traced idle share
     of every structure.
-Prints the card line, one {"kernels": [...]} line, and last
-{"ok": true, "device": {...}}.
+Prints the card line, one {"kernels": [...]} line (each row with its
+design, "wgmma" or "simt"), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -56,6 +59,13 @@ LOCATE_MASK_AGREE = {"bf16": 0.999, "f32": 1.0}
 
 KERNELS = ("field_fused", "secant_refine", "surface_locate",
            "candidate_field_v3", "candidate_field")
+# a row's design: its bf16 MLP layers on the tensor cores ("wgmma"), or
+# everything on the CUDA cores ("simt": no MLP, or surface_locate's
+# CUDA-core stage)
+WGMMA_ROWS = {("field_fused", m) for m in ("density", "density_nabla",
+                                            "full")} | \
+    {("secant_refine", m) for m in ("plain", "rebracket", "frozen",
+                                    "frozen_rebracket")}
 SOURCES = {
     "field_fused": ("neumesh_tpu_torch/csrc/field_fused.cu",
                     "neumesh_tpu/ops/pallas_kernels.py:645"),
@@ -356,16 +366,68 @@ def kernel_bound(name, args, kw):
 # phases
 # ---------------------------------------------------------------------------
 
+def hgmma_counts(lib_path):
+    """{kernel function: HGMMA instructions in its SASS} of one library
+    (cuobjdump --dump-sass), or None without cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "--dump-sass", lib_path],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def build_kernels():
+    """Build every library; per library the [build] line gives ptxas's
+    registers and spills of each kernel function and the HGMMA (wgmma)
+    instructions in each function's SASS."""
     from neumesh_tpu_torch.ops import _build
     t0 = time.perf_counter()
     _build.build_all()
     secs = time.perf_counter() - t0
     for name, info in _build.BUILD_LOG.items():
-        lines = [ln for ln in info["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {info['seconds']:.1f} s; " + " | ".join(lines))
+        lines = [ln.replace("ptxas info    : ", "").strip()
+                 for ln in info["ptxas"].splitlines()
+                 if ("registers" in ln or "spill" in ln
+                     or "Compiling entry" in ln) and "(C75" not in ln]
+        counts = hgmma_counts(_build._lib_path(name))
+        hg = ("no cuobjdump in the toolkit" if counts is None else
+              "HGMMA " + ", ".join(f"{fn}: {n}" for fn, n in counts.items()))
+        log(f"[build] {name}: {info['seconds']:.1f} s; " + " | ".join(lines)
+            + f"; {hg}")
     return secs
+
+
+@contextlib.contextmanager
+def shared_memory_probe(smem):
+    """For the block, every kernel launch also asks its library's `_smem`
+    entry (where it exports one; the candidate kernels do not) for the
+    dynamic shared memory of a block at the launch's arguments, and keeps
+    the largest per kernel in smem."""
+    import ctypes
+    from neumesh_tpu_torch.ops import _build
+    launch = _build.launch
+
+    def probed(name, args):
+        launch(name, args)
+        src, entry = _build.ENTRY[name]
+        fn = getattr(_build._lib(src), entry + "_smem", None)
+        if fn is not None:
+            smem[name] = max(smem.get(name, 0), fn(ctypes.addressof(args)))
+    _build.launch = probed
+    try:
+        yield
+    finally:
+        _build.launch = launch
 
 
 def fold_weights(model, dtype, f32_layers=()):
@@ -751,12 +813,16 @@ def main() -> int:
         log(f"[render] {st}: launches {frame[st]['launches']}")
 
     # ---- kernels against their plain versions, on the inputs each
-    # structure's render gives them
-    rec = {}
+    # structure's render gives them; the renders that record those inputs
+    # also read each kernel's shared memory per block
+    rec, smem = {}, {}
     for st, (mkey, kind, H, kw, _, _) in STRUCTURES.items():
         rec[st] = {}
-        with record_inputs(rec[st]):
+        with record_inputs(rec[st]), shared_memory_probe(smem):
             render(models[mkey], kind, H, **kw)
+    log("[build] dynamic shared memory per block on the main paths (the "
+        "largest launch): "
+        + ", ".join(f"{k} {v} B" for k, v in sorted(smem.items())))
     variants, timed = kernel_variants(rec, models)
     rows = check_kernels(variants)
     time_kernels(timed, rows)
@@ -817,6 +883,7 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
+            "design": "wgmma" if (kname, mode) in WGMMA_ROWS else "simt",
             "card": card, "shapes": row["shapes"],
             "timed_variant": row["timed_variant"], "checks": row["checks"]})
     print(json.dumps({"kernels": kernels_out}))

@@ -1,17 +1,45 @@
 // Device code shared by field_fused.cu, secant_refine.cu,
 // surface_locate.cu and candidate_field.cu: the NeuMesh field chain of
 // neumesh_tpu/ops/pallas_kernels.py (_interp_distance, _feat_dot,
-// _emb_cols, _emb_cols_rec, _density_mlp, the colour MLP of _field_kernel)
-// for a block of SB samples against one tile's candidate context.
+// _emb_cols, _emb_cols_rec, _density_mlp, the colour MLP of _field_kernel,
+// the density evaluations of _secant_kernel and _locate_kernel) against
+// one tile's candidate context.
 //
-// Block shape: NT = 256 threads, SB = 32 samples. Candidate passes run
-// LPS = 8 lanes per sample (consecutive lanes of one warp, reduced with
-// width-8 shuffles); each lane strides over the C candidates and
-// recomputes d2 in every pass instead of holding C values in registers.
-// MLP layers run thread-per-output-column over the block's 32 samples:
-// the activations live in shared memory (read as float4 broadcasts),
-// the weights are read from global memory (L2-resident, coalesced along
-// the output column), 32 accumulators per thread.
+// Candidate stage (every kernel): LPS = 8 lanes per sample (consecutive
+// lanes of one warp, reduced with width-8 shuffles); each lane strides over
+// the C candidates and recomputes d2 in every pass instead of holding C
+// values in registers. Exact f32 on the CUDA cores (~2 kFLOP a sample at
+// C = 128, k = 8).
+//
+// Two MLP stages:
+//  - the tensor-core tile stage (field_fused, secant_refine; "tile"
+//    below): 64 samples a block, one wgmma M tile, four warpgroups (512
+//    threads, so the candidate passes take all 64 samples at once). The
+//    activations live in shared memory as bf16 in the wgmma core-matrix
+//    layout (8 x 8 blocks, K-major, no swizzle); the weights of each bf16
+//    hidden layer, packed by the wrapper in the same layout, stream
+//    through a ring of two 64-row K slices (cp.async.bulk completing on an
+//    mbarrier, one slice loading while the other multiplies; the ring runs
+//    on across layers and starts loading under the candidate stage). Each
+//    warpgroup computes a 64 x 64 quarter of the 256-wide output with
+//    wgmma.m64n64k16 (bf16 in, f32 accumulators that start at the bias);
+//    the tangent of density_nabla/full runs a second accumulator off the
+//    same staged slice. Epilogue in registers: softplus (beta 100) or ReLU,
+//    the tangent times softplus', rounding to the next layer's dtype. The
+//    feature blend sums over each sample's listed kNN picks. What bounds
+//    it now (ablations on the H100, PERF.md): the exact-f32 CUDA-core
+//    work around the products -- the epilogue's softplus/softplus' (expf,
+//    log1pf, IEEE division) and the candidate passes -- then the wgmma
+//    waits; one block holds an SM (128 registers a thread, 150-220 KB of
+//    shared memory).
+//    Still on the CUDA cores: f32 layers (selective-f32 d0/c0 and every
+//    layer of the f32 models; dense_accum's arithmetic, the two 32-row
+//    sub-tiles on the two halves of the block), the heads (N = 1, 3), the
+//    embeddings and the feature blend.
+//  - the CUDA-core stage (simt_*; surface_locate, 32 rays a block of 256
+//    threads): layers thread-per-output-column over 32 samples,
+//    activations in shared memory (float4 broadcasts), weights from L2, 32
+//    accumulators per thread.
 //
 // Numerics follow the TPU kernels, not the XLA path:
 //  - candidate math in exact f32 element-wise arithmetic (__fmul_rn and
@@ -19,7 +47,8 @@
 //  - the tie-break d2*(1 + c*2e-7), lowest index first; the k-th smallest
 //    by k masked-min passes ("remove everything <= the pass minimum");
 //  - per-layer precision follows the weight dtype: a bf16 layer rounds its
-//    inputs to bf16, products are exact in f32, accumulation f32, bias f32;
+//    inputs to bf16, products are exact in f32, accumulation f32 (in
+//    wgmma's own order on the tensor cores), bias f32;
 //  - scalar embeddings (d, view dirs) take cos(z) as sin(z + pi/2) with
 //    freq = 2^(blk/2); in bf16 serving the feature embeddings use the
 //    double-angle recursion in bf16 from f32 base sin/cos.
@@ -32,11 +61,23 @@
 
 namespace nm {
 
-constexpr int SB = 32;           // samples (rays) per block
-constexpr int NT = 256;          // threads per block
+constexpr int SB = 32;           // samples (rays) per CUDA-core-stage
+                                 // block
+constexpr int NT = 256;          // threads per CUDA-core-stage block
 constexpr int LPS = NT / SB;     // lanes per sample in candidate passes
+constexpr int TS = 64;           // samples (rays) per tile-stage block
+constexpr int TNT = 512;         // threads per tile-stage block: four
+                                 // warpgroups, TS samples at LPS lanes
+constexpr int KS = 64;           // K rows per staged weight slice
+constexpr int NPAD = 256;        // packed layers' output width
+constexpr int RING = 2;          // staged weight slices in flight
+constexpr int KL = 32;           // kNN picks listed per sample for the
+                                 // tile stage's feature blend
 constexpr int MAX_LAYERS = 8;    // ops/_build.py MAX_LAYERS
 constexpr int KSEL = 16;         // frozen secant: at most 16 neighbours
+constexpr int KC = 16;           // tile stage: candidates a lane keeps in
+                                 // registers (C <= KC * LPS)
+static_assert(TNT / LPS == TS, "a tile block's candidate pass takes TS");
 constexpr float HALF_PI = 1.57079637f;   // float32(pi / 2)
 
 enum Mode { DISTANCE = 0, DENSITY = 1, DENSITY_NABLA = 2, FULL = 3 };
@@ -48,6 +89,15 @@ struct LayerDesc {
   int K, N, bf16;
   int split;          // first layer: rows [0, split) get the bias before
                       // rows [split, K); 0 for plain layers
+  // tile stage: wp = the bf16 hidden layer packed for wgmma (kp rows, each
+  // row block zero-padded to a multiple of 16, the second starting at row
+  // kp1, where the tangent stops; N zero-padded to NPAD), K-major 8 x 8
+  // core matrices, slice by slice of KS rows; null for the layers on the
+  // CUDA cores. kp (> 0)
+  // is the width of the bf16 activation tile a bf16 layer reads (heads
+  // included); 0 for f32 layers, which read f32 rows of stride ldx.
+  const void* wp;
+  int kp1, kp;
 };
 struct MLPDesc {
   LayerDesc l[MAX_LAYERS];
@@ -156,6 +206,22 @@ struct Interp {
   float ds, dh0, dh1, dh2;
 };
 
+// Candidate c = lane + i * LPS of a sample's lanes, for each of this
+// lane's: NC > 0 unrolls NC of them (C <= NC * LPS), so that per-candidate
+// values can live in registers indexed by i; NC = 0 strides over C.
+template <int NC, class Fn>
+__device__ __forceinline__ void for_cands(int C, int lane, Fn fn) {
+  if constexpr (NC > 0) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + i * LPS;
+      if (c < C) fn(i, c);
+    }
+  } else {
+    for (int c = lane, i = 0; c < C; c += LPS, ++i) fn(i, c);
+  }
+}
+
 // geo: (8, C) rows [px py pz ix iy iz pp vn] in shared memory. Writes the
 // normalised kNN weights of every candidate to Wrow (zeros off the kNN
 // set; the one-hot argmin for the k = 1 distance proxy).
@@ -163,6 +229,10 @@ struct Interp {
 // field kernels (the candidate_field kernels have no such path). v2_dh: the
 // gradient in candidate_field (v2)'s order, A = (W w1) inv and
 // dh = sum(A n) + sB x - sum(B v), instead of sum(A n - B v) + sB x.
+// NC > 0 (C <= NC * LPS): each lane keeps the d2 and tie-broken d2 of its
+// candidates in registers instead of recomputing them in every pass (the
+// same values, so the same result).
+template <int NC = 0>
 __device__ void interp_sample(const float* geo, int C, float x0, float x1,
                               float x2, float w1, int k, bool want_dh,
                               int lane, float* Wrow, Interp& out,
@@ -182,23 +252,37 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
   auto xn_at = [&](int c) {
     return fadd(fadd(fmul(x0, ix[c]), fmul(x1, iy[c])), fmul(x2, iz[c]));
   };
+  float d2c[NC > 0 ? NC : 1], tbc[NC > 0 ? NC : 1];
+  if constexpr (NC > 0)
+    for_cands<NC>(C, lane, [&](int i, int c) {
+      d2c[i] = d2_at(c);
+      tbc[i] = tb(c, d2c[i]);
+    });
+  // d2 of this lane's i-th candidate c, and its tie-broken value
+  auto D2 = [&](int i, int c) {
+    if constexpr (NC > 0) return d2c[i]; else return d2_at(c);
+  };
+  auto TB = [&](int i, int c, float d2) {
+    if constexpr (NC > 0) return tbc[i]; else return tb(c, d2);
+  };
   out.dh0 = out.dh1 = out.dh2 = 0.f;
 
   if (k1_proxy && k == 1 && !want_dh) {
     // nearest-tangent-plane proxy: sums over the one-hot argmin set
     float m = INFINITY;
-    for (int c = lane; c < C; c += LPS) m = fminf(m, tb(c, d2_at(c)));
+    for_cands<NC>(C, lane,
+                  [&](int i, int c) { m = fminf(m, TB(i, c, D2(i, c))); });
     m = gmin(m);
     float d2s = 0.f, nvs = 0.f;
-    for (int c = lane; c < C; c += LPS) {
-      const float d2 = d2_at(c);
-      const bool sel = tb(c, d2) <= m;
+    for_cands<NC>(C, lane, [&](int i, int c) {
+      const float d2 = D2(i, c);
+      const bool sel = TB(i, c, d2) <= m;
       if (sel) {
         d2s = fadd(d2s, d2);
         nvs = fadd(nvs, fsub(xn_at(c), vn[c]));
       }
       Wrow[c] = sel ? 1.f : 0.f;
-    }
+    });
     d2s = gsum(d2s);
     nvs = gsum(nvs);
     const float dsel = sqrtf(fmaxf(d2s, 1e-20f));
@@ -211,24 +295,24 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
   float thr = -INFINITY;
   for (int it = 0; it < k; ++it) {
     float m = INFINITY;
-    for (int c = lane; c < C; c += LPS) {
-      const float t = tb(c, d2_at(c));
+    for_cands<NC>(C, lane, [&](int i, int c) {
+      const float t = TB(i, c, D2(i, c));
       if (t > thr) m = fminf(m, t);
-    }
+    });
     thr = gmin(m);
   }
   float sw = 0.f;
-  for (int c = lane; c < C; c += LPS) {
-    const float d2 = d2_at(c);
-    if (tb(c, d2) <= thr) sw = fadd(sw, fdiv(1.f, fadd(sqrtf(d2), 1e-7f)));
-  }
+  for_cands<NC>(C, lane, [&](int i, int c) {
+    const float d2 = D2(i, c);
+    if (TB(i, c, d2) <= thr) sw = fadd(sw, fdiv(1.f, fadd(sqrtf(d2), 1e-7f)));
+  });
   sw = gsum(sw);
   float ds = 0.f, sB = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
   float bx = 0.f, by = 0.f, bz = 0.f;     // v2_dh: sum(B v) apart
-  for (int c = lane; c < C; c += LPS) {
-    const float d2 = d2_at(c);
+  for_cands<NC>(C, lane, [&](int i, int c) {
+    const float d2 = D2(i, c);
     float W = 0.f;
-    if (tb(c, d2) <= thr) {
+    if (TB(i, c, d2) <= thr) {
       const float d0 = sqrtf(d2);
       W = fdiv(fdiv(1.f, fadd(d0, 1e-7f)), sw);
       const float d = fmaxf(d0, 1e-10f);
@@ -258,7 +342,7 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
       }
     }
     Wrow[c] = W;
-  }
+  });
   out.ds = gsum(ds);
   if (want_dh) {
     sB = gsum(sB);
@@ -296,18 +380,19 @@ __device__ void blend_stage(const void* feat, size_t feat_off, int fbf, int F,
   }
 }
 
-// Feature embedding columns of D-wide inputs src[s][0..D) into
-// X[s][x0 + j], j < 2*nf*D, order [sin f0 (D), cos f0 (D), sin f1, ...]:
-// bf16 double-angle recursion (lowp) or the exact tiled sin.
-__device__ void feature_emb(const float* src, int ld_src, int D, int nf,
-                            int lowp, float* X, int ldx, int x0, int r0) {
+// Feature embedding columns of D-wide inputs src[s][0..D) into column
+// x0 + j, j < 2*nf*D, of sample s, order [sin f0 (D), cos f0 (D), sin f1,
+// ...]: bf16 double-angle recursion (lowp) or the exact tiled sin; put(s,
+// column, value rounded for the layer) stores.
+template <int NSMP, int NTHR, class Put>
+__device__ void feature_emb_to(const float* src, int ld_src, int D, int nf,
+                               int lowp, int x0, int r0, Put put) {
   if (nf <= 0) return;
   if (lowp) {
-    for (int idx = threadIdx.x; idx < SB * D; idx += NT) {
+    for (int idx = threadIdx.x; idx < NSMP * D; idx += NTHR) {
       const int s = idx / D, i = idx % D;
       const float x = rbf(src[s * ld_src + i]);
       float sn = rbf(sinf(x)), cs = rbf(cosf(x));
-      float* row = X + s * ldx + x0;
       for (int p = 0; p < nf; ++p) {
         if (p > 0) {
           const float s2 = rbf(fmul(rbf(fmul(2.f, sn)), cs));
@@ -315,18 +400,25 @@ __device__ void feature_emb(const float* src, int ld_src, int D, int nf,
           sn = s2;
           cs = c2;
         }
-        row[(2 * p) * D + i] = rnd(sn, r0);
-        row[(2 * p + 1) * D + i] = rnd(cs, r0);
+        put(s, x0 + (2 * p) * D + i, rnd(sn, r0));
+        put(s, x0 + (2 * p + 1) * D + i, rnd(cs, r0));
       }
     }
   } else {
     const int n = 2 * nf * D;
-    for (int idx = threadIdx.x; idx < SB * n; idx += NT) {
+    for (int idx = threadIdx.x; idx < NSMP * n; idx += NTHR) {
       const int s = idx / n, j = idx % n;
-      X[s * ldx + x0 + j] =
-          rnd(emb_col(src[s * ld_src + j % D], j / D, nullptr), r0);
+      put(s, x0 + j,
+          rnd(emb_col(src[s * ld_src + j % D], j / D, nullptr), r0));
     }
   }
+}
+
+// The same into f32 rows X[s * ldx + ...] of SB samples.
+__device__ void feature_emb(const float* src, int ld_src, int D, int nf,
+                            int lowp, float* X, int ldx, int x0, int r0) {
+  feature_emb_to<SB, NT>(src, ld_src, D, nf, lowp, x0, r0,
+                     [=](int s, int j, float v) { X[s * ldx + j] = v; });
 }
 
 template <bool TANG>
@@ -391,42 +483,33 @@ __device__ __forceinline__ void dense_accum(const LayerDesc& L,
 
 enum Act { ACT_SOFTPLUS = 0, ACT_RELU = 1 };
 
-// One hidden layer in place on X (and the tangent T): out column j by
-// thread j; inputs are rounded for the NEXT layer's dtype on write.
-__device__ void dense_layer(const LayerDesc& L, float* X, float* T, int ldx,
-                            int xoff2, int act, int next_bf, bool tang) {
+// ---------------------------------------------------------------------------
+// CUDA-core MLP stage (simt_*): surface_locate's density evaluations
+// (ray_density). The tile stage's f32 layers share dense_accum.
+// ---------------------------------------------------------------------------
+
+// One softplus hidden layer in place on X: out column j by thread j;
+// inputs are rounded for the NEXT layer's dtype on write.
+__device__ void simt_dense_layer(const LayerDesc& L, float* X, int ldx,
+                                 int xoff2, int next_bf) {
   const int j = threadIdx.x;
   const bool active = j < L.N;
   float acc[SB], tacc[SB];
-  if (active) {
-    if (tang)
-      dense_accum<true>(L, X, T, ldx, xoff2, j, acc, tacc);
-    else
-      dense_accum<false>(L, X, T, ldx, xoff2, j, acc, tacc);
-  }
+  if (active) dense_accum<false>(L, X, X, ldx, xoff2, j, acc, tacc);
   __syncthreads();   // every input read before any output lands
   if (active) {
 #pragma unroll
     for (int s = 0; s < SB; ++s) {
       const float pre = acc[s];
-      float h;
-      if (act == ACT_SOFTPLUS) {
-        h = softplus100(pre);
-        if (tang)
-          T[s * ldx + j] = rnd(fmul(tacc[s], softplus100_grad(pre)), next_bf);
-      } else {
-        h = fmaxf(pre, 0.f);
-      }
-      X[s * ldx + j] = rnd(h, next_bf);
+      X[s * ldx + j] = rnd(softplus100(pre), next_bf);
     }
   }
   __syncthreads();
 }
 
 // Output layer with N <= a few columns: LPS lanes per sample split K.
-__device__ void head_layer(const LayerDesc& L, const float* X, const float* T,
-                           int ldx, bool tang, bool sigm, float* out,
-                           float* tout) {
+__device__ void simt_head_layer(const LayerDesc& L, const float* X, int ldx,
+                                float* out) {
   const int s = threadIdx.x / LPS, lane = threadIdx.x % LPS;
   for (int n = 0; n < L.N; ++n) {
     float a = 0.f;
@@ -434,32 +517,533 @@ __device__ void head_layer(const LayerDesc& L, const float* X, const float* T,
       a = fmaf(X[s * ldx + k], ldw(L, k * L.N + n), a);
     a = gsum(a);
     const float v = fadd(a, L.b[n]);
-    if (lane == 0) out[s * L.N + n] = sigm ? sigmoid(v) : v;
-  }
-  if (tang) {
-    float t = 0.f;
-    for (int k = lane; k < L.K; k += LPS)
-      t = fmaf(T[s * ldx + k], ldw(L, k * L.N), t);
-    t = gsum(t);
-    if (lane == 0) tout[s] = t;
+    if (lane == 0) out[s * L.N + n] = v;
   }
   __syncthreads();
 }
 
 // Density MLP of _density_mlp: inputs [ds, d cols, fg | fg_emb], softplus
-// (beta 100) hidden layers, linear head; with `tang` the forward tangent
-// dD/dh through [1, d col derivatives]. sFB holds the blended features
+// (beta 100) hidden layers, linear head. sFB holds the blended features
 // (fg = its first gd columns, row stride ldfb).
-__device__ void density_stage(const MLPDesc& D, float* sX, float* sT,
-                              int ldx, const float* sds, const float* sFB,
-                              int ldfb, int md, int mfg, int gd, int lowp,
-                              bool tang, float* sdens, float* sdDdh) {
+__device__ void simt_density_stage(const MLPDesc& D, float* sX, int ldx,
+                                   const float* sds, const float* sFB,
+                                   int ldfb, int md, int mfg, int gd,
+                                   int lowp, float* sdens) {
   const LayerDesc& L0 = D.l[0];
   const int r0 = L0.bf16;
   const int nd = 1 + 2 * (md > 0 ? md : 0);
   const int split = L0.split;                 // nd + gd
   const int xoff2 = (split + 3) & ~3;
   for (int idx = threadIdx.x; idx < SB * xoff2; idx += NT) {
+    const int s = idx / xoff2, j = idx % xoff2;
+    float v = 0.f;
+    if (j == 0) {
+      v = sds[s];
+    } else if (j < nd) {
+      v = emb_col(sds[s], j - 1, nullptr);
+    } else if (j < split) {
+      const float fg = sFB[s * ldfb + (j - nd)];
+      v = lowp ? rbf(fg) : fg;
+    }
+    sX[s * ldx + j] = rnd(v, r0);
+  }
+  feature_emb(sFB, ldfb, gd, mfg, lowp, sX, ldx, xoff2, r0);
+  __syncthreads();
+  for (int l = 0; l < D.n - 1; ++l)
+    simt_dense_layer(D.l[l], sX, ldx, l == 0 ? xoff2 : 0, D.l[l + 1].bf16);
+  simt_head_layer(D.l[D.n - 1], sX, ldx, sdens);
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core tile stage (field_fused, secant_refine): TS = 64 samples a
+// block, two warpgroups; see the note at the top of this file
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Element offset of (row s, column k) in a bf16 tile of width kp: 8 x 8
+// core matrices of 128 contiguous bytes (row-major inside), the core
+// matrices of an 8-row group consecutive along K.
+__device__ __forceinline__ int tile_off(int s, int k, int kp) {
+  return ((((s >> 3) * (kp >> 3)) + (k >> 3)) << 6) + ((s & 7) << 3) +
+         (k & 7);
+}
+
+// An activation buffer in the layout of the layer that reads it: a bf16
+// tile of width kp (kp > 0; storing rounds to bf16) or f32 rows of stride
+// ldx.
+struct ActBuf {
+  void* p;
+  int kp, ldx;
+  __device__ float* f() const { return static_cast<float*>(p); }
+  __device__ __nv_bfloat16* h() const {
+    return static_cast<__nv_bfloat16*>(p);
+  }
+  __device__ void put(int s, int k, float v) const {
+    if (kp)
+      h()[tile_off(s, k, kp)] = __float2bfloat16_rn(v);
+    else
+      f()[s * ldx + k] = v;
+  }
+  __device__ float get(int s, int k) const {
+    return kp ? __bfloat162float(h()[tile_off(s, k, kp)]) : f()[s * ldx + k];
+  }
+  __device__ ActBuf for_layer(const LayerDesc& L) const {
+    return ActBuf{p, L.kp, ldx};
+  }
+};
+
+// ---- wgmma, mbarrier and bulk-copy primitives
+__device__ __forceinline__ uint64_t mat_desc(const void* p, uint32_t lbo,
+                                             uint32_t sbo) {
+  // no swizzle (layout type 0): start, leading (K) and stride (M/N) byte
+  // offsets, each >> 4
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep reads of the accumulators after the wait
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// generic-proxy stores to shared memory visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 64 f32, this warpgroup's quarter of the output) += A (64 x 16)
+// B (16 x 64); A and B K-major bf16 in shared memory.
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
+                                        uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+// bytes from global src to shared dst, completing on bar (one thread)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- the feature blend of the tile stage: blend_stage's sums over each
+// sample's listed kNN picks instead of its whole weight row
+
+// List the nonzero weights of each sample's row (its kNN picks) in
+// ascending candidate order: up to KL in idx[s * KL ...], their number in
+// cnt[s] (more than KL: the blend scans the row).
+__device__ void list_picks(const float* sW, int C, unsigned short* idx,
+                           int* cnt) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int s = warp; s < TS; s += TNT / 32) {
+    const float* wr = sW + s * C;
+    int n = 0;
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      const int c = c0 + lane;
+      const bool nz = c < C && wr[c] != 0.f;
+      const unsigned m = __ballot_sync(0xffffffffu, nz);
+      const int pos = n + __popc(m & ((1u << lane) - 1u));
+      if (nz && pos < KL) idx[s * KL + pos] = (unsigned short)c;
+      n += __popc(m);
+    }
+    if (lane == 0) cnt[s] = n;
+  }
+}
+
+// blend_stage for the TS samples (same products, same order: the listed
+// picks ascend); every thread calls, synchronises inside.
+__device__ void blend_tile(const void* feat, size_t feat_off, int fbf, int F,
+                           int Fb, const float* sW, int C,
+                           unsigned short* idx, int* cnt, float* sFB) {
+  list_picks(sW, C, idx, cnt);
+  __syncthreads();
+  for (int i = threadIdx.x; i < TS * Fb; i += TNT) {
+    const int s = i / Fb, f = i % Fb;
+    const float* wr = sW + s * C;
+    const int n = cnt[s];
+    float acc = 0.f;
+    for (int j = 0; j < (n <= KL ? n : C); ++j) {
+      const int c = n <= KL ? idx[s * KL + j] : j;
+      const float w = wr[c];
+      if (w != 0.f)
+        acc = fmaf(fbf ? rbf(w) : w,
+                   ldfeat(feat, fbf, feat_off + (size_t)c * F + f), acc);
+    }
+    sFB[s * F + f] = acc;
+  }
+}
+
+// ---- the block's tile-stage memory and its weight-slice stream
+__host__ __device__ inline int n_slices(const LayerDesc& L) {
+  return L.wp ? (L.kp + KS - 1) / KS : 0;
+}
+__host__ __device__ inline int mlp_slices(const MLPDesc& D) {
+  int n = 0;
+  for (int l = 0; l < D.n; ++l) n += n_slices(D.l[l]);
+  return n;
+}
+// One activation buffer: the largest input any layer of D reads.
+__host__ __device__ inline size_t act_bytes(const MLPDesc& D, int ldx) {
+  size_t b = 0;
+  for (int l = 0; l < D.n; ++l) {
+    const size_t v = D.l[l].kp ? (size_t)TS * D.l[l].kp * 2
+                               : (size_t)TS * ldx * 4;
+    b = v > b ? v : b;
+  }
+  return (b + 127) & ~(size_t)127;
+}
+
+// Shared memory of a tile block, from its start: the weight ring, the
+// activation region (X, then T with the tangent; the kNN weight rows of
+// the TS samples alias it before the MLPs), two mbarriers, then the
+// kernel's f32 buffers (`rest`).
+struct TilePlan {
+  size_t ring, xb, act;
+};
+__host__ __device__ inline TilePlan tile_plan(const MLPDesc* d,
+                                              const MLPDesc* c, int ldx,
+                                              int C, bool tang) {
+  TilePlan p{0, 0, 0};
+  size_t tb = 0;
+  int nsl = 0;
+  if (d) {
+    p.xb = act_bytes(*d, ldx);
+    tb = tang ? p.xb : 0;
+    nsl += mlp_slices(*d);
+  }
+  if (c) {
+    const size_t cb = act_bytes(*c, ldx);
+    p.xb = cb > p.xb ? cb : p.xb;
+    nsl += mlp_slices(*c);
+  }
+  p.ring = nsl ? (size_t)RING * KS * NPAD * 2 : 0;
+  const size_t wrows = ((size_t)TS * C * 4 + 127) & ~(size_t)127;
+  p.act = p.xb + tb > wrows ? p.xb + tb : wrows;
+  return p;
+}
+__host__ __device__ inline size_t tile_plan_bytes(const TilePlan& p) {
+  return p.ring + p.act + 16;
+}
+
+// Every bf16 hidden layer must come packed for wgmma, every bf16 layer
+// with its input tile width; f32 layers read f32 rows of ldx >= NPAD.
+inline bool tile_mlp_ok(const MLPDesc& D, int ldx) {
+  if (D.n < 2 || D.n > MAX_LAYERS || ldx < NPAD) return false;
+  for (int l = 0; l < D.n; ++l) {
+    const LayerDesc& L = D.l[l];
+    const bool hidden = l < D.n - 1;
+    if (L.bf16 != (L.kp > 0) || (L.wp != nullptr) != (hidden && L.bf16))
+      return false;
+    if (L.kp % 16 || (L.wp && (L.kp1 % 16 || L.kp1 > L.kp || L.N > NPAD)))
+      return false;
+    if (hidden && L.N > NPAD) return false;
+  }
+  return true;
+}
+
+// The stream of weight slices a block consumes, in order: every slice of
+// the packed layers of mlp[0], then of mlp[1]; `cyclic` repeats it (the
+// secant's density evaluations). seq counts the slices consumed, the
+// same on every thread; slice seq lives in ring buffer seq % RING.
+struct TileMem {
+  __nv_bfloat16* ring;
+  void *X, *T;
+  uint64_t* bar;
+  float* rest;
+  const MLPDesc* mlp[2];
+  int total, cyclic, ldx;
+  uint32_t seq;
+};
+
+__device__ TileMem tile_carve(unsigned char* smem, const TilePlan& p,
+                              const MLPDesc* m0, const MLPDesc* m1,
+                              int cyclic, int ldx) {
+  TileMem m;
+  m.ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  m.X = smem + p.ring;
+  m.T = smem + p.ring + p.xb;
+  m.bar = reinterpret_cast<uint64_t*>(smem + p.ring + p.act);
+  m.rest = reinterpret_cast<float*>(smem + tile_plan_bytes(p));
+  m.mlp[0] = m0;
+  m.mlp[1] = m1;
+  m.total = (m0 ? mlp_slices(*m0) : 0) + (m1 ? mlp_slices(*m1) : 0);
+  m.cyclic = cyclic;
+  m.ldx = ldx;
+  m.seq = 0;
+  return m;
+}
+
+// Thread 0: start loading the slice at stream position q into its buffer.
+__device__ void start_slice(const TileMem& m, uint32_t q) {
+  if (!m.total || (!m.cyclic && q >= (uint32_t)m.total)) return;
+  int p = (int)(q % (uint32_t)m.total);
+  for (int i = 0; i < 2; ++i) {
+    if (!m.mlp[i]) continue;
+    const MLPDesc& D = *m.mlp[i];
+    for (int l = 0; l < D.n; ++l) {
+      const LayerDesc& L = D.l[l];
+      const int n = n_slices(L);
+      if (p < n) {
+        const int k0 = p * KS, ks = min(KS, L.kp - k0);
+        bulk_load(m.ring + (q % RING) * KS * NPAD,
+                  static_cast<const __nv_bfloat16*>(L.wp) + (size_t)k0 * NPAD,
+                  (uint32_t)ks * NPAD * 2, m.bar + q % RING);
+        return;
+      }
+      p -= n;
+    }
+  }
+}
+
+// Barriers and the first RING slices in flight (every thread calls; the
+// caller synchronises before the first layer).
+__device__ void tile_start(const TileMem& m) {
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < RING; ++i) mbar_init(m.bar + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (uint32_t q = 0; q < RING; ++q) start_slice(m, q);
+  }
+}
+
+// Thread 0 waits for the slices started but never consumed (a cyclic
+// stream's next evaluation), so that no bulk copy into the block's shared
+// memory outlives the block.
+__device__ void tile_drain(const TileMem& m) {
+  if (threadIdx.x != 0 || !m.total) return;
+  for (uint32_t q = m.seq; q < m.seq + RING; ++q)
+    if (m.cyclic || q < (uint32_t)m.total)
+      mbar_wait(m.bar + q % RING, (q / RING) & 1);
+}
+
+// One packed bf16 hidden layer on wgmma: reads X (and T) as tiles of width
+// L.kp, writes the outputs into Xn (Tn) in the next layer's layout, in
+// place. Warpgroup g computes output columns [64 g, 64 g + 64).
+template <bool TANG>
+__device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
+                            ActBuf T, int act, ActBuf Xn, ActBuf Tn) {
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
+            lane = tid & 31;
+  float acc[32], tac[32];
+  const uint32_t sbo_a = (uint32_t)L.kp * 16;   // 8-row group stride
+  const int nsl = n_slices(L);
+  // the accumulators start at the bias (f32) and the tangent's at 0, so
+  // nothing but wgmma touches them until the epilogue
+#pragma unroll
+  for (int r = 0; r < 32; ++r) {
+    const int col = wg * 64 + (r >> 2) * 8 + (lane & 3) * 2 + (r & 1);
+    acc[r] = col < L.N ? L.b[col] : 0.f;
+    tac[r] = 0.f;
+  }
+  for (int i = 0; i < nsl; ++i) {
+    const uint32_t buf = m.seq % RING;
+    mbar_wait(m.bar + buf, (m.seq / RING) & 1);
+    const int k0 = i * KS, ks = min(KS, L.kp - k0);
+    // this warpgroup's 64 output columns: 8 groups of 8, each ks / 8
+    // core matrices of 64 elements
+    const __nv_bfloat16* wb = m.ring + buf * KS * NPAD + wg * 64 * ks;
+    wg_fence();
+    for (int kk = 0; kk < ks; kk += 16) {
+      const int kg = k0 + kk;
+      const uint64_t db = mat_desc(wb + kk * 8, 128, (uint32_t)ks * 16);
+      wgmma64(acc, mat_desc(X.h() + kg * 8, 128, sbo_a), db);
+      if constexpr (TANG) {
+        if (kg < L.kp1)
+          wgmma64(tac, mat_desc(T.h() + kg * 8, 128, sbo_a), db);
+      }
+    }
+    wg_commit();
+    wg_wait0();
+    __syncthreads();       // every warpgroup is done with the buffer
+    if (tid == 0) start_slice(m, m.seq + RING);
+    ++m.seq;
+  }
+  fence_regs(acc);
+  if constexpr (TANG) fence_regs(tac);
+#pragma unroll
+  for (int r = 0; r < 32; r += 2) {
+    const int row = warp * 16 + (lane >> 2) + ((r >> 1) & 1) * 8;
+    const int c0 = wg * 64 + (r >> 2) * 8 + (lane & 3) * 2;
+    float h[2], t[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int col = c0 + u;
+      const float pre = acc[r + u];
+      t[u] = 0.f;
+      if (act == ACT_SOFTPLUS) {
+        h[u] = softplus100(pre);
+        if constexpr (TANG) t[u] = fmul(tac[r + u], softplus100_grad(pre));
+      } else {
+        h[u] = fmaxf(pre, 0.f);
+      }
+      if (col >= L.N) h[u] = t[u] = 0.f;
+    }
+    if (Xn.kp) {
+      // two adjacent columns of one row: one 4-byte store
+      const int o = tile_off(row, c0, Xn.kp);
+      *reinterpret_cast<__nv_bfloat162*>(Xn.h() + o) =
+          __floats2bfloat162_rn(h[0], h[1]);
+      if constexpr (TANG)
+        *reinterpret_cast<__nv_bfloat162*>(Tn.h() + o) =
+            __floats2bfloat162_rn(t[0], t[1]);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        if (c0 + u < L.N) {
+          Xn.f()[row * Xn.ldx + c0 + u] = h[u];
+          if constexpr (TANG) Tn.f()[row * Tn.ldx + c0 + u] = t[u];
+        }
+    }
+  }
+  fence_proxy();
+  __syncthreads();
+}
+
+// One f32 hidden layer on the CUDA cores (dense_accum's arithmetic), in
+// place: thread j of each 256-thread half computes column j of one 32-row
+// sub-tile; every input is read before any output lands.
+template <bool TANG>
+__device__ void simt_layer_tile(const LayerDesc& L, ActBuf X, ActBuf T,
+                                int xoff2, int act, ActBuf Xn, ActBuf Tn) {
+  const int j = threadIdx.x % NT, s0 = threadIdx.x / NT * SB;
+  float acc[SB], tacc[SB];
+  if (j < L.N)
+    dense_accum<TANG>(L, X.f() + s0 * X.ldx, T.f() + s0 * T.ldx, X.ldx,
+                      xoff2, j, acc, tacc);
+  __syncthreads();
+  if (j < L.N) {
+#pragma unroll
+    for (int s = 0; s < SB; ++s) {
+      const float pre = acc[s];
+      if (act == ACT_SOFTPLUS) {
+        Xn.put(s0 + s, j, softplus100(pre));
+        if (TANG) Tn.put(s0 + s, j, fmul(tacc[s], softplus100_grad(pre)));
+      } else {
+        Xn.put(s0 + s, j, fmaxf(pre, 0.f));
+      }
+    }
+  } else if (Xn.kp) {          // zero pad columns of the next tile
+    for (int s = 0; s < SB; ++s) {
+      Xn.put(s0 + s, j, 0.f);
+      if (TANG) Tn.put(s0 + s, j, 0.f);
+    }
+  }
+  fence_proxy();
+  __syncthreads();
+}
+
+// Output layer (N <= a few columns) of the TS samples: LPS lanes per
+// sample split K, as simt_head_layer, reading X / T in the head's layout.
+__device__ void head_tile(const LayerDesc& L, ActBuf X, ActBuf T, bool tang,
+                          bool sigm, float* out, float* tout) {
+  const int s = threadIdx.x / LPS, lane = threadIdx.x % LPS;
+  for (int n = 0; n < L.N; ++n) {
+    float a = 0.f;
+    for (int k = lane; k < L.K; k += LPS)
+      a = fmaf(X.get(s, k), ldw(L, k * L.N + n), a);
+    a = gsum(a);
+    const float v = fadd(a, L.b[n]);
+    if (lane == 0) out[s * L.N + n] = sigm ? sigmoid(v) : v;
+  }
+  if (tang) {
+    float t = 0.f;
+    for (int k = lane; k < L.K; k += LPS)
+      t = fmaf(T.get(s, k), ldw(L, k * L.N), t);
+    t = gsum(t);
+    if (lane == 0) tout[s] = t;
+  }
+  __syncthreads();
+}
+
+// Hidden layers and head of an MLP whose first-layer inputs are in X (T),
+// laid out for layer 0 (first row block at column 0, second at xoff2).
+template <bool TANG>
+__device__ void mlp_tile(const MLPDesc& D, TileMem& m, int xoff2, int act,
+                         bool sigm, float* out, float* tout) {
+  const ActBuf X{m.X, 0, m.ldx}, T{m.T, 0, m.ldx};
+  for (int l = 0; l < D.n - 1; ++l) {
+    const LayerDesc& L = D.l[l];
+    const ActBuf Xi = X.for_layer(L), Ti = T.for_layer(L);
+    const ActBuf Xn = X.for_layer(D.l[l + 1]), Tn = T.for_layer(D.l[l + 1]);
+    if (L.wp)
+      wgmma_layer<TANG>(L, m, Xi, Ti, act, Xn, Tn);
+    else
+      simt_layer_tile<TANG>(L, Xi, Ti, l == 0 ? xoff2 : 0, act, Xn, Tn);
+  }
+  const LayerDesc& H = D.l[D.n - 1];
+  head_tile(H, X.for_layer(H), T.for_layer(H), TANG, sigm, out, tout);
+}
+
+// Column where a first layer's second row block starts in its input:
+// the padded first block of a tile, else the f32 rows' multiple of 4.
+__device__ __forceinline__ int second_block(const LayerDesc& L0) {
+  return L0.kp ? L0.kp1 : (L0.split + 3) & ~3;
+}
+
+// Zero the pad columns [from, kp) of a first-layer input tile.
+__device__ void zero_tail(ActBuf X, int from) {
+  if (!X.kp) return;
+  const int n = X.kp - from;
+  for (int idx = threadIdx.x; idx < TS * n; idx += TNT)
+    X.put(idx / n, from + idx % n, 0.f);
+}
+
+// Density MLP of _density_mlp on the TS samples (simt_density_stage's
+// inputs and rounding points).
+__device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
+                             const float* sFB, int ldfb, int md, int mfg,
+                             int gd, int lowp, bool tang, float* sdens,
+                             float* sdDdh) {
+  const LayerDesc& L0 = D.l[0];
+  const int r0 = L0.bf16;
+  const int nd = 1 + 2 * (md > 0 ? md : 0);
+  const int split = L0.split;                 // nd + gd
+  const int xoff2 = second_block(L0);
+  const ActBuf X{m.X, L0.kp, m.ldx}, T{m.T, L0.kp, m.ldx};
+  for (int idx = threadIdx.x; idx < TS * xoff2; idx += TNT) {
     const int s = idx / xoff2, j = idx % xoff2;
     float v = 0.f, dv = 0.f;
     if (j == 0) {
@@ -471,31 +1055,35 @@ __device__ void density_stage(const MLPDesc& D, float* sX, float* sT,
       const float fg = sFB[s * ldfb + (j - nd)];
       v = lowp ? rbf(fg) : fg;
     }
-    sX[s * ldx + j] = rnd(v, r0);
-    if (tang) sT[s * ldx + j] = rnd(j < nd ? dv : 0.f, r0);
+    X.put(s, j, rnd(v, r0));
+    if (tang) T.put(s, j, rnd(j < nd ? dv : 0.f, r0));
   }
-  feature_emb(sFB, ldfb, gd, mfg, lowp, sX, ldx, xoff2, r0);
+  feature_emb_to<TS, TNT>(sFB, ldfb, gd, mfg, lowp, xoff2, r0,
+                     [&](int s, int j, float v) { X.put(s, j, v); });
+  zero_tail(X, xoff2 + 2 * (mfg > 0 ? mfg : 0) * gd);
+  fence_proxy();
   __syncthreads();
-  for (int l = 0; l < D.n - 1; ++l)
-    dense_layer(D.l[l], sX, sT, ldx, l == 0 ? xoff2 : 0, ACT_SOFTPLUS,
-                D.l[l + 1].bf16, tang);
-  head_layer(D.l[D.n - 1], sX, sT, ldx, tang, false, sdens, sdDdh);
+  if (tang)
+    mlp_tile<true>(D, m, xoff2, ACT_SOFTPLUS, false, sdens, sdDdh);
+  else
+    mlp_tile<false>(D, m, xoff2, ACT_SOFTPLUS, false, sdens, nullptr);
 }
 
-// Colour MLP of _field_kernel: inputs [nabla, d_emb, vdir, view_emb, ft |
-// ft_emb], ReLU hidden layers, sigmoid head.
-__device__ void color_stage(const MLPDesc& Cm, float* sX, int ldx,
-                            const float* sds, const float* sdh,
-                            const float* sdDdh, const float* sdir,
-                            const float* sFB, int ldfb, int gd, int cd,
-                            int md, int mft, int mv, int lowp, float* srgb) {
+// Colour MLP of _field_kernel on the TS samples: inputs [nabla, d_emb,
+// vdir, view_emb, ft | ft_emb], ReLU hidden layers, sigmoid head.
+__device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
+                           const float* sdh, const float* sdDdh,
+                           const float* sdir, const float* sFB, int ldfb,
+                           int gd, int cd, int md, int mft, int mv, int lowp,
+                           float* srgb) {
   const LayerDesc& L0 = Cm.l[0];
   const int r0 = L0.bf16;
   const int nd = 1 + 2 * (md > 0 ? md : 0);
   const int nv = 6 * (mv > 0 ? mv : 0);
   const int split = L0.split;                 // 3 + nd + 3 + nv + cd
-  const int xoff2 = (split + 3) & ~3;
-  for (int idx = threadIdx.x; idx < SB * xoff2; idx += NT) {
+  const int xoff2 = second_block(L0);
+  const ActBuf X{m.X, L0.kp, m.ldx};
+  for (int idx = threadIdx.x; idx < TS * xoff2; idx += TNT) {
     const int s = idx / xoff2, j = idx % xoff2;
     float v = 0.f;
     if (j < 3) {
@@ -511,14 +1099,14 @@ __device__ void color_stage(const MLPDesc& Cm, float* sX, int ldx,
       const float ft = sFB[s * ldfb + gd + (j - 6 - nd - nv)];
       v = lowp ? rbf(ft) : ft;
     }
-    sX[s * ldx + j] = rnd(v, r0);
+    X.put(s, j, rnd(v, r0));
   }
-  feature_emb(sFB + gd, ldfb, cd, mft, lowp, sX, ldx, xoff2, r0);
+  feature_emb_to<TS, TNT>(sFB + gd, ldfb, cd, mft, lowp, xoff2, r0,
+                     [&](int s, int j, float v) { X.put(s, j, v); });
+  zero_tail(X, xoff2 + 2 * (mft > 0 ? mft : 0) * cd);
+  fence_proxy();
   __syncthreads();
-  for (int l = 0; l < Cm.n - 1; ++l)
-    dense_layer(Cm.l[l], sX, nullptr, ldx, l == 0 ? xoff2 : 0, ACT_RELU,
-                Cm.l[l + 1].bf16, false);
-  head_layer(Cm.l[Cm.n - 1], sX, nullptr, ldx, false, true, srgb, nullptr);
+  mlp_tile<false>(Cm, m, xoff2, ACT_RELU, true, srgb, nullptr);
 }
 
 // ---------------------------------------------------------------------------
@@ -537,11 +1125,30 @@ struct RayTile {
   float *FB;          // SB * F blended features
   float *W;           // SB * C kNN weights
   float *X;           // SB * ldx MLP activations
+  unsigned short* idx;  // tile stage: TS * KL listed kNN picks
+  int* cnt;             // tile stage: TS pick counts
   float *end;
 };
 
 __host__ __device__ inline size_t ray_tile_floats(const RayField& f) {
   return 8 * (size_t)f.C + SB * (3 * 4 + 2) + SB * ((size_t)f.F + f.C + f.ldx);
+}
+
+// Load tile b's context and the NR owner rays' origins and directions
+// (the last ray repeated past T).
+template <int NR, int NTHR>
+__device__ void ray_tile_fill(const RayField& f, const RayTile& t, int b,
+                              int r0) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 8 * f.C; i += NTHR)
+    t.geo[i] = f.geo[(size_t)b * 8 * f.C + i];
+  if (tid < NR) {
+    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
+    for (int i = 0; i < 3; ++i) {
+      t.o[tid * 4 + i] = f.rays_o[ray * 3 + i];
+      t.r[tid * 4 + i] = f.rays_d[ray * 3 + i];
+    }
+  }
 }
 
 // Carve the block's shared memory, load tile b's context and the owner
@@ -559,32 +1166,29 @@ __device__ RayTile ray_tile_load(const RayField& f, float* smem, int b,
   t.W = t.FB + SB * f.F;
   t.X = t.W + SB * f.C;
   t.end = t.X + SB * f.ldx;
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 8 * f.C; i += NT)
-    t.geo[i] = f.geo[(size_t)b * 8 * f.C + i];
-  if (tid < SB) {
-    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
-    for (int i = 0; i < 3; ++i) {
-      t.o[tid * 4 + i] = f.rays_o[ray * 3 + i];
-      t.r[tid * 4 + i] = f.rays_d[ray * 3 + i];
-    }
-  }
+  ray_tile_fill<SB, NT>(f, t, b, r0);
   return t;
 }
 
 // Interpolated distance at o + dv r of each owner's ray into t.ds, the kNN
-// weights into t.W (all threads call).
+// weights into t.W, for NR owner rays over NTHR threads (all threads
+// call; NC as interp_sample's).
+template <int NR = SB, int NTHR = NT, int NC = 0>
 __device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
   const int tid = threadIdx.x;
-  if (tid < SB)
+  if (tid < NR)
     for (int i = 0; i < 3; ++i)
       t.xyz[tid * 4 + i] = fadd(t.o[tid * 4 + i], fmul(dv, t.r[tid * 4 + i]));
   __syncthreads();
-  const int s = tid / LPS, lane = tid % LPS;
-  Interp r;
-  interp_sample(t.geo, f.C, t.xyz[s * 4], t.xyz[s * 4 + 1], t.xyz[s * 4 + 2],
-                f.w1, f.k, false, lane, t.W + s * f.C, r);
-  if (lane == 0) t.ds[s] = r.ds;
+  static_assert(NTHR / LPS == NR, "one sample per LPS lanes");
+  {
+    const int s = tid / LPS, lane = tid % LPS;
+    Interp r;
+    interp_sample<NC>(t.geo, f.C, t.xyz[s * 4], t.xyz[s * 4 + 1],
+                      t.xyz[s * 4 + 2], f.w1, f.k, false, lane,
+                      t.W + s * f.C, r);
+    if (lane == 0) t.ds[s] = r.ds;
+  }
   __syncthreads();
 }
 
@@ -594,8 +1198,8 @@ __device__ float ray_density(const RayField& f, const RayTile& t, int b) {
   blend_stage(f.feat, (size_t)b * f.C * f.F, f.feat_bf16, f.F, f.gd, t.W,
               f.C, t.FB);
   __syncthreads();
-  density_stage(f.dens, t.X, nullptr, f.ldx, t.ds, t.FB, f.F, f.md, f.mfg,
-                f.gd, f.lowp, false, t.dens, nullptr);
+  simt_density_stage(f.dens, t.X, f.ldx, t.ds, t.FB, f.F, f.md, f.mfg, f.gd,
+                     f.lowp, t.dens);
   return threadIdx.x < SB ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;
 }
 
@@ -632,6 +1236,45 @@ __device__ float secant_steps(Bracket& br, int n, Field field) {
     dp = br.pred();
   }
   return dp;
+}
+
+// ---- the ray block of the tile stage (secant_refine): TS rays of one
+// tile; thread s < TS owns ray r0 + s. The kNN weight rows alias the
+// activation region; the kernel's own buffers follow at `end`.
+__host__ __device__ inline size_t ray_tile_floats_ts(const RayField& f) {
+  return 8 * (size_t)f.C + TS * (3 * 4 + 2) + TS * (size_t)f.F +
+         TS * (KL / 2 + 1);
+}
+
+__device__ RayTile ray_tile_load_ts(const RayField& f, const TileMem& m,
+                                    int b, int r0) {
+  RayTile t;
+  t.geo = m.rest;
+  t.o = t.geo + 8 * f.C;
+  t.r = t.o + TS * 4;
+  t.xyz = t.r + TS * 4;
+  t.ds = t.xyz + TS * 4;
+  t.dens = t.ds + TS;
+  t.FB = t.dens + TS;
+  t.idx = reinterpret_cast<unsigned short*>(t.FB + TS * f.F);
+  t.cnt = reinterpret_cast<int*>(t.FB + TS * f.F + TS * KL / 2);
+  t.end = t.FB + TS * f.F + TS * (KL / 2 + 1);
+  t.W = static_cast<float*>(m.X);
+  t.X = nullptr;
+  ray_tile_fill<TS, TNT>(f, t, b, r0);
+  return t;
+}
+
+// Density minus tau of each owner's ray from t.ds and the kNN weights in
+// t.W, on the tile stage (all threads call; 0 on the other threads).
+__device__ float ray_density_ts(const RayField& f, const RayTile& t,
+                                TileMem& m, int b) {
+  blend_tile(f.feat, (size_t)b * f.C * f.F, f.feat_bf16, f.F, f.gd, t.W,
+             f.C, t.idx, t.cnt, t.FB);
+  __syncthreads();
+  density_tile(f.dens, m, t.ds, t.FB, f.F, f.md, f.mfg, f.gd, f.lowp, false,
+               t.dens, nullptr);
+  return threadIdx.x < TS ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;
 }
 
 }  // namespace nm

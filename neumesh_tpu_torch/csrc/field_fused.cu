@@ -10,42 +10,71 @@
 // (ReLU, sigmoid). Modes: distance (k = 1 one-hot fast path available),
 // density, density_nabla, full.
 //
-// What bounds it on the H100: the MLPs. At the volume-serving shapes a
-// sample costs ~0.2 MFLOP of MLP work (W = 256, 3 density + 4 colour
-// layers) against ~24 bytes of sample I/O, so the bound is operations,
-// not bytes. This first version runs the MLPs on the CUDA cores (f32
-// FMAs on bf16-exact products), thread-per-output-column over 32 samples
-// per block with the activations in shared memory, so it sits far below
-// the bf16 tensor-core peak; the candidate passes (8 lanes per sample,
-// d2 recomputed per pass) are a small share. Moving the layers onto
-// wgmma tiles is the next step.
+// What bounds it on the H100: at the serving shapes (W = 256, 3 density +
+// 4 colour layers, C = 128, k = 8) a sample costs ~1.2 MFLOP of bf16 MLP
+// work in `full` (with the tangent) against ~2 kFLOP of exact-f32
+// candidate math and ~28 bytes of sample I/O: operations, and the roofline
+// bound is the tensor cores'. The design puts the bf16 MLP layers on them
+// (field_common.cuh, tile stage): a block takes 64 samples of one tile,
+// one wgmma M tile, four warpgroups on the four 64-column quarters of
+// every 256-wide layer, the weights streamed through a two-slice
+// shared-memory ring. What holds it above the bound now is the exact-f32
+// work left on the CUDA cores: the epilogue's softplus / softplus' (the
+// largest part), the candidate passes (8 lanes a sample, d2 recomputed
+// per pass) and the feature blend, then
+// the heads, the embeddings and every f32 layer (selective-f32 d0/c0, the
+// f32 models: thread-per-column as before, in the 64-sample block).
+//
+// Shared memory of a 64-sample block (C = 128, F = 64, W = 256):
+//   weight ring        2 x 64 x 256 bf16            64 KB  (bf16 layers)
+//   X, T               64 x 256 bf16 each           32 + 32 KB
+//                      (64 x 256 f32 each, 64 + 64 KB, where an f32 layer
+//                      reads them)
+//   kNN weight rows    64 x C f32 = 32 KB, aliased on X/T (dead until the
+//                      first-layer inputs are built)
+//   FB                 64 x F f32                   16 KB
+//   geo, per-sample    8 x C f32 + 64 x 20 f32      4 + 5 KB
+//   listed kNN picks   64 x 32 u16 + 64 counts      4 KB
+// i.e. 157 KB for bf16 `full`, 221 KB with selective-f32 layers and the
+// tangent: one block per SM, so 128-sample blocks (two M tiles) do not
+// fit, and the 512 threads at 128 registers fill the register file.
 #include "field_common.cuh"
 
 namespace nm {
 
-__global__ void __launch_bounds__(NT) field_fused_kernel(const FieldArgs a) {
-  extern __shared__ __align__(16) float smem[];
+// One instantiation per register budget: KIND = DISTANCE (no MLP),
+// DENSITY (no tangent), DENSITY_NABLA (the tangent; full too).
+template <int KIND>
+__global__ void __launch_bounds__(TNT, 1)
+    field_fused_kernel(const __grid_constant__ FieldArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const int b = blockIdx.y;
-  const int s0 = blockIdx.x * SB;
+  const int s0 = blockIdx.x * TS;
   const int C = a.C, S = a.S, tid = threadIdx.x;
-  const bool full = a.mode == FULL;
-  const bool tang = a.mode == DENSITY_NABLA || full;
-  const int ldx = a.ldx;
-  float* sgeo = smem;                  // 8 * C
-  float* sxyz = sgeo + 8 * C;          // SB * 4
-  float* sdir = sxyz + SB * 4;         // SB * 4
-  float* sdh = sdir + SB * 4;          // SB * 4
-  float* srgb = sdh + SB * 4;          // SB * 4
-  float* sds = srgb + SB * 4;          // SB
-  float* sdens = sds + SB;             // SB
-  float* sdD = sdens + SB;             // SB
-  float* spad = sdD + SB;              // SB (keeps 16-byte alignment)
-  float* sFB = spad + SB;              // SB * F
-  float* sW = sFB + SB * a.F;          // SB * max(C, ldx): W rows, then T
-  float* sX = sW + SB * (C > ldx ? C : ldx);   // SB * ldx
+  constexpr bool mlp = KIND != DISTANCE, tang = KIND == DENSITY_NABLA;
+  const bool full = tang && a.mode == FULL;
+  const TilePlan plan = tile_plan(mlp ? &a.dens : nullptr,
+                                  full ? &a.col : nullptr, a.ldx, C, tang);
+  TileMem m = tile_carve(smem, plan, mlp ? &a.dens : nullptr,
+                         full ? &a.col : nullptr, 0, a.ldx);
+  tile_start(m);                       // weights load under the candidates
+  float* sgeo = m.rest;                // 8 * C
+  float* sxyz = sgeo + 8 * C;          // TS * 4
+  float* sdir = sxyz + TS * 4;         // TS * 4
+  float* sdh = sdir + TS * 4;          // TS * 4
+  float* srgb = sdh + TS * 4;          // TS * 4
+  float* sds = srgb + TS * 4;          // TS
+  float* sdens = sds + TS;             // TS
+  float* sdD = sdens + TS;             // TS
+  float* spad = sdD + TS;              // TS (keeps 16-byte alignment)
+  float* sFB = spad + TS;              // TS * F
+  unsigned short* sidx =               // TS * KL listed kNN picks
+      reinterpret_cast<unsigned short*>(sFB + TS * a.F);
+  int* scnt = reinterpret_cast<int*>(sFB + TS * a.F + TS * KL / 2);
+  float* sW = static_cast<float*>(m.X);   // TS * C, aliased on X/T
 
-  for (int i = tid; i < 8 * C; i += NT) sgeo[i] = a.geo[(size_t)b * 8 * C + i];
-  if (tid < SB) {
+  for (int i = tid; i < 8 * C; i += TNT) sgeo[i] = a.geo[(size_t)b * 8 * C + i];
+  if (tid < TS) {
     const int sg = min(s0 + tid, S - 1);   // ragged edge: repeat the last
     const size_t o = ((size_t)b * S + sg) * 3;
     for (int i = 0; i < 3; ++i) {
@@ -56,10 +85,14 @@ __global__ void __launch_bounds__(NT) field_fused_kernel(const FieldArgs a) {
   __syncthreads();
 
   {
-    const int s = tid / LPS, lane = tid % LPS;
+    const int s = tid / LPS, lane = tid % LPS;   // TNT / LPS == TS
     Interp r;
-    interp_sample(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1], sxyz[s * 4 + 2],
-                  a.w1, a.k, tang, lane, sW + s * C, r);
+    if (C <= KC * LPS)
+      interp_sample<KC>(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1],
+                        sxyz[s * 4 + 2], a.w1, a.k, tang, lane, sW + s * C, r);
+    else
+      interp_sample(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1], sxyz[s * 4 + 2],
+                    a.w1, a.k, tang, lane, sW + s * C, r);
     if (lane == 0) {
       sds[s] = r.ds;
       sdh[s * 4] = r.dh0;
@@ -71,25 +104,25 @@ __global__ void __launch_bounds__(NT) field_fused_kernel(const FieldArgs a) {
 
   const size_t plane = (size_t)a.B * S;
   const size_t obase = (size_t)b * S + s0;
-  const bool wr = tid < SB && s0 + tid < S;
-  if (a.mode == DISTANCE) {
+  const bool wr = tid < TS && s0 + tid < S;
+  if constexpr (!mlp) {
     if (wr) a.out[obase + tid] = sds[tid];
     return;
   }
 
-  blend_stage(a.feat, (size_t)b * C * a.F, a.feat_bf16, a.F,
-              full ? a.F : a.gd, sW, C, sFB);
+  blend_tile(a.feat, (size_t)b * C * a.F, a.feat_bf16, a.F,
+             full ? a.F : a.gd, sW, C, sidx, scnt, sFB);
   __syncthreads();
-  density_stage(a.dens, sX, sW, ldx, sds, sFB, a.F, a.md, a.mfg, a.gd,
-                a.lowp, tang, sdens, sdD);
+  density_tile(a.dens, m, sds, sFB, a.F, a.md, a.mfg, a.gd, a.lowp, tang,
+               sdens, sdD);
   if (wr) a.out[obase + tid] = sdens[tid];
-  if (!tang) return;
+  if constexpr (!tang) return;
   if (wr)
     for (int i = 0; i < 3; ++i)
       a.out[(1 + i) * plane + obase + tid] = fmul(sdD[tid], sdh[tid * 4 + i]);
   if (!full) return;
-  color_stage(a.col, sX, ldx, sds, sdh, sdD, sdir, sFB, a.F, a.gd,
-              a.F - a.gd, a.md, a.mft, a.mv, a.lowp, srgb);
+  color_tile(a.col, m, sds, sdh, sdD, sdir, sFB, a.F, a.gd, a.F - a.gd, a.md,
+             a.mft, a.mv, a.lowp, srgb);
   if (wr)
     for (int i = 0; i < 3; ++i)
       a.out[(4 + i) * plane + obase + tid] = srgb[tid * 3 + i];
@@ -100,25 +133,33 @@ __global__ void __launch_bounds__(NT) field_fused_kernel(const FieldArgs a) {
 extern "C" {
 
 size_t nm_field_fused_smem(const nm::FieldArgs* a) {
-  const int C = a->C, ldx = a->ldx;
-  return sizeof(float) * ((size_t)8 * C + nm::SB * (4 * 4 + 4) +
-                          (size_t)nm::SB * a->F +
-                          (size_t)nm::SB * (C > ldx ? C : ldx) +
-                          (size_t)nm::SB * ldx);
+  const bool full = a->mode == nm::FULL, mlp = a->mode != nm::DISTANCE;
+  const nm::TilePlan p = nm::tile_plan(
+      mlp ? &a->dens : nullptr, full ? &a->col : nullptr, a->ldx, a->C,
+      a->mode == nm::DENSITY_NABLA || full);
+  return nm::tile_plan_bytes(p) +
+         sizeof(float) * ((size_t)8 * a->C + nm::TS * (4 * 4 + 4) +
+                          (size_t)nm::TS * a->F + nm::TS * (nm::KL / 2 + 1));
 }
 
 int nm_field_fused(const nm::FieldArgs* a, void* stream) {
   if (a->B <= 0 || a->S <= 0) return 0;
   if (a->B > 65535 || a->k < 1 || (a->ldx & 3) || a->ldx < 4)
     return (int)cudaErrorInvalidValue;
+  if (a->mode != nm::DISTANCE &&
+      (!nm::tile_mlp_ok(a->dens, a->ldx) ||
+       (a->mode == nm::FULL && !nm::tile_mlp_ok(a->col, a->ldx))))
+    return (int)cudaErrorInvalidValue;
   const size_t smem = nm_field_fused_smem(a);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = a->mode == nm::DISTANCE ? nm::field_fused_kernel<nm::DISTANCE>
+                : a->mode == nm::DENSITY ? nm::field_fused_kernel<nm::DENSITY>
+                : nm::field_fused_kernel<nm::DENSITY_NABLA>;
   cudaError_t e = cudaFuncSetAttribute(
-      nm::field_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a->S + nm::SB - 1) / nm::SB, a->B);
-  nm::field_fused_kernel<<<grid, nm::NT, smem, (cudaStream_t)stream>>>(*a);
+  dim3 grid((a->S + nm::TS - 1) / nm::TS, a->B);
+  kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -10,34 +10,50 @@
 // `frozen` selects the k neighbours once at the bracket midpoint and
 // evaluates |x_mid + de r - p|^2 = A + 2 de B + de^2 on the k selected
 // columns only. The TPU kernel's tile grouping knob is dropped: rays are
-// independent, so a block simply takes 32 rays of one tile.
+// independent, so a block simply takes 64 rays of one tile.
 //
-// What bounds it on the H100: the density MLP of each of the
-// n_iters (+2 with the re-bracket) sequential evaluations, i.e.
-// operations; the inputs are a few floats per ray. The design keeps the
-// whole iteration chain of a ray inside one block (bracket state in
-// registers of the ray's owner thread, the tile context in shared
-// memory), so no intermediate leaves the chip between iterations.
+// What bounds it on the H100: the density MLP of each of the n_iters (+2
+// with the re-bracket) sequential evaluations, i.e. operations (the bound
+// is the bf16 products on the tensor cores); the inputs are a few floats
+// per ray. The design keeps the whole iteration chain of a ray inside one
+// block (bracket state in registers of the ray's owner thread, the tile
+// context in shared memory), so no intermediate leaves the chip between
+// iterations, and runs the density MLP's bf16 layers on the tensor cores
+// (field_common.cuh, tile stage): a block takes 64 rays of one tile, one
+// wgmma M tile, and the weight-slice ring runs on from one evaluation to
+// the next, so the next evaluation's first slices load under the current
+// one's candidate passes. What holds it above the bound now is the
+// exact-f32 work of every evaluation on the CUDA cores: the kNN passes,
+// the softplus epilogues, the blend, the embeddings and the head (and
+// the frozen selection, once). The frozen option is its own
+// instantiation, so its selection registers do not weigh on the rest.
 #include "field_common.cuh"
 
 namespace nm {
 
-__global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
-  extern __shared__ __align__(16) float smem[];
+// FROZEN: one instantiation per option, so that the frozen selection's
+// registers do not weigh on the rest.
+template <bool FROZEN>
+__global__ void __launch_bounds__(TNT, 1)
+    secant_refine_kernel(const __grid_constant__ SecantArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
   const RayField& f = a.f;
-  const int b = blockIdx.y, r0 = blockIdx.x * SB, tid = threadIdx.x;
+  const int b = blockIdx.y, r0 = blockIdx.x * TS, tid = threadIdx.x;
   const int C = f.C, k = f.k;
-  const RayTile t = ray_tile_load(f, smem, b, r0);
-  float* sdev = t.end;                 // SB
-  float* sdm = sdev + SB;              // SB
-  float* sA = sdm + SB;                // SB * KSEL (frozen picks)
-  float* sBq = sA + SB * KSEL;
-  float* sE = sBq + SB * KSEL;
-  float* sF = sE + SB * KSEL;
-  float* sW8 = sF + SB * KSEL;
-  unsigned char* srank = reinterpret_cast<unsigned char*>(sW8 + SB * KSEL);
+  TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, C, false),
+                         &f.dens, nullptr, 1, f.ldx);
+  tile_start(m);
+  const RayTile t = ray_tile_load_ts(f, m, b, r0);
+  float* sdev = t.end;                 // TS
+  float* sdm = sdev + TS;              // TS
+  float* sA = sdm + TS;                // TS * KSEL (frozen picks)
+  float* sBq = sA + TS * KSEL;
+  float* sE = sBq + TS * KSEL;
+  float* sF = sE + TS * KSEL;
+  float* sW8 = sF + TS * KSEL;
+  unsigned char* srank = reinterpret_cast<unsigned char*>(sW8 + TS * KSEL);
 
-  const bool owner = tid < SB;
+  const bool owner = tid < TS;
   Bracket br{0.f, 0.f, 0.f, 0.f};
   float dlw = 0.f, dhw = 0.f;
   if (owner) {
@@ -52,12 +68,13 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
   }
   __syncthreads();
 
-  const int s = tid / LPS, lane = tid % LPS;
+  const int lane = tid % LPS;
   const float *px = t.geo, *py = t.geo + C, *pz = t.geo + 2 * C,
               *ix = t.geo + 3 * C, *iy = t.geo + 4 * C, *iz = t.geo + 5 * C,
               *pp = t.geo + 6 * C, *vn = t.geo + 7 * C;
 
-  if (a.frozen) {
+  const int s = tid / LPS;             // TNT / LPS == TS
+  if constexpr (FROZEN) {
     // one-time selection at the bracket midpoint x_mid = o + d_mid r
     const float o0 = t.o[s * 4], o1 = t.o[s * 4 + 1], o2 = t.o[s * 4 + 2];
     const float q0 = t.r[s * 4], q1 = t.r[s * 4 + 1], q2 = t.r[s * 4 + 2];
@@ -86,12 +103,12 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
     for (int it = 0; it < KSEL; ++it) {
       thr[it] = INFINITY;
       if (it < k) {
-        float m = INFINITY;
+        float mn = INFINITY;
         for (int c = lane; c < C; c += LPS) {
           const float v = cur_at(c);
-          if (v > prev) m = fminf(m, v);
+          if (v > prev) mn = fminf(mn, v);
         }
-        prev = gmin(m);
+        prev = gmin(mn);
         thr[it] = prev;
       }
     }
@@ -136,60 +153,85 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
 
   // density (minus tau) at depth dv of each owner's ray; all threads call
   auto field = [&](float dv) -> float {
-    if (!a.frozen) return ray_density_at(f, t, b, dv);
+    if constexpr (!FROZEN) {
+      if (C <= KC * LPS)
+        ray_interp_at<TS, TNT, KC>(f, t, dv);
+      else
+        ray_interp_at<TS, TNT>(f, t, dv);
+      return ray_density_ts(f, t, m, b);
+    }
     if (owner) sdev[tid] = dv;
     __syncthreads();
-    // |x_mid + de r - p|^2 = A + 2 de B + de^2 on the k frozen picks
-    const float de = fsub(sdev[s], sdm[s]);
-    float d_[2], d2_[2], wr_[2];
-    float sw = 0.f;
+    {
+      // |x_mid + de r - p|^2 = A + 2 de B + de^2 on the k frozen picks
+      const float de = fsub(sdev[s], sdm[s]);
+      float d_[2], d2_[2], wr_[2];
+      float sw = 0.f;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int rr = lane + u * LPS;
-      d_[u] = d2_[u] = wr_[u] = 0.f;
-      if (rr < k) {
-        const float A = sA[s * KSEL + rr], Bq = sBq[s * KSEL + rr];
-        d2_[u] = fmaxf(fadd(fadd(A, fmul(fmul(2.f, de), Bq)), fmul(de, de)),
-                       1e-20f);
-        d_[u] = sqrtf(d2_[u]);
-        wr_[u] = fdiv(1.f, fadd(d_[u], 1e-7f));
-        sw = fadd(sw, wr_[u]);
+      for (int u = 0; u < 2; ++u) {
+        const int rr = lane + u * LPS;
+        d_[u] = d2_[u] = wr_[u] = 0.f;
+        if (rr < k) {
+          const float A = sA[s * KSEL + rr], Bq = sBq[s * KSEL + rr];
+          d2_[u] = fmaxf(fadd(fadd(A, fmul(fmul(2.f, de), Bq)), fmul(de, de)),
+                         1e-20f);
+          d_[u] = sqrtf(d2_[u]);
+          wr_[u] = fdiv(1.f, fadd(d_[u], 1e-7f));
+          sw = fadd(sw, wr_[u]);
+        }
       }
-    }
-    sw = gsum(sw);
-    float ds = 0.f;
+      sw = gsum(sw);
+      float ds = 0.f;
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int rr = lane + u * LPS;
-      if (rr < k) {
-        const float W8 = fdiv(wr_[u], sw);
-        const float term =
-            fadd(fmul(f.w1, fadd(sE[s * KSEL + rr],
-                                 fmul(de, sF[s * KSEL + rr]))),
-                 fmul(d_[u], d2_[u]));
-        ds = fadd(ds, fdiv(fmul(W8, term), fadd(f.w1, d_[u])));
-        sW8[s * KSEL + rr] = W8;
+      for (int u = 0; u < 2; ++u) {
+        const int rr = lane + u * LPS;
+        if (rr < k) {
+          const float W8 = fdiv(wr_[u], sw);
+          const float term =
+              fadd(fmul(f.w1, fadd(sE[s * KSEL + rr],
+                                   fmul(de, sF[s * KSEL + rr]))),
+                   fmul(d_[u], d2_[u]));
+          ds = fadd(ds, fdiv(fmul(W8, term), fadd(f.w1, d_[u])));
+          sW8[s * KSEL + rr] = W8;
+        }
       }
+      ds = gsum(ds);
+      __syncwarp();
+      float* Wrow = t.W + s * C;
+      for (int c = lane; c < C; c += LPS) {
+        const int rk = srank[s * C + c];
+        Wrow[c] = rk < k ? sW8[s * KSEL + rk] : 0.f;
+      }
+      if (lane == 0) t.ds[s] = ds;
     }
-    ds = gsum(ds);
-    __syncwarp();
-    float* Wrow = t.W + s * C;
-    for (int c = lane; c < C; c += LPS) {
-      const int rk = srank[s * C + c];
-      Wrow[c] = rk < k ? sW8[s * KSEL + rk] : 0.f;
-    }
-    if (lane == 0) t.ds[s] = ds;
     __syncthreads();
-    return ray_density(f, t, b);
+    return ray_density_ts(f, t, m, b);
   };
 
-  if (a.rebracket) {
-    const float fhr = field(dhw);
-    const float flr = field(dlw);
-    if (fhr > 0.f && flr < 0.f) br = Bracket{dlw, flr, dhw, fhr};
+  // the re-bracket's evaluations (d_high_w, then d_low_w) and the n_iters
+  // secant steps, through one call site of `field` (so that it inlines)
+  const int n_pre = a.rebracket ? 2 : 0;
+  float fhr = 0.f, dp = br.pred();
+  for (int e = 0; e < n_pre + a.n_iters; ++e) {
+    const int it = e - n_pre;
+    const float fv = field(it == -2 ? dhw : it == -1 ? dlw : dp);
+    if (it == -2) {
+      fhr = fv;
+      continue;
+    }
+    if (it == -1) {
+      if (fhr > 0.f && fv < 0.f) br = Bracket{dlw, fv, dhw, fhr};
+    } else if (fv < 0.f) {
+      br.dl = dp;
+      br.fl = fv;
+    } else {
+      br.dh = dp;
+      br.fh = fv;
+    }
+    dp = br.pred();
   }
-  const float dp = secant_steps(br, a.n_iters, field);
   if (owner && r0 + tid < f.T) f.out[(size_t)b * f.T + r0 + tid] = dp;
+  tile_drain(m);
 }
 
 }  // namespace nm
@@ -197,26 +239,29 @@ __global__ void __launch_bounds__(NT) secant_refine_kernel(const SecantArgs a) {
 extern "C" {
 
 size_t nm_secant_refine_smem(const nm::SecantArgs* a) {
-  const size_t SB = nm::SB;
-  return sizeof(float) * (nm::ray_tile_floats(a->f) + 2 * SB +
-                          5 * SB * nm::KSEL) +
-         SB * a->f.C;
+  const size_t TS = nm::TS;
+  return nm::tile_plan_bytes(nm::tile_plan(&a->f.dens, nullptr, a->f.ldx,
+                                           a->f.C, false)) +
+         sizeof(float) * (nm::ray_tile_floats_ts(a->f) + 2 * TS +
+                          5 * TS * nm::KSEL) +
+         TS * a->f.C;
 }
 
 int nm_secant_refine(const nm::SecantArgs* a, void* stream) {
   const nm::RayField& f = a->f;
   if (f.R <= 0) return 0;
   if (f.B <= 0 || f.B > 65535 || f.T * f.B != f.R || f.k < 1 ||
-      f.k > nm::KSEL || (f.ldx & 3) || f.ldx < 4)
+      f.k > nm::KSEL || (f.ldx & 3) || !nm::tile_mlp_ok(f.dens, f.ldx))
     return (int)cudaErrorInvalidValue;
   const size_t smem = nm_secant_refine_smem(a);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kernel = a->frozen ? nm::secant_refine_kernel<true>
+                          : nm::secant_refine_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      nm::secant_refine_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((f.T + nm::SB - 1) / nm::SB, f.B);
-  nm::secant_refine_kernel<<<grid, nm::NT, smem, (cudaStream_t)stream>>>(*a);
+  dim3 grid((f.T + nm::TS - 1) / nm::TS, f.B);
+  kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,8 @@ import torch
 
 MAX_LAYERS = 8      # csrc/field_common.cuh MAX_LAYERS
 NT = 256            # threads per block (csrc/field_common.cuh NT)
+KS = 64             # K rows per staged weight slice (csrc KS)
+NPAD = 256          # packed layers' output width (csrc NPAD)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -45,7 +47,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 class LayerDesc(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("K", ctypes.c_int), ("N", ctypes.c_int),
-                ("bf16", ctypes.c_int), ("split", ctypes.c_int)]
+                ("bf16", ctypes.c_int), ("split", ctypes.c_int),
+                ("wp", ctypes.c_void_p), ("kp1", ctypes.c_int),
+                ("kp", ctypes.c_int)]
 
 
 class MLPDesc(ctypes.Structure):
@@ -164,6 +168,10 @@ def _lib(name: str):
                     fn = getattr(lib, entry)
                     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                     fn.restype = ctypes.c_int
+                    smem = getattr(lib, entry + "_smem", None)
+                    if smem is not None:
+                        smem.argtypes = [ctypes.c_void_p]
+                        smem.restype = ctypes.c_size_t
             lib.nm_error_string.argtypes = [ctypes.c_int]
             lib.nm_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

@@ -315,10 +315,12 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
         dens_d = col_d = None
         ldx = 4
     else:
-        dens_d, ldx_d = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
+        dens_d, ldx_d = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep,
+                                  tile=True)
         col_d, ldx_c = (_mlp_desc(_col_layers(col_ws, F - geometry_dim,
                                               multires_d, multires_view),
-                                  keep) if want == "full" else (None, 0))
+                                  keep, tile=True)
+                        if want == "full" else (None, 0))
         ldx = max(ldx_d, ldx_c)
     d = dirs.contiguous() if want == "full" else None
     args = _build.FieldArgs(
@@ -488,7 +490,7 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
     keep = []
     field = _ray_field("secant_refine", rays_o, rays_d, geo, feat, w1,
                        dens_ws, out, k, multires_d, multires_fg,
-                       geometry_dim, dtype, logit_tau, keep)
+                       geometry_dim, dtype, logit_tau, keep, tile=True)
     vec = [v.to(torch.float32).contiguous()
            for v in (d_low, d_high, f_low, f_high)]
     wvec = ([d_low_w.to(torch.float32).contiguous(),
@@ -641,7 +643,7 @@ def surface_locate(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, *,
     keep = []
     field = _ray_field("surface_locate", rays_o, rays_d, geo, feat, w1,
                        dens_ws, out, k, multires_d, multires_fg,
-                       geometry_dim, dtype, logit_tau, keep)
+                       geometry_dim, dtype, logit_tau, keep, tile=False)
     args = _build.LocateArgs(
         f=field, near=_ptr(near.to(torch.float32).contiguous(), keep),
         far=_ptr(far.to(torch.float32).contiguous(), keep),
@@ -795,38 +797,87 @@ def _col_layers(col_ws, color_dim, multires_d, multires_view):
     return layers
 
 
-def _mlp_desc(layers, keep):
-    """ctypes MLP descriptor + the row stride (floats) of the activation
-    buffer: wide enough for every layer's input (the second row block of
-    a first layer starts at a multiple of 4) and output."""
+def _pad16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def pack_layer(w, split: int):
+    """A bf16 (K, N) hidden-layer weight in the tile stage's layout ->
+    (packed (kp * NPAD,) bf16, kp1, kp). Row blocks ([0, split) and
+    [split, K) of a first layer; the whole of a later one) are zero-padded
+    to multiples of 16 rows, a later layer's to NPAD rows (the width of the
+    activation tile it reads), and N to NPAD columns; kp1 rows take the
+    bias after them (kp1 = kp: after all). The transpose (K-major) is cut
+    into slices of KS rows, each laid out as 8 x 8 core matrices in the
+    order (n // 8, k // 8, n % 8, k % 8), the order the kernel's bulk
+    copies and wgmma descriptors read. Packed per call, never cached: a
+    weight edited in place cannot go stale."""
+    from ._build import KS, NPAD
+
+    K, N = w.shape
+    if split:
+        blocks = [(w[:split], _pad16(split)), (w[split:], _pad16(K - split))]
+    else:
+        if K > NPAD:
+            raise ValueError(f"field kernels: hidden K {K} > {NPAD}")
+        blocks = [(w, NPAD)]
+    kp = sum(n for _, n in blocks)
+    wp = w.new_zeros((kp, NPAD))
+    r = 0
+    for blk, n in blocks:
+        wp[r:r + blk.shape[0], :N] = blk
+        r += n
+    wt = wp.t()
+    packed = torch.cat([
+        wt[:, k0:k0 + KS].reshape(NPAD // 8, 8, -1, 8).permute(0, 2, 1, 3)
+        .reshape(-1) for k0 in range(0, kp, KS)])
+    return packed, (blocks[0][1] if split else kp), kp
+
+
+def _mlp_desc(layers, keep, tile: bool = False):
+    """ctypes MLP descriptor + the row stride (floats) of the f32
+    activation rows: wide enough for every layer's input (the second row
+    block of a first layer starts at a multiple of 4) and output. tile:
+    for the tensor-core tile stage (field_fused, secant_refine): every
+    bf16 hidden layer packed by pack_layer, every bf16 layer given the
+    width of the bf16 tile it reads, and the row stride at least NPAD."""
     from . import _build
 
     if len(layers) > _build.MAX_LAYERS:
         raise ValueError(f"field kernels: at most {_build.MAX_LAYERS} layers")
     desc = _build.MLPDesc()
     desc.n = len(layers)
-    ldx = 4
+    ldx = _build.NPAD if tile else 4
     for i, (w, b, split) in enumerate(layers):
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"field kernels: weight dtype {w.dtype}")
         K, N = w.shape
-        if i < len(layers) - 1 and N > _build.NT:
+        hidden = i < len(layers) - 1
+        if hidden and N > _build.NT:
             raise ValueError(f"field kernels: width {N} > {_build.NT}")
         w = w.contiguous()
         b = b.reshape(-1).to(torch.float32).contiguous()
         desc.l[i].w = _ptr(w, keep)
         desc.l[i].b = _ptr(b, keep)
         desc.l[i].K, desc.l[i].N = K, N
-        desc.l[i].bf16 = int(w.dtype == torch.bfloat16)
+        desc.l[i].bf16 = bf16 = int(w.dtype == torch.bfloat16)
         desc.l[i].split = split
+        if tile and bf16:
+            if hidden:
+                wp, desc.l[i].kp1, desc.l[i].kp = pack_layer(w, split)
+                desc.l[i].wp = _ptr(wp, keep)
+            else:
+                desc.l[i].kp = _build.NPAD
         ldx = max(ldx, _align4(split) + K - split if split else K, N)
     return desc, _align4(ldx)
 
 
 def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,
-               multires_d, multires_fg, geometry_dim, dtype, logit_tau, keep):
-    """The RayField block shared by secant_refine and surface_locate: R
-    rays in R // B consecutive tiles of geo (B, 8, C) / feat (B, C, F)."""
+               multires_d, multires_fg, geometry_dim, dtype, logit_tau, keep,
+               tile):
+    """The RayField block shared by secant_refine (tile: the tensor-core
+    stage) and surface_locate: R rays in R // B consecutive tiles of geo
+    (B, 8, C) / feat (B, C, F)."""
     from . import _build
 
     R = rays_o.shape[0]
@@ -837,7 +888,8 @@ def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,
         feat = feat.to(dtype)
     feat = feat.contiguous()
     _check_inputs(rays_o, geo, feat, rays_d)
-    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
+    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep,
+                            tile=tile)
     return _build.RayField(
         rays_o=_ptr(rays_o.contiguous(), keep),
         rays_d=_ptr(rays_d.contiguous(), keep),
@@ -884,7 +936,7 @@ def _check_inputs(xyz, geo, feat, dirs):
         raise TypeError(f"field kernels: feat dtype {feat.dtype}")
 
 
-__all__ = ["field_fused", "field_fused_plain", "secant_refine",
+__all__ = ["field_fused", "field_fused_plain", "pack_layer", "secant_refine",
            "secant_refine_plain", "secant_pred", "surface_locate",
            "surface_locate_plain", "candidate_field_v3",
            "candidate_field_v3_plain", "candidate_field",

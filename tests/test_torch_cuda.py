@@ -20,6 +20,38 @@ FIELD_CASES = [("distance", 1, None, ()), ("distance", 8, None, ()),
                ("full", 8, "bf16", ("d0", "dh", "c0", "ch"))]
 SECANT_CASES = [(rb, fr, dt) for rb in (True, False) for fr in (False, True)
                 for dt in (None, "bf16")]
+SEL_F32 = ("d0", "dh", "c0", "ch")
+# flagship widths (W = 256, dims 32/32, multires 8/2/2/4)
+WIDE = dict(W=256, gd=32, cd=32, md=8, mfg=2, mft=2, mv=4)
+# on the card, FIELD_CASES and more, each with its random_context
+# overrides: the edges of the 64-sample tile (S = 1, 63, 64, 65, 130 and
+# B = 1); first-layer row blocks that are not multiples of 16 or empty
+# (md = 0, mfg = mft = 0); the flagship width; selective-f32 layers with
+# the tangent; C > 128, where the candidate passes leave the registers
+CARD_FIELD_CASES = ([(*c, {}) for c in FIELD_CASES]
+                    + [("density_nabla", 8, "bf16", SEL_F32, {})]
+                    + [("full", 8, "bf16", (), dict(B=1, S=n))
+                       for n in (1, 63, 64, 65, 130)]
+                    + [("density", 1, None, (), dict(B=1, S=65)),
+                       ("density_nabla", 8, "bf16", (), dict(md=0)),
+                       ("full", 8, "bf16", (), dict(mfg=0, mft=0)),
+                       ("full", 8, "bf16", (), WIDE),
+                       ("full", 8, None, (), WIDE),
+                       ("density_nabla", 8, "bf16", SEL_F32, WIDE),
+                       ("density", 8, None, (), dict(C=192)),
+                       ("full", 8, "bf16", (), dict(C=192)),
+                       ("full", 8, "bf16", SEL_F32, dict(WIDE, C=256))])
+# on the card, SECANT_CASES at T = 100 rays a tile and more: (..., tags,
+# T, random_context overrides); T = 100 and 37 are not multiples of the
+# 64-ray block; C = 192 and 256 leave the registers in the candidate passes
+CARD_SECANT_CASES = ([(*c, (), 100, {}) for c in SECANT_CASES]
+                     + [(True, False, "bf16", SEL_F32, 100, {}),
+                        (True, True, "bf16", SEL_F32, 37, {}),
+                        (True, False, "bf16", (), 37, WIDE),
+                        (False, False, "bf16", (), 64, dict(md=0, mfg=0)),
+                        (True, False, "bf16", (), 100, dict(C=192)),
+                        (True, False, None, (), 100, dict(C=192)),
+                        (True, True, "bf16", (), 100, dict(WIDE, C=256))])
 # (want_dh, want_feat, k) of candidate_field_v3 / candidate_field
 CAND_CASES = [(True, True, 8), (False, True, 8), (True, False, 8),
               (False, False, 8), (True, True, 1)]
@@ -90,11 +122,13 @@ def brackets(seed, R):
                 d_high_w=(d_high + 0.05).astype(f))
 
 
-def low_precision_mask(ws, dtype, keep_f32=()):
-    """Per weight: True where the matrix goes to `dtype` (never the (1, N)
-    biases, never the positions in keep_f32; all False for f32)."""
-    return [dtype is not None and w.shape[0] > 1 and i not in keep_f32
-            for i, w in enumerate(ws)]
+def low_precision_mask(ws, dtype, keep_f32=(), n_first=2):
+    """Per weight of a list in the field kernels' layout (n_first first-
+    layer matrices, then bias, weight, bias, ...): True where the matrix
+    goes to `dtype` (never a bias, never the positions in keep_f32; all
+    False for f32)."""
+    return [dtype is not None and not (i >= n_first and (i - n_first) % 2 == 0)
+            and i not in keep_f32 for i, w in enumerate(ws)]
 
 
 def kept_f32(tags, first, head):
@@ -122,7 +156,8 @@ def torch_field(inp, want, k, dtype, tags, device="cpu", plain=False):
         return torch.from_numpy(a).to(device)
 
     def ws(lst, first, head):
-        low = low_precision_mask(lst, dtype, kept_f32(tags, first, head))
+        low = low_precision_mask(lst, dtype, kept_f32(tags, first, head),
+                                 len(first))
         return [t(w).to(torch.bfloat16) if lo else t(w)
                 for w, lo in zip(lst, low)]
 
@@ -139,13 +174,14 @@ def torch_field(inp, want, k, dtype, tags, device="cpu", plain=False):
 
 
 def torch_secant(inp, br, rebracket, frozen, dtype, device="cpu",
-                 plain=False):
+                 plain=False, tags=()):
     """secant_refine (or its plain version) on `inp`/`br` as tensors."""
     def t(a):
         return torch.from_numpy(a).to(device)
 
     gd = inp["kw"]["geometry_dim"]
-    low = low_precision_mask(inp["dws"], dtype)
+    low = low_precision_mask(inp["dws"], dtype,
+                             kept_f32(tags, (0, 1), len(inp["dws"]) - 2))
     ws = [t(w).to(torch.bfloat16) if lo else t(w)
           for w, lo in zip(inp["dws"], low)]
     kw = dict(n_iters=3, multires_d=inp["kw"]["multires_d"],
@@ -336,6 +372,103 @@ def test_kernel_layer_descriptors():
     assert cdesc.n == len(cws) // 2 <= _build.MAX_LAYERS
 
 
+def unpack_layer(packed, kp):
+    """pack_layer's (kp, NPAD) zero-padded weight back from its slices."""
+    from neumesh_tpu_torch.ops._build import KS, NPAD
+    rows, off = [], 0
+    for k0 in range(0, kp, KS):
+        ks = min(KS, kp - k0)
+        blk = packed[off:off + ks * NPAD].reshape(NPAD // 8, ks // 8, 8, 8)
+        rows.append(blk.permute(0, 2, 1, 3).reshape(NPAD, ks).t())
+        off += ks * NPAD
+    assert off == packed.numel()
+    return torch.cat(rows)
+
+
+@pytest.mark.parametrize("ctx", [{}, dict(md=0), dict(mfg=0, mft=0), WIDE])
+def test_packed_layers_unpack_to_their_weights(ctx):
+    """Every bf16 hidden layer unpacks to its weight, each row block at a
+    multiple of 16 rows, with only zero rows and columns added."""
+    from neumesh_tpu_torch.ops._build import NPAD
+    inp = random_context(seed=3, **ctx)
+    gd = inp["kw"]["geometry_dim"]
+    dws = [torch.from_numpy(w).to(torch.bfloat16) for w in inp["dws"]]
+    cws = [torch.from_numpy(w).to(torch.bfloat16) for w in inp["cws"]]
+    cd = inp["feat"].shape[-1] - gd
+    kw = inp["kw"]
+    for layers in (kernels._dens_layers(dws, gd),
+                   kernels._col_layers(cws, cd, kw["multires_d"],
+                                       kw["multires_view"])):
+        for w, _, split in layers[:-1]:
+            packed, kp1, kp = kernels.pack_layer(w, split)
+            K, N = w.shape
+            assert packed.dtype == torch.bfloat16 and kp1 % 16 == 0
+            assert kp % 16 == 0 and packed.numel() == kp * NPAD
+            full = unpack_layer(packed, kp)
+            blocks = ([(0, 0, split), (kp1, split, K)] if split
+                      else [(0, 0, K)])
+            seen = torch.zeros(kp, dtype=torch.bool)
+            for dst, lo, hi in blocks:
+                assert torch.equal(full[dst:dst + hi - lo, :N], w[lo:hi])
+                seen[dst:dst + hi - lo] = True
+            assert not full[~seen].any() and not full[:, N:].any()
+            if split:
+                assert kp1 == -(-split // 16) * 16
+                assert kp - kp1 == -(-(K - split) // 16) * 16
+            else:
+                assert kp1 == kp == NPAD
+
+
+def test_tile_descriptors_pack_only_bf16_hidden_layers():
+    """The tile stage's descriptors: bf16 hidden layers packed, a bf16
+    head reading an NPAD-wide tile, f32 layers on f32 rows of stride >=
+    NPAD; the CUDA-core stage's descriptors carry no packing."""
+    from neumesh_tpu_torch.ops._build import NPAD
+    inp = random_context(seed=4)
+    low = low_precision_mask(inp["dws"], "bf16", kept_f32(SEL_F32, (0, 1),
+                                                          len(inp["dws"]) - 2))
+    dws = [torch.from_numpy(w).to(torch.bfloat16) if lo
+           else torch.from_numpy(w) for w, lo in zip(inp["dws"], low)]
+    layers = kernels._dens_layers(dws, 8)
+    keep = []
+    desc, ldx = kernels._mlp_desc(layers, keep, tile=True)
+    assert ldx >= NPAD and ldx % 4 == 0
+    assert (desc.l[0].bf16, desc.l[0].kp, desc.l[0].wp) == (0, 0, None)
+    for i in (1, 2):
+        assert desc.l[i].bf16 == 1 and desc.l[i].wp
+        assert desc.l[i].kp1 == desc.l[i].kp == NPAD
+    assert (desc.l[3].bf16, desc.l[3].kp) == (0, 0)
+    all_bf = [torch.from_numpy(w).to(torch.bfloat16) if w.shape[0] > 1
+              else torch.from_numpy(w) for w in inp["dws"]]
+    bdesc, _ = kernels._mlp_desc(kernels._dens_layers(all_bf, 8), keep,
+                                 tile=True)
+    assert bdesc.l[0].wp and bdesc.l[0].kp1 == 32 and bdesc.l[0].kp == 48
+    assert bdesc.l[3].kp == NPAD and not bdesc.l[3].wp
+    sdesc, sldx = kernels._mlp_desc(kernels._dens_layers(all_bf, 8), keep)
+    assert all(not sdesc.l[i].wp and sdesc.l[i].kp == 0 for i in range(4))
+    assert sldx < NPAD
+
+
+def test_wrappers_take_the_plain_version_for_cpu_tiles():
+    """CPU tensors reach the plain versions at the tile stage's edges too
+    (S = 65, selective-f32 layers, an empty second row block), and no
+    kernel is counted."""
+    kernels.reset_launch_counts()
+    for ctx, tags in ((dict(B=1, S=65), ()), ({}, SEL_F32),
+                      (dict(mfg=0, mft=0), ())):
+        inp = random_context(seed=8, **ctx)
+        out = torch_field(inp, "full", 8, "bf16", tags)
+        ref = torch_field(inp, "full", 8, "bf16", tags, plain=True)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    inp = random_context(seed=8)
+    br = brackets(2, 3 * 37)
+    d = torch_secant(inp, br, True, True, "bf16", tags=SEL_F32)
+    assert torch.equal(d, torch_secant(inp, br, True, True, "bf16",
+                                       plain=True, tags=SEL_F32))
+    assert all(v == 0 for modes in kernels.LAUNCHES.values()
+               for v in modes.values())
+
+
 # ---------------------------------------------------------------------------
 # on the card: CUDA kernel against the plain version
 # ---------------------------------------------------------------------------
@@ -346,10 +479,10 @@ def _need_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("want,k,dtype,tags", FIELD_CASES)
-def test_field_fused_kernel_matches_plain_on_card(want, k, dtype, tags):
+@pytest.mark.parametrize("want,k,dtype,tags,ctx", CARD_FIELD_CASES)
+def test_field_fused_kernel_matches_plain_on_card(want, k, dtype, tags, ctx):
     _need_card()
-    inp = random_context(seed=6, B=8, S=300, C=128)
+    inp = random_context(seed=6, **dict(dict(B=8, S=300, C=128), **ctx))
     mask = no_tie_mask(inp["xyz"], inp["geo"], k=k)
     kernels.reset_launch_counts()
     got = [o.cpu().numpy() for o in
@@ -361,17 +494,19 @@ def test_field_fused_kernel_matches_plain_on_card(want, k, dtype, tags):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rebracket,frozen,dtype", SECANT_CASES)
+@pytest.mark.parametrize("rebracket,frozen,dtype,tags,T,ctx",
+                         CARD_SECANT_CASES)
 def test_secant_refine_kernel_matches_plain_on_card(rebracket, frozen,
-                                                    dtype):
+                                                    dtype, tags, T, ctx):
     _need_card()
-    inp = random_context(seed=9, B=8, C=128)
-    br = brackets(10, 8 * 100)
+    inp = random_context(seed=9, **dict(dict(B=8, C=128), **ctx))
+    br = brackets(10, 8 * T)
     kernels.reset_launch_counts()
-    got = torch_secant(inp, br, rebracket, frozen, dtype, "cuda")
+    got = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", tags=tags)
     assert kernels.LAUNCHES["secant_refine"][
         kernels.secant_mode(rebracket, frozen)] == 1
-    ref = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", plain=True)
+    ref = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", plain=True,
+                       tags=tags)
     assert_roots_close(got.cpu().numpy(), ref.cpu().numpy(), dtype)
 
 

@@ -14,7 +14,8 @@ from test_torch_cuda import (FIELD_CASES, assert_field_close, kept_f32,
 
 def _jax_field(inp, want, k, dtype, tags):
     def ws(lst, first, head):
-        low = low_precision_mask(lst, dtype, kept_f32(tags, first, head))
+        low = low_precision_mask(lst, dtype, kept_f32(tags, first, head),
+                                 len(first))
         return [jnp.asarray(w).astype(jnp.bfloat16) if lo else jnp.asarray(w)
                 for w, lo in zip(lst, low)]
 
