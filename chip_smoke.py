@@ -59,13 +59,14 @@ LOCATE_MASK_AGREE = {"bf16": 0.999, "f32": 1.0}
 
 KERNELS = ("field_fused", "secant_refine", "surface_locate",
            "candidate_field_v3", "candidate_field")
-# a row's design: its bf16 MLP layers on the tensor cores ("wgmma"), or
-# everything on the CUDA cores ("simt": no MLP, or surface_locate's
-# CUDA-core stage)
+# a row's design: its kernel runs the tensor-core tile stage, bf16 MLP
+# layers on wgmma ("wgmma"), or it has no MLP and everything runs on the
+# CUDA cores ("simt")
 WGMMA_ROWS = {("field_fused", m) for m in ("density", "density_nabla",
                                             "full")} | \
     {("secant_refine", m) for m in ("plain", "rebracket", "frozen",
-                                    "frozen_rebracket")}
+                                    "frozen_rebracket")} | \
+    {("surface_locate", m) for m in ("bf16", "f32")}
 SOURCES = {
     "field_fused": ("neumesh_tpu_torch/csrc/field_fused.cu",
                     "neumesh_tpu/ops/pallas_kernels.py:645"),
@@ -410,9 +411,8 @@ def build_kernels():
 @contextlib.contextmanager
 def shared_memory_probe(smem):
     """For the block, every kernel launch also asks its library's `_smem`
-    entry (where it exports one; the candidate kernels do not) for the
-    dynamic shared memory of a block at the launch's arguments, and keeps
-    the largest per kernel in smem."""
+    entry for the dynamic shared memory of a block at the launch's
+    arguments, and keeps the largest per kernel in smem."""
     import ctypes
     from neumesh_tpu_torch.ops import _build
     launch = _build.launch
@@ -420,9 +420,8 @@ def shared_memory_probe(smem):
     def probed(name, args):
         launch(name, args)
         src, entry = _build.ENTRY[name]
-        fn = getattr(_build._lib(src), entry + "_smem", None)
-        if fn is not None:
-            smem[name] = max(smem.get(name, 0), fn(ctypes.addressof(args)))
+        fn = getattr(_build._lib(src), entry + "_smem")
+        smem[name] = max(smem.get(name, 0), fn(ctypes.addressof(args)))
     _build.launch = probed
     try:
         yield

@@ -1,5 +1,5 @@
-"""Time field_fused and secant_refine of several checkouts of the port on
-one card, in turns (A B B A ...), at the flagship widths.
+"""Time the field kernels of several checkouts of the port on one card, in
+turns (A B B A ...), at the flagship widths.
 
     python3 neumesh_tpu_torch/ab_field_kernels.py ROOT_A ROOT_B [--rounds 2]
 
@@ -11,9 +11,16 @@ tests/test_torch_cuda.py::random_context at W = 256, geometry/colour dims
 32/32, multires 8/2/2/4, B = 512 tiles of C = 128 candidates, k = 8;
 S = 1024 samples a tile for density / density_nabla, 512 for full, and
 secant_refine with the re-bracket on 65,536 rays (3 iterations); weights
-in f32 and in bf16 (test_torch_cuda.low_precision_mask). Prints one JSON
-line per measurement: the root, the card, and each call's mean ms over 10
-launches after a warm-up (chip_smoke.cuda_ms, CUDA events).
+in f32 and in bf16 (test_torch_cuda.low_precision_mask). surface_locate on
+65,536 rays in 512 tiles of 128 (test_torch_cuda.locate_rays into a
+context of outward normals; 16 scan steps, 3 secant steps), f32 and bf16.
+candidate_field_v3 in its four modes at S = 512 samples a tile, F = 64,
+and candidate_field (v2) in its four modes on 4,096 rays of S = 64 samples
+and C = 96 candidates each (test_torch_cuda.ray_contexts). Prints one JSON
+line per measurement: the root, the card (name and power limit), and each
+call's ms: the median of three windows of 10 launches each after a warm-up
+(chip_smoke.cuda_ms, CUDA events; the mean of a window), and under "min"
+the fastest window.
 
 A measurement script, not part of the package: no module of the port
 imports it. It sits in the port's tree so that the same-card A/B numbers
@@ -36,7 +43,7 @@ def measure(root: str) -> dict:
     sys.path[:0] = [root, os.path.join(HERE, "tests"), HERE]
     import torch
     import test_torch_cuda as tc
-    from chip_smoke import cuda_ms
+    from chip_smoke import card_line, cuda_ms
     from neumesh_tpu_torch.ops import kernels
 
     inp = tc.random_context(seed=1, B=512, S=1024, C=128, **WIDE)
@@ -54,7 +61,18 @@ def measure(root: str) -> dict:
                                                 "dirs"))
     rays = [t(br[n]) for n in ("rays_o", "rays_d", "d_low", "d_high",
                                "f_low", "f_high")]
-    out = {}
+    loc = tc.random_context(seed=2, B=512, S=1, C=128, outward=True, **WIDE)
+    lr = tc.locate_rays(3, 512, 128, 16)
+    lrays = [t(lr[n]) for n in ("rays_o", "rays_d", "near", "far")]
+    lgeo, lfeat = t(loc["geo"]), t(loc["feat"][..., :32])
+    rc = tc.ray_contexts(seed=4, R=4096, S=64, C=96, F=64)
+    v2 = [t(rc[n]) for n in ("xyz", "pts", "pp", "ind", "vn", "feat")]
+    out, fastest = {}, {}
+
+    def timed(name, fn):
+        ms = sorted(cuda_ms(fn, reps=10) for _ in range(3))
+        out[name], fastest[name] = ms[1], ms[0]
+
     for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
         low = None if dtype is None else "bf16"
         dws, cws = weights(inp["dws"], 2, low), weights(inp["cws"], 1, low)
@@ -63,19 +81,33 @@ def measure(root: str) -> dict:
             F = 64 if want == "full" else 32
             x, d = xyz[:, :S].contiguous(), dirs[:, :S].contiguous()
             fe = feat[..., :F].contiguous()
-            out[f"field_fused/{want}/{tag}"] = cuda_ms(
+            timed(f"field_fused/{want}/{tag}",
                 lambda: kernels.field_fused(
                     x, geo, fe, inp["w1"], dws,
                     cws if want == "full" else None, d, want=want,
-                    dtype=dtype, **inp["kw"]), reps=10)
+                    dtype=dtype, **inp["kw"]))
         gfeat = feat[..., :32].contiguous()
-        out[f"secant_refine/rebracket/{tag}"] = cuda_ms(
+        timed(f"secant_refine/rebracket/{tag}",
             lambda: kernels.secant_refine(
                 *rays, geo, gfeat, inp["w1"], dws, n_iters=3, multires_d=8,
                 multires_fg=2, geometry_dim=32, dtype=dtype,
-                d_low_w=t(br["d_low_w"]), d_high_w=t(br["d_high_w"])),
-            reps=10)
-    return {"root": root, "card": torch.cuda.get_device_name(0), "ms": out}
+                d_low_w=t(br["d_low_w"]), d_high_w=t(br["d_high_w"])))
+        lws = weights(loc["dws"], 2, low)
+        timed(f"surface_locate/{tag}",
+            lambda: kernels.surface_locate(
+                *lrays, lgeo, lfeat, loc["w1"], lws, n_steps=16, n_secant=3,
+                multires_d=8, multires_fg=2, geometry_dim=32, dtype=dtype))
+    x5 = xyz[:, :512].contiguous()
+    for dh in (False, True):
+        for ft in (True, False):
+            mode = kernels.candidate_mode(dh, ft)
+            timed(f"candidate_field_v3/{mode}",
+                lambda: kernels.candidate_field_v3(
+                    x5, geo, feat, inp["w1"], k=8, want_dh=dh, want_feat=ft))
+            timed(f"candidate_field/{mode}",
+                lambda: kernels.candidate_field(
+                    *v2, inp["w1"], k=8, want_dh=dh, want_feat=ft))
+    return {"root": root, "card": card_line(), "ms": out, "min": fastest}
 
 
 def main() -> int:

@@ -8,22 +8,65 @@
 // selection by k masked-min passes with the d2*(1 + c*2e-7) tie-break,
 // inverse-distance weights, the interpolated distance ds, optionally its
 // closed-form gradient dh, optionally the kNN feature blend in exact f32.
-// Both reuse field_fused's interp_sample and blend_stage and stop there;
-// they differ only in where the context comes from (v3: the packed
-// (8, C) rows; v2: the per-ray pts/ind/pp/vn arrays, read directly and
-// laid out as the same rows in shared memory) and in v2's order of the dh
-// sums. Neither has the k = 1 distance proxy of the field kernels.
+// Both run the field kernels' interp_sample (field_common.cuh) and differ
+// only in where the context comes from (v3: the packed (8, C) rows; v2:
+// the per-ray pts/ind/pp/vn arrays, read directly and laid out as the same
+// rows in shared memory) and in v2's order of the dh sums. Neither has the
+// k = 1 distance proxy of the field kernels.
 //
-// What bounds it on the H100: at the serving shapes (C = 128, k = 8,
-// F = 64) a sample costs ~2.3 kFLOP of f32 candidate math and blend
-// against ~270 bytes of output (feats), so operations bound it on the
-// CUDA cores. Block shape as in field_fused: 32 samples, 8 lanes each for
-// the candidate passes, the blend thread-per-output over shared memory.
+// What bounds it on the H100: with the blend, bytes -- a sample writes F
+// floats of blended features (256 B at F = 64) for ~2.3 kFLOP of f32
+// candidate math at C = 128, k = 8; without it, those operations on the
+// CUDA cores. What the design does: 32 samples a block, 8 lanes each; the
+// tie-broken distances of a lane's 16 candidates stay in registers over
+// the k selection passes (C <= 128), and the weight and interpolation
+// passes run on the picks alone (interp_sample). The blend never sees a
+// row of C weights: the interpolation pass lists each sample's picks
+// (candidate, weight) in ascending candidate order, and each thread sums
+// four feature columns of a sample over that list -- the products and the
+// order of a scan over the whole row, k of them instead of C -- and stores
+// them as one 16-byte word straight to device memory. A sample with more
+// picks than the list holds (ties, k > 32) scans all C candidates instead,
+// recomputing each weight from the sample's threshold and weight sum, so
+// that no sum is ever truncated. A block needs ~11 KB of shared memory
+// (context 4 KB, lists 6 KB), so several share an SM.
 #include "field_common.cuh"
 
 namespace nm {
 
-template <bool V2>
+// feats of sample s, columns [f, f + V): the listed picks, or every
+// candidate again where the list overflowed.
+template <int V>
+__device__ __forceinline__ void blend_sample(const float* feat, int F, int f,
+                                             const float* sgeo, int C,
+                                             const float* x, int n,
+                                             const unsigned short* idx,
+                                             const float* pw, float thr,
+                                             float sw, float (&acc)[V]) {
+  auto add = [&](int c, float w) {
+    const float* row = feat + (size_t)c * F + f;
+    if constexpr (V == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+      acc[0] = fmaf(w, v.x, acc[0]);
+      acc[1] = fmaf(w, v.y, acc[1]);
+      acc[2] = fmaf(w, v.z, acc[2]);
+      acc[3] = fmaf(w, v.w, acc[3]);
+    } else {
+      acc[0] = fmaf(w, __ldg(row), acc[0]);
+    }
+  };
+  if (n <= KL) {
+    for (int j = 0; j < n; ++j) add(idx[j], pw[j]);
+    return;
+  }
+  const float xx = sq_norm(x[0], x[1], x[2]);
+  for (int c = 0; c < C; ++c) {
+    const float d2 = cand_d2(sgeo, C, c, x[0], x[1], x[2], xx);
+    if (tie_broken(c, d2) <= thr) add(c, fdiv(raw_weight(d2), sw));
+  }
+}
+
+template <bool V2, bool FEAT>
 __device__ __forceinline__ void candidate_body(const CandArgs& a) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
@@ -31,8 +74,12 @@ __device__ __forceinline__ void candidate_body(const CandArgs& a) {
   const int C = a.C, S = a.S, F = a.F, tid = threadIdx.x;
   float* sgeo = smem;                  // 8 * C
   float* sxyz = sgeo + 8 * C;          // SB * 4
-  float* sW = sxyz + SB * 4;           // SB * C
-  float* sFB = sW + SB * C;            // SB * F
+  // with the blend: each sample's threshold, weight sum and listed picks
+  float* sthr = sxyz + SB * 4;         // SB
+  float* ssw = sthr + SB;              // SB
+  float* spw = ssw + SB;               // SB * KL
+  int* scnt = reinterpret_cast<int*>(spw + SB * KL);   // SB
+  unsigned short* sidx = reinterpret_cast<unsigned short*>(scnt + SB);
 
   if (V2) {
     for (int c = tid; c < C; c += NT) {
@@ -56,59 +103,102 @@ __device__ __forceinline__ void candidate_body(const CandArgs& a) {
   __syncthreads();
 
   const int s = tid / LPS, lane = tid % LPS;
-  Interp r;
-  interp_sample(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1], sxyz[s * 4 + 2],
-                a.w1, a.k, a.want_dh, lane, sW + s * C, r, false, V2);
-  if (lane == 0 && s0 + s < S) {
-    const size_t row = (size_t)b * S + s0 + s;
-    if (V2) {
-      a.out_d[row] = r.ds;
-      if (a.want_dh) {
-        a.out_dh[row * 3] = r.dh0;
-        a.out_dh[row * 3 + 1] = r.dh1;
-        a.out_dh[row * 3 + 2] = r.dh2;
+  {
+    constexpr int OUT = FEAT ? PICK_LIST : PICK_NONE;
+    const float x0 = sxyz[s * 4], x1 = sxyz[s * 4 + 1], x2 = sxyz[s * 4 + 2];
+    const Picks po{nullptr, sidx + s * KL, spw + s * KL, scnt + s};
+    Interp r;
+    if (C <= KC * LPS)
+      interp_sample<KC, OUT>(sgeo, C, x0, x1, x2, a.w1, a.k, a.want_dh, lane,
+                             po, r, false, V2);
+    else
+      interp_sample<0, OUT>(sgeo, C, x0, x1, x2, a.w1, a.k, a.want_dh, lane,
+                            po, r, false, V2);
+    if (lane == 0) {
+      if (FEAT) {
+        sthr[s] = r.thr;
+        ssw[s] = r.sw;
       }
-    } else if (a.want_dh) {
-      a.out_d[row * 4] = r.ds;
-      a.out_d[row * 4 + 1] = r.dh0;
-      a.out_d[row * 4 + 2] = r.dh1;
-      a.out_d[row * 4 + 3] = r.dh2;
-    } else {
-      a.out_d[row] = r.ds;
+      if (s0 + s < S) {
+        const size_t row = (size_t)b * S + s0 + s;
+        if (V2) {
+          a.out_d[row] = r.ds;
+          if (a.want_dh) {
+            a.out_dh[row * 3] = r.dh0;
+            a.out_dh[row * 3 + 1] = r.dh1;
+            a.out_dh[row * 3 + 2] = r.dh2;
+          }
+        } else if (a.want_dh) {
+          a.out_d[row * 4] = r.ds;
+          a.out_d[row * 4 + 1] = r.dh0;
+          a.out_d[row * 4 + 2] = r.dh1;
+          a.out_d[row * 4 + 3] = r.dh2;
+        } else {
+          a.out_d[row] = r.ds;
+        }
+      }
     }
   }
-  if (!a.want_feat) return;
-  __syncthreads();
-  blend_stage(a.feat, (size_t)b * C * F, 0, F, F, sW, C, sFB);
-  __syncthreads();
-  const int ns = min(SB, S - s0);
-  float* dst = a.out_feat + ((size_t)b * S + s0) * F;
-  for (int i = tid; i < ns * F; i += NT) dst[i] = sFB[i];
+  if constexpr (FEAT) {
+    __syncthreads();
+    const int ns = min(SB, S - s0);
+    const float* feat = a.feat + (size_t)b * C * F;
+    float* dst = a.out_feat + ((size_t)b * S + s0) * F;
+    // four columns a thread as 16-byte loads and stores where the rows
+    // allow it
+    const bool vec = (F & 3) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(a.feat) |
+                       reinterpret_cast<uintptr_t>(a.out_feat)) & 15) == 0;
+    const int V = vec ? 4 : 1, FV = F / V;
+    for (int it = tid; it < ns * FV; it += NT) {
+      const int si = it / FV, f = (it % FV) * V;
+      const unsigned short* idx = sidx + si * KL;
+      const float* pw = spw + si * KL;
+      if (vec) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        blend_sample<4>(feat, F, f, sgeo, C, sxyz + si * 4, scnt[si], idx, pw,
+                        sthr[si], ssw[si], acc);
+        *reinterpret_cast<float4*>(dst + si * F + f) =
+            make_float4(acc[0], acc[1], acc[2], acc[3]);
+      } else {
+        float acc[1] = {0.f};
+        blend_sample<1>(feat, F, f, sgeo, C, sxyz + si * 4, scnt[si], idx, pw,
+                        sthr[si], ssw[si], acc);
+        dst[si * F + f] = acc[0];
+      }
+    }
+  }
 }
 
-__global__ void __launch_bounds__(NT) candidate_field_v3_kernel(const CandArgs a) {
-  candidate_body<false>(a);
+template <bool FEAT>
+__global__ void __launch_bounds__(NT)
+    candidate_field_v3_kernel(const CandArgs a) {
+  candidate_body<false, FEAT>(a);
 }
 
+template <bool FEAT>
 __global__ void __launch_bounds__(NT) candidate_field_kernel(const CandArgs a) {
-  candidate_body<true>(a);
+  candidate_body<true, FEAT>(a);
 }
 
 }  // namespace nm
 
-namespace {
-
-size_t cand_smem(const nm::CandArgs* a) {
-  return sizeof(float) * ((size_t)8 * a->C + nm::SB * 4 +
-                          (size_t)nm::SB * a->C + (size_t)nm::SB * a->F);
+// dynamic shared memory of a block (both kernels)
+extern "C" size_t nm_candidate_field_smem(const nm::CandArgs* a) {
+  const size_t SB = nm::SB, KL = nm::KL;
+  return sizeof(float) * (8 * (size_t)a->C + SB * 4) +
+         (a->want_feat ? sizeof(float) * (3 * SB + SB * KL) + 2 * SB * KL : 0);
 }
+
+namespace {
 
 int launch_cand(void (*kernel)(const nm::CandArgs), const nm::CandArgs* a,
                 void* stream) {
   if (a->B <= 0 || a->S <= 0) return 0;
-  if (a->B > 65535 || a->C < 1 || a->k < 1 || (a->want_feat && a->F < 1))
+  if (a->B > 65535 || a->C < 1 || a->C > 65535 || a->k < 1 ||
+      (a->want_feat && a->F < 1))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = cand_smem(a);
+  const size_t smem = nm_candidate_field_smem(a);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -122,12 +212,20 @@ int launch_cand(void (*kernel)(const nm::CandArgs), const nm::CandArgs* a,
 
 extern "C" {
 
+size_t nm_candidate_field_v3_smem(const nm::CandArgs* a) {
+  return nm_candidate_field_smem(a);
+}
+
 int nm_candidate_field_v3(const nm::CandArgs* a, void* stream) {
-  return launch_cand(nm::candidate_field_v3_kernel, a, stream);
+  return launch_cand(a->want_feat ? nm::candidate_field_v3_kernel<true>
+                                  : nm::candidate_field_v3_kernel<false>,
+                     a, stream);
 }
 
 int nm_candidate_field(const nm::CandArgs* a, void* stream) {
-  return launch_cand(nm::candidate_field_kernel, a, stream);
+  return launch_cand(a->want_feat ? nm::candidate_field_kernel<true>
+                                  : nm::candidate_field_kernel<false>,
+                     a, stream);
 }
 
 const char* nm_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

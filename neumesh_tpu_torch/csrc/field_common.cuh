@@ -5,41 +5,44 @@
 // the density evaluations of _secant_kernel and _locate_kernel) against
 // one tile's candidate context.
 //
-// Candidate stage (every kernel): LPS = 8 lanes per sample (consecutive
-// lanes of one warp, reduced with width-8 shuffles); each lane strides over
-// the C candidates and recomputes d2 in every pass instead of holding C
-// values in registers. Exact f32 on the CUDA cores (~2 kFLOP a sample at
-// C = 128, k = 8).
+// Candidate stage (every kernel; interp_sample): LPS = 8 lanes per sample
+// (consecutive lanes of one warp, reduced with width-8 shuffles), lane l
+// taking candidates l, l + 8, ... Exact f32 on the CUDA cores. With
+// C <= 128 a lane keeps the tie-broken d2 of its 16 candidates in
+// registers over the k masked-min passes; the selected candidates become a
+// bit mask per lane, and the weight and interpolation passes (IEEE square
+// roots and divisions) loop over the set bits only, so a warp runs their
+// body as often as its busiest lane has picks instead of once per
+// candidate slot. The kNN weights leave the stage as rows of C (the tile
+// kernels, whose blend lists the nonzero ones), as a list of picks in
+// ascending candidate order (the candidate kernels), or not at all (the
+// distance-only callers).
 //
-// Two MLP stages:
-//  - the tensor-core tile stage (field_fused, secant_refine; "tile"
-//    below): 64 samples a block, one wgmma M tile, four warpgroups (512
-//    threads, so the candidate passes take all 64 samples at once). The
-//    activations live in shared memory as bf16 in the wgmma core-matrix
-//    layout (8 x 8 blocks, K-major, no swizzle); the weights of each bf16
-//    hidden layer, packed by the wrapper in the same layout, stream
-//    through a ring of two 64-row K slices (cp.async.bulk completing on an
-//    mbarrier, one slice loading while the other multiplies; the ring runs
-//    on across layers and starts loading under the candidate stage). Each
-//    warpgroup computes a 64 x 64 quarter of the 256-wide output with
-//    wgmma.m64n64k16 (bf16 in, f32 accumulators that start at the bias);
-//    the tangent of density_nabla/full runs a second accumulator off the
-//    same staged slice. Epilogue in registers: softplus (beta 100) or ReLU,
-//    the tangent times softplus', rounding to the next layer's dtype. The
-//    feature blend sums over each sample's listed kNN picks. What bounds
-//    it now (ablations on the H100, PERF.md): the exact-f32 CUDA-core
-//    work around the products -- the epilogue's softplus/softplus' (expf,
-//    log1pf, IEEE division) and the candidate passes -- then the wgmma
-//    waits; one block holds an SM (128 registers a thread, 150-220 KB of
-//    shared memory).
-//    Still on the CUDA cores: f32 layers (selective-f32 d0/c0 and every
-//    layer of the f32 models; dense_accum's arithmetic, the two 32-row
-//    sub-tiles on the two halves of the block), the heads (N = 1, 3), the
-//    embeddings and the feature blend.
-//  - the CUDA-core stage (simt_*; surface_locate, 32 rays a block of 256
-//    threads): layers thread-per-output-column over 32 samples,
-//    activations in shared memory (float4 broadcasts), weights from L2, 32
-//    accumulators per thread.
+// One MLP stage, on the tensor cores (field_fused, secant_refine,
+// surface_locate; "tile" below): 64 samples a block, one wgmma M tile,
+// four warpgroups (512 threads, so the candidate passes take all 64
+// samples at once). The activations live in shared memory as bf16 in the
+// wgmma core-matrix layout (8 x 8 blocks, K-major, no swizzle); the
+// weights of each bf16 hidden layer, packed by the wrapper in the same
+// layout, stream through a ring of two 64-row K slices (cp.async.bulk
+// completing on an mbarrier, one slice loading while the other multiplies;
+// the ring runs on across layers and evaluations and starts loading under
+// the candidate stage). Each warpgroup computes a 64 x 64 quarter of the
+// 256-wide output with wgmma.m64n64k16 (bf16 in, f32 accumulators that
+// start at the bias); the tangent of density_nabla/full runs a second
+// accumulator off the same staged slice. Epilogue in registers: softplus
+// (beta 100) or ReLU, the tangent times softplus', rounding to the next
+// layer's dtype. The feature blend sums over each sample's listed kNN
+// picks. What bounds it now (ablations on the H100, PERF.md): the
+// exact-f32 CUDA-core work around the products -- the epilogue's
+// softplus/softplus' (expf, log1pf, IEEE division) and the candidate
+// passes -- then the wgmma waits; one block holds an SM (128 registers a
+// thread, 150-220 KB of shared memory).
+// On the CUDA cores inside that stage: f32 layers (selective-f32 d0/c0 and
+// every layer of the f32 models; dense_accum's arithmetic,
+// thread-per-output-column over 32 samples, the two 32-row sub-tiles on
+// the two halves of the block), the heads (N = 1, 3), the embeddings and
+// the feature blend. No bf16 layer runs there.
 //
 // Numerics follow the TPU kernels, not the XLA path:
 //  - candidate math in exact f32 element-wise arithmetic (__fmul_rn and
@@ -61,9 +64,10 @@
 
 namespace nm {
 
-constexpr int SB = 32;           // samples (rays) per CUDA-core-stage
-                                 // block
-constexpr int NT = 256;          // threads per CUDA-core-stage block
+constexpr int SB = 32;           // samples per candidate-kernel block; rows
+                                 // of an f32 layer's sub-tile
+constexpr int NT = 256;          // threads per candidate-kernel block and
+                                 // per f32 sub-tile
 constexpr int LPS = NT / SB;     // lanes per sample in candidate passes
 constexpr int TS = 64;           // samples (rays) per tile-stage block
 constexpr int TNT = 512;         // threads per tile-stage block: four
@@ -72,11 +76,11 @@ constexpr int KS = 64;           // K rows per staged weight slice
 constexpr int NPAD = 256;        // packed layers' output width
 constexpr int RING = 2;          // staged weight slices in flight
 constexpr int KL = 32;           // kNN picks listed per sample for the
-                                 // tile stage's feature blend
+                                 // feature blend
 constexpr int MAX_LAYERS = 8;    // ops/_build.py MAX_LAYERS
 constexpr int KSEL = 16;         // frozen secant: at most 16 neighbours
-constexpr int KC = 16;           // tile stage: candidates a lane keeps in
-                                 // registers (C <= KC * LPS)
+constexpr int KC = 16;           // candidates a lane keeps in registers
+                                 // (C <= KC * LPS)
 static_assert(TNT / LPS == TS, "a tile block's candidate pass takes TS");
 constexpr float HALF_PI = 1.57079637f;   // float32(pi / 2)
 
@@ -204,6 +208,22 @@ __device__ __forceinline__ float emb_col(float x, int blk, float* dcol) {
 // ---------------------------------------------------------------------------
 struct Interp {
   float ds, dh0, dh1, dh2;
+  float thr, sw;      // the kNN threshold and the sum of the raw weights
+                      // (not set by the k = 1 proxy)
+};
+
+// Where a sample's normalised kNN weights go.
+enum PickOut {
+  PICK_NONE = 0,      // nowhere: the caller wants the distance alone
+  PICK_ROWS = 1,      // row[c] of every candidate (zeros off the kNN set)
+  PICK_LIST = 2       // the picks alone, in ascending candidate order: the
+                      // first KL as (idx, w), their number in *cnt
+};
+struct Picks {
+  float* row;
+  unsigned short* idx;
+  float* w;
+  int* cnt;
 };
 
 // Candidate c = lane + i * LPS of a sample's lanes, for each of this
@@ -222,66 +242,83 @@ __device__ __forceinline__ void for_cands(int C, int lane, Fn fn) {
   }
 }
 
-// geo: (8, C) rows [px py pz ix iy iz pp vn] in shared memory. Writes the
-// normalised kNN weights of every candidate to Wrow (zeros off the kNN
-// set; the one-hot argmin for the k = 1 distance proxy).
+// The candidate chain's pieces, shared with the blend that recomputes a
+// weight (candidate_field.cu): geo is (8, C) rows [px py pz ix iy iz pp vn].
+__device__ __forceinline__ float sq_norm(float x0, float x1, float x2) {
+  return fadd(fadd(fmul(x0, x0), fmul(x1, x1)), fmul(x2, x2));
+}
+__device__ __forceinline__ float cand_d2(const float* geo, int C, int c,
+                                         float x0, float x1, float x2,
+                                         float xx) {
+  const float xv = fadd(fadd(fmul(x0, geo[c]), fmul(x1, geo[C + c])),
+                        fmul(x2, geo[2 * C + c]));
+  return fmaxf(fsub(fadd(xx, geo[6 * C + c]), fmul(2.f, xv)), 0.f);
+}
+__device__ __forceinline__ float tie_broken(int c, float d2) {
+  return fmul(d2, fadd(1.f, fmul((float)c, 2e-7f)));
+}
+__device__ __forceinline__ float raw_weight(float d2) {
+  return fdiv(1.f, fadd(sqrtf(d2), 1e-7f));
+}
+
+// geo: (8, C) rows [px py pz ix iy iz pp vn] in shared memory. The
+// normalised kNN weights go where OUT says (the one-hot argmin for the
+// k = 1 distance proxy, rows only).
 // k1_proxy: k = 1 without dh takes the nearest-tangent-plane proxy of the
 // field kernels (the candidate_field kernels have no such path). v2_dh: the
 // gradient in candidate_field (v2)'s order, A = (W w1) inv and
 // dh = sum(A n) + sB x - sum(B v), instead of sum(A n - B v) + sB x.
-// NC > 0 (C <= NC * LPS): each lane keeps the d2 and tie-broken d2 of its
-// candidates in registers instead of recomputing them in every pass (the
-// same values, so the same result).
-template <int NC = 0>
+// NC > 0 (C <= NC * LPS): each lane keeps the tie-broken d2 of its
+// candidates in registers over the selection passes instead of recomputing
+// it in every pass (the same values, so the same result).
+// After the selection each lane holds its picks as bit masks, 32 of its
+// candidates (one chunk of 32 * LPS) at a time, and the weight and
+// interpolation passes visit the set bits in ascending order: the sums
+// take each lane's picks in the order a loop over all its candidates
+// would, without running the IEEE divisions and square roots of a pick on
+// the slots that hold none.
+template <int NC = 0, int OUT = PICK_ROWS>
 __device__ void interp_sample(const float* geo, int C, float x0, float x1,
                               float x2, float w1, int k, bool want_dh,
-                              int lane, float* Wrow, Interp& out,
+                              int lane, const Picks& po, Interp& out,
                               bool k1_proxy = true, bool v2_dh = false) {
   const float *px = geo, *py = geo + C, *pz = geo + 2 * C, *ix = geo + 3 * C,
-              *iy = geo + 4 * C, *iz = geo + 5 * C, *pp = geo + 6 * C,
-              *vn = geo + 7 * C;
-  const float xx = fadd(fadd(fmul(x0, x0), fmul(x1, x1)), fmul(x2, x2));
-  auto d2_at = [&](int c) {
-    const float xv =
-        fadd(fadd(fmul(x0, px[c]), fmul(x1, py[c])), fmul(x2, pz[c]));
-    return fmaxf(fsub(fadd(xx, pp[c]), fmul(2.f, xv)), 0.f);
-  };
-  auto tb = [&](int c, float d2) {
-    return fmul(d2, fadd(1.f, fmul((float)c, 2e-7f)));
-  };
+              *iy = geo + 4 * C, *iz = geo + 5 * C, *vn = geo + 7 * C;
+  const float xx = sq_norm(x0, x1, x2);
+  auto d2_at = [&](int c) { return cand_d2(geo, C, c, x0, x1, x2, xx); };
   auto xn_at = [&](int c) {
     return fadd(fadd(fmul(x0, ix[c]), fmul(x1, iy[c])), fmul(x2, iz[c]));
   };
-  float d2c[NC > 0 ? NC : 1], tbc[NC > 0 ? NC : 1];
+  float tbc[NC > 0 ? NC : 1];
   if constexpr (NC > 0)
-    for_cands<NC>(C, lane, [&](int i, int c) {
-      d2c[i] = d2_at(c);
-      tbc[i] = tb(c, d2c[i]);
-    });
-  // d2 of this lane's i-th candidate c, and its tie-broken value
-  auto D2 = [&](int i, int c) {
-    if constexpr (NC > 0) return d2c[i]; else return d2_at(c);
+    for_cands<NC>(C, lane,
+                  [&](int i, int c) { tbc[i] = tie_broken(c, d2_at(c)); });
+  // the tie-broken d2 of this lane's i-th candidate c
+  auto TB = [&](int i, int c) {
+    if constexpr (NC > 0) return tbc[i]; else return tie_broken(c, d2_at(c));
   };
-  auto TB = [&](int i, int c, float d2) {
-    if constexpr (NC > 0) return tbc[i]; else return tb(c, d2);
+  // least tie-broken d2 above thr over the sample's candidates
+  auto min_above = [&](float thr) {
+    float m = INFINITY;
+    for_cands<NC>(C, lane, [&](int i, int c) {
+      const float t = TB(i, c);
+      if (t > thr) m = fminf(m, t);
+    });
+    return gmin(m);
   };
   out.dh0 = out.dh1 = out.dh2 = 0.f;
 
   if (k1_proxy && k == 1 && !want_dh) {
     // nearest-tangent-plane proxy: sums over the one-hot argmin set
-    float m = INFINITY;
-    for_cands<NC>(C, lane,
-                  [&](int i, int c) { m = fminf(m, TB(i, c, D2(i, c))); });
-    m = gmin(m);
+    const float m = min_above(-INFINITY);
     float d2s = 0.f, nvs = 0.f;
     for_cands<NC>(C, lane, [&](int i, int c) {
-      const float d2 = D2(i, c);
-      const bool sel = TB(i, c, d2) <= m;
+      const bool sel = TB(i, c) <= m;
       if (sel) {
-        d2s = fadd(d2s, d2);
+        d2s = fadd(d2s, d2_at(c));
         nvs = fadd(nvs, fsub(xn_at(c), vn[c]));
       }
-      Wrow[c] = sel ? 1.f : 0.f;
+      if constexpr (OUT == PICK_ROWS) po.row[c] = sel ? 1.f : 0.f;
     });
     d2s = gsum(d2s);
     nvs = gsum(nvs);
@@ -293,28 +330,51 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
   // k-th smallest tie-broken distance: pass i takes the minimum of what
   // passes 0..i-1 left (everything <= their minimum is removed)
   float thr = -INFINITY;
-  for (int it = 0; it < k; ++it) {
-    float m = INFINITY;
-    for_cands<NC>(C, lane, [&](int i, int c) {
-      const float t = TB(i, c, D2(i, c));
-      if (t > thr) m = fminf(m, t);
-    });
-    thr = gmin(m);
-  }
+  for (int it = 0; it < k; ++it) thr = min_above(thr);
+
+  // this lane's picks among its candidates c0 + lane + i LPS, i < 32
+  constexpr int CHUNK = 32 * LPS;
+  auto chunk_picks = [&](int c0) {
+    unsigned mk = 0;
+    if constexpr (NC > 0) {
+      for_cands<NC>(C, lane, [&](int i, int c) {
+        if (tbc[i] <= thr) mk |= 1u << i;
+      });
+    } else {
+      for (int i = 0, c = c0 + lane; i < 32 && c < C; ++i, c += LPS)
+        if (tie_broken(c, d2_at(c)) <= thr) mk |= 1u << i;
+    }
+    return mk;
+  };
+  const unsigned mk0 = chunk_picks(0);   // the only chunk up to C = 256
+
   float sw = 0.f;
-  for_cands<NC>(C, lane, [&](int i, int c) {
-    const float d2 = D2(i, c);
-    if (TB(i, c, d2) <= thr) sw = fadd(sw, fdiv(1.f, fadd(sqrtf(d2), 1e-7f)));
-  });
+  for (int c0 = 0; c0 < C; c0 += CHUNK)
+    for (unsigned mk = c0 ? chunk_picks(c0) : mk0; mk; mk &= mk - 1)
+      sw = fadd(sw, raw_weight(d2_at(c0 + lane + (__ffs(mk) - 1) * LPS)));
   sw = gsum(sw);
+  out.thr = thr;
+  out.sw = sw;
+
+  if constexpr (OUT == PICK_ROWS)
+    for_cands<NC>(C, lane, [&](int, int c) { po.row[c] = 0.f; });
   float ds = 0.f, sB = 0.f, ax = 0.f, ay = 0.f, az = 0.f;
   float bx = 0.f, by = 0.f, bz = 0.f;     // v2_dh: sum(B v) apart
-  for_cands<NC>(C, lane, [&](int i, int c) {
-    const float d2 = D2(i, c);
-    float W = 0.f;
-    if (TB(i, c, d2) <= thr) {
+  int listed = 0;     // PICK_LIST: picks of the chunks before (the same on
+                      // the sample's lanes)
+  for (int c0 = 0; c0 < C; c0 += CHUNK) {
+    unsigned mk = c0 ? chunk_picks(c0) : mk0;
+    unsigned all[LPS];                    // PICK_LIST: every lane's picks
+    if constexpr (OUT == PICK_LIST) {
+#pragma unroll
+      for (int j = 0; j < LPS; ++j)
+        all[j] = __shfl_sync(0xffffffffu, mk, j, LPS);
+    }
+    for (; mk; mk &= mk - 1) {
+      const int i = __ffs(mk) - 1, c = c0 + lane + i * LPS;
+      const float d2 = d2_at(c);
       const float d0 = sqrtf(d2);
-      W = fdiv(fdiv(1.f, fadd(d0, 1e-7f)), sw);
+      const float W = fdiv(fdiv(1.f, fadd(d0, 1e-7f)), sw);
       const float d = fmaxf(d0, 1e-10f);
       const float inv = fdiv(1.f, fadd(w1, d));
       const float term = fadd(fmul(w1, fsub(xn_at(c), vn[c])), fmul(d, d2));
@@ -340,9 +400,28 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
           az = fadd(az, fsub(fmul(A, iz[c]), fmul(Bc, pz[c])));
         }
       }
+      if constexpr (OUT == PICK_ROWS) po.row[c] = W;
+      if constexpr (OUT == PICK_LIST) {
+        // candidates below c: slots below i on every lane, slot i on the
+        // lanes below this one
+        int pos = listed;
+        const unsigned low = (1u << i) - 1u;
+#pragma unroll
+        for (int j = 0; j < LPS; ++j)
+          pos += __popc(all[j] & low) + (j < lane ? (all[j] >> i) & 1u : 0u);
+        if (pos < KL) {
+          po.idx[pos] = (unsigned short)c;
+          po.w[pos] = W;
+        }
+      }
     }
-    Wrow[c] = W;
-  });
+    if constexpr (OUT == PICK_LIST) {
+#pragma unroll
+      for (int j = 0; j < LPS; ++j) listed += __popc(all[j]);
+    }
+  }
+  if constexpr (OUT == PICK_LIST)
+    if (lane == 0) *po.cnt = listed;
   out.ds = gsum(ds);
   if (want_dh) {
     sB = gsum(sB);
@@ -361,35 +440,16 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
 // block-level stages (every thread of the block calls them)
 // ---------------------------------------------------------------------------
 
-// kNN feature blend FB[s][f] = sum_c W[s][c] feat[c][f] for f < Fb (FB row
-// stride F, the feature row length); with bf16 features the weights are
-// rounded to bf16 first.
-__device__ void blend_stage(const void* feat, size_t feat_off, int fbf, int F,
-                            int Fb, const float* sW, int C, float* sFB) {
-  for (int idx = threadIdx.x; idx < SB * Fb; idx += NT) {
-    const int s = idx / Fb, f = idx % Fb;
-    const float* wr = sW + s * C;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float w = wr[c];
-      if (w != 0.f)
-        acc = fmaf(fbf ? rbf(w) : w,
-                   ldfeat(feat, fbf, feat_off + (size_t)c * F + f), acc);
-    }
-    sFB[s * F + f] = acc;
-  }
-}
-
 // Feature embedding columns of D-wide inputs src[s][0..D) into column
 // x0 + j, j < 2*nf*D, of sample s, order [sin f0 (D), cos f0 (D), sin f1,
 // ...]: bf16 double-angle recursion (lowp) or the exact tiled sin; put(s,
 // column, value rounded for the layer) stores.
-template <int NSMP, int NTHR, class Put>
+template <class Put>
 __device__ void feature_emb_to(const float* src, int ld_src, int D, int nf,
                                int lowp, int x0, int r0, Put put) {
   if (nf <= 0) return;
   if (lowp) {
-    for (int idx = threadIdx.x; idx < NSMP * D; idx += NTHR) {
+    for (int idx = threadIdx.x; idx < TS * D; idx += TNT) {
       const int s = idx / D, i = idx % D;
       const float x = rbf(src[s * ld_src + i]);
       float sn = rbf(sinf(x)), cs = rbf(cosf(x));
@@ -406,7 +466,7 @@ __device__ void feature_emb_to(const float* src, int ld_src, int D, int nf,
     }
   } else {
     const int n = 2 * nf * D;
-    for (int idx = threadIdx.x; idx < NSMP * n; idx += NTHR) {
+    for (int idx = threadIdx.x; idx < TS * n; idx += TNT) {
       const int s = idx / n, j = idx % n;
       put(s, x0 + j,
           rnd(emb_col(src[s * ld_src + j % D], j / D, nullptr), r0));
@@ -414,13 +474,8 @@ __device__ void feature_emb_to(const float* src, int ld_src, int D, int nf,
   }
 }
 
-// The same into f32 rows X[s * ldx + ...] of SB samples.
-__device__ void feature_emb(const float* src, int ld_src, int D, int nf,
-                            int lowp, float* X, int ldx, int x0, int r0) {
-  feature_emb_to<SB, NT>(src, ld_src, D, nf, lowp, x0, r0,
-                     [=](int s, int j, float v) { X[s * ldx + j] = v; });
-}
-
+// Accumulators of output column j of an f32 layer over the SB rows of a
+// sub-tile (X, and T with the tangent): acc = X w + b, tacc = T w.
 template <bool TANG>
 __device__ __forceinline__ void dense_accum(const LayerDesc& L,
                                             const float* X, const float* T,
@@ -484,79 +539,9 @@ __device__ __forceinline__ void dense_accum(const LayerDesc& L,
 enum Act { ACT_SOFTPLUS = 0, ACT_RELU = 1 };
 
 // ---------------------------------------------------------------------------
-// CUDA-core MLP stage (simt_*): surface_locate's density evaluations
-// (ray_density). The tile stage's f32 layers share dense_accum.
-// ---------------------------------------------------------------------------
-
-// One softplus hidden layer in place on X: out column j by thread j;
-// inputs are rounded for the NEXT layer's dtype on write.
-__device__ void simt_dense_layer(const LayerDesc& L, float* X, int ldx,
-                                 int xoff2, int next_bf) {
-  const int j = threadIdx.x;
-  const bool active = j < L.N;
-  float acc[SB], tacc[SB];
-  if (active) dense_accum<false>(L, X, X, ldx, xoff2, j, acc, tacc);
-  __syncthreads();   // every input read before any output lands
-  if (active) {
-#pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      const float pre = acc[s];
-      X[s * ldx + j] = rnd(softplus100(pre), next_bf);
-    }
-  }
-  __syncthreads();
-}
-
-// Output layer with N <= a few columns: LPS lanes per sample split K.
-__device__ void simt_head_layer(const LayerDesc& L, const float* X, int ldx,
-                                float* out) {
-  const int s = threadIdx.x / LPS, lane = threadIdx.x % LPS;
-  for (int n = 0; n < L.N; ++n) {
-    float a = 0.f;
-    for (int k = lane; k < L.K; k += LPS)
-      a = fmaf(X[s * ldx + k], ldw(L, k * L.N + n), a);
-    a = gsum(a);
-    const float v = fadd(a, L.b[n]);
-    if (lane == 0) out[s * L.N + n] = v;
-  }
-  __syncthreads();
-}
-
-// Density MLP of _density_mlp: inputs [ds, d cols, fg | fg_emb], softplus
-// (beta 100) hidden layers, linear head. sFB holds the blended features
-// (fg = its first gd columns, row stride ldfb).
-__device__ void simt_density_stage(const MLPDesc& D, float* sX, int ldx,
-                                   const float* sds, const float* sFB,
-                                   int ldfb, int md, int mfg, int gd,
-                                   int lowp, float* sdens) {
-  const LayerDesc& L0 = D.l[0];
-  const int r0 = L0.bf16;
-  const int nd = 1 + 2 * (md > 0 ? md : 0);
-  const int split = L0.split;                 // nd + gd
-  const int xoff2 = (split + 3) & ~3;
-  for (int idx = threadIdx.x; idx < SB * xoff2; idx += NT) {
-    const int s = idx / xoff2, j = idx % xoff2;
-    float v = 0.f;
-    if (j == 0) {
-      v = sds[s];
-    } else if (j < nd) {
-      v = emb_col(sds[s], j - 1, nullptr);
-    } else if (j < split) {
-      const float fg = sFB[s * ldfb + (j - nd)];
-      v = lowp ? rbf(fg) : fg;
-    }
-    sX[s * ldx + j] = rnd(v, r0);
-  }
-  feature_emb(sFB, ldfb, gd, mfg, lowp, sX, ldx, xoff2, r0);
-  __syncthreads();
-  for (int l = 0; l < D.n - 1; ++l)
-    simt_dense_layer(D.l[l], sX, ldx, l == 0 ? xoff2 : 0, D.l[l + 1].bf16);
-  simt_head_layer(D.l[D.n - 1], sX, ldx, sdens);
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core tile stage (field_fused, secant_refine): TS = 64 samples a
-// block, two warpgroups; see the note at the top of this file
+// tensor-core tile stage (field_fused, secant_refine, surface_locate):
+// TS = 64 samples a block, four warpgroups; see the note at the top of
+// this file
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -670,7 +655,9 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
-// ---- the feature blend of the tile stage: blend_stage's sums over each
+// ---- the feature blend of the tile stage, FB[s][f] = sum_c W[s][c]
+// feat[c][f] for f < Fb (FB row stride F, the feature row length; with bf16
+// features the weights are rounded to bf16 first): summed over each
 // sample's listed kNN picks instead of its whole weight row
 
 // List the nonzero weights of each sample's row (its kNN picks) in
@@ -694,8 +681,8 @@ __device__ void list_picks(const float* sW, int C, unsigned short* idx,
   }
 }
 
-// blend_stage for the TS samples (same products, same order: the listed
-// picks ascend); every thread calls, synchronises inside.
+// The blend of the TS samples (a row scan's products in a row scan's
+// order: the listed picks ascend); every thread calls, synchronises inside.
 __device__ void blend_tile(const void* feat, size_t feat_off, int fbf, int F,
                            int Fb, const float* sW, int C,
                            unsigned short* idx, int* cnt, float* sFB) {
@@ -976,7 +963,7 @@ __device__ void simt_layer_tile(const LayerDesc& L, ActBuf X, ActBuf T,
 }
 
 // Output layer (N <= a few columns) of the TS samples: LPS lanes per
-// sample split K, as simt_head_layer, reading X / T in the head's layout.
+// sample split K, reading X / T in the head's layout.
 __device__ void head_tile(const LayerDesc& L, ActBuf X, ActBuf T, bool tang,
                           bool sigm, float* out, float* tout) {
   const int s = threadIdx.x / LPS, lane = threadIdx.x % LPS;
@@ -1031,8 +1018,9 @@ __device__ void zero_tail(ActBuf X, int from) {
     X.put(idx / n, from + idx % n, 0.f);
 }
 
-// Density MLP of _density_mlp on the TS samples (simt_density_stage's
-// inputs and rounding points).
+// Density MLP of _density_mlp on the TS samples: inputs [ds, d cols, fg |
+// fg_emb], softplus (beta 100) hidden layers, linear head. sFB holds the
+// blended features (fg = its first gd columns, row stride ldfb).
 __device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
                              const float* sFB, int ldfb, int md, int mfg,
                              int gd, int lowp, bool tang, float* sdens,
@@ -1058,7 +1046,7 @@ __device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
     X.put(s, j, rnd(v, r0));
     if (tang) T.put(s, j, rnd(j < nd ? dv : 0.f, r0));
   }
-  feature_emb_to<TS, TNT>(sFB, ldfb, gd, mfg, lowp, xoff2, r0,
+  feature_emb_to(sFB, ldfb, gd, mfg, lowp, xoff2, r0,
                      [&](int s, int j, float v) { X.put(s, j, v); });
   zero_tail(X, xoff2 + 2 * (mfg > 0 ? mfg : 0) * gd);
   fence_proxy();
@@ -1101,7 +1089,7 @@ __device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
     }
     X.put(s, j, rnd(v, r0));
   }
-  feature_emb_to<TS, TNT>(sFB + gd, ldfb, cd, mft, lowp, xoff2, r0,
+  feature_emb_to(sFB + gd, ldfb, cd, mft, lowp, xoff2, r0,
                      [&](int s, int j, float v) { X.put(s, j, v); });
   zero_tail(X, xoff2 + 2 * (mft > 0 ? mft : 0) * cd);
   fence_proxy();
@@ -1110,144 +1098,35 @@ __device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
 }
 
 // ---------------------------------------------------------------------------
-// root search along rays (secant_refine, surface_locate): one block takes SB
-// rays of one tile; thread s < SB owns ray r0 + s and keeps its bracket in
+// root search along rays (secant_refine, surface_locate): one block takes TS
+// rays of one tile; thread s < TS owns ray r0 + s and keeps its bracket in
 // registers, the tile context stays in shared memory, and nothing leaves the
 // chip between the sequential field evaluations.
 // ---------------------------------------------------------------------------
 
-// Shared memory of a ray block; the kernel's own buffers follow at `end`
-// (a multiple of 4 floats from the start).
+// Shared memory of a ray block after the tile stage's (TileMem::rest); the
+// kNN weight rows alias the activation region, and the kernel's own
+// buffers follow at `end` (a multiple of 4 floats from the start).
 struct RayTile {
   float *geo;         // 8 * C
-  float *o, *r, *xyz; // SB * 4 each: origin, direction, current point
-  float *ds, *dens;   // SB each
-  float *FB;          // SB * F blended features
-  float *W;           // SB * C kNN weights
-  float *X;           // SB * ldx MLP activations
-  unsigned short* idx;  // tile stage: TS * KL listed kNN picks
-  int* cnt;             // tile stage: TS pick counts
+  float *o, *r, *xyz; // TS * 4 each: origin, direction, current point
+  float *ds, *dens;   // TS each
+  float *FB;          // TS * F blended features
+  float *W;           // TS * C kNN weights
+  unsigned short* idx;  // TS * KL listed kNN picks
+  int* cnt;             // TS pick counts
   float *end;
 };
 
 __host__ __device__ inline size_t ray_tile_floats(const RayField& f) {
-  return 8 * (size_t)f.C + SB * (3 * 4 + 2) + SB * ((size_t)f.F + f.C + f.ldx);
-}
-
-// Load tile b's context and the NR owner rays' origins and directions
-// (the last ray repeated past T).
-template <int NR, int NTHR>
-__device__ void ray_tile_fill(const RayField& f, const RayTile& t, int b,
-                              int r0) {
-  const int tid = threadIdx.x;
-  for (int i = tid; i < 8 * f.C; i += NTHR)
-    t.geo[i] = f.geo[(size_t)b * 8 * f.C + i];
-  if (tid < NR) {
-    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
-    for (int i = 0; i < 3; ++i) {
-      t.o[tid * 4 + i] = f.rays_o[ray * 3 + i];
-      t.r[tid * 4 + i] = f.rays_d[ray * 3 + i];
-    }
-  }
-}
-
-// Carve the block's shared memory, load tile b's context and the owner
-// rays' origins and directions (the last ray repeated past T).
-__device__ RayTile ray_tile_load(const RayField& f, float* smem, int b,
-                                 int r0) {
-  RayTile t;
-  t.geo = smem;
-  t.o = t.geo + 8 * f.C;
-  t.r = t.o + SB * 4;
-  t.xyz = t.r + SB * 4;
-  t.ds = t.xyz + SB * 4;
-  t.dens = t.ds + SB;
-  t.FB = t.dens + SB;
-  t.W = t.FB + SB * f.F;
-  t.X = t.W + SB * f.C;
-  t.end = t.X + SB * f.ldx;
-  ray_tile_fill<SB, NT>(f, t, b, r0);
-  return t;
-}
-
-// Interpolated distance at o + dv r of each owner's ray into t.ds, the kNN
-// weights into t.W, for NR owner rays over NTHR threads (all threads
-// call; NC as interp_sample's).
-template <int NR = SB, int NTHR = NT, int NC = 0>
-__device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
-  const int tid = threadIdx.x;
-  if (tid < NR)
-    for (int i = 0; i < 3; ++i)
-      t.xyz[tid * 4 + i] = fadd(t.o[tid * 4 + i], fmul(dv, t.r[tid * 4 + i]));
-  __syncthreads();
-  static_assert(NTHR / LPS == NR, "one sample per LPS lanes");
-  {
-    const int s = tid / LPS, lane = tid % LPS;
-    Interp r;
-    interp_sample<NC>(t.geo, f.C, t.xyz[s * 4], t.xyz[s * 4 + 1],
-                      t.xyz[s * 4 + 2], f.w1, f.k, false, lane,
-                      t.W + s * f.C, r);
-    if (lane == 0) t.ds[s] = r.ds;
-  }
-  __syncthreads();
-}
-
-// Density minus tau of each owner's ray from t.ds and the kNN weights in
-// t.W (all threads call; 0 on the other threads).
-__device__ float ray_density(const RayField& f, const RayTile& t, int b) {
-  blend_stage(f.feat, (size_t)b * f.C * f.F, f.feat_bf16, f.F, f.gd, t.W,
-              f.C, t.FB);
-  __syncthreads();
-  simt_density_stage(f.dens, t.X, f.ldx, t.ds, t.FB, f.F, f.md, f.mfg, f.gd,
-                     f.lowp, t.dens);
-  return threadIdx.x < SB ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;
-}
-
-__device__ float ray_density_at(const RayField& f, const RayTile& t, int b,
-                                float dv) {
-  ray_interp_at(f, t, dv);
-  return ray_density(f, t, b);
-}
-
-// Secant bracket of one owner ray: the field is below 0 at dl, above at dh.
-struct Bracket {
-  float dl, fl, dh, fh;
-  __device__ float pred() const {
-    float denom = fsub(fh, fl);
-    if (fabsf(denom) < 1e-12f) denom = 1e-12f;
-    return fadd(fdiv(fmul(-fl, fsub(dh, dl)), denom), dl);
-  }
-};
-
-// n secant steps on field(dv) (every thread calls field); returns the last
-// prediction.
-template <class Field>
-__device__ float secant_steps(Bracket& br, int n, Field field) {
-  float dp = br.pred();
-  for (int it = 0; it < n; ++it) {
-    const float fm = field(dp);
-    if (fm < 0.f) {
-      br.dl = dp;
-      br.fl = fm;
-    } else {
-      br.dh = dp;
-      br.fh = fm;
-    }
-    dp = br.pred();
-  }
-  return dp;
-}
-
-// ---- the ray block of the tile stage (secant_refine): TS rays of one
-// tile; thread s < TS owns ray r0 + s. The kNN weight rows alias the
-// activation region; the kernel's own buffers follow at `end`.
-__host__ __device__ inline size_t ray_tile_floats_ts(const RayField& f) {
   return 8 * (size_t)f.C + TS * (3 * 4 + 2) + TS * (size_t)f.F +
          TS * (KL / 2 + 1);
 }
 
-__device__ RayTile ray_tile_load_ts(const RayField& f, const TileMem& m,
-                                    int b, int r0) {
+// Carve the block's shared memory, load tile b's context and the owner
+// rays' origins and directions (the last ray repeated past T).
+__device__ RayTile ray_tile_load(const RayField& f, const TileMem& m, int b,
+                                 int r0) {
   RayTile t;
   t.geo = m.rest;
   t.o = t.geo + 8 * f.C;
@@ -1260,15 +1139,51 @@ __device__ RayTile ray_tile_load_ts(const RayField& f, const TileMem& m,
   t.cnt = reinterpret_cast<int*>(t.FB + TS * f.F + TS * KL / 2);
   t.end = t.FB + TS * f.F + TS * (KL / 2 + 1);
   t.W = static_cast<float*>(m.X);
-  t.X = nullptr;
-  ray_tile_fill<TS, TNT>(f, t, b, r0);
+  const int tid = threadIdx.x;
+  for (int i = tid; i < 8 * f.C; i += TNT)
+    t.geo[i] = f.geo[(size_t)b * 8 * f.C + i];
+  if (tid < TS) {
+    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
+    for (int i = 0; i < 3; ++i) {
+      t.o[tid * 4 + i] = f.rays_o[ray * 3 + i];
+      t.r[tid * 4 + i] = f.rays_d[ray * 3 + i];
+    }
+  }
   return t;
 }
 
+// Interpolated distance at o + dv r of each owner's ray into t.ds; with
+// ROWS the kNN weights into t.W (all threads call). The candidates stay in
+// registers when they fit (interp_sample's NC).
+template <bool ROWS>
+__device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
+  const int tid = threadIdx.x;
+  if (tid < TS)
+    for (int i = 0; i < 3; ++i)
+      t.xyz[tid * 4 + i] = fadd(t.o[tid * 4 + i], fmul(dv, t.r[tid * 4 + i]));
+  __syncthreads();
+  {
+    constexpr int OUT = ROWS ? PICK_ROWS : PICK_NONE;
+    const int s = tid / LPS, lane = tid % LPS;   // TNT / LPS == TS
+    const float x0 = t.xyz[s * 4], x1 = t.xyz[s * 4 + 1],
+                x2 = t.xyz[s * 4 + 2];
+    const Picks po{t.W + s * f.C, nullptr, nullptr, nullptr};
+    Interp r;
+    if (f.C <= KC * LPS)
+      interp_sample<KC, OUT>(t.geo, f.C, x0, x1, x2, f.w1, f.k, false, lane,
+                             po, r);
+    else
+      interp_sample<0, OUT>(t.geo, f.C, x0, x1, x2, f.w1, f.k, false, lane,
+                            po, r);
+    if (lane == 0) t.ds[s] = r.ds;
+  }
+  __syncthreads();
+}
+
 // Density minus tau of each owner's ray from t.ds and the kNN weights in
-// t.W, on the tile stage (all threads call; 0 on the other threads).
-__device__ float ray_density_ts(const RayField& f, const RayTile& t,
-                                TileMem& m, int b) {
+// t.W (all threads call; 0 on the other threads).
+__device__ float ray_density(const RayField& f, const RayTile& t, TileMem& m,
+                             int b) {
   blend_tile(f.feat, (size_t)b * f.C * f.F, f.feat_bf16, f.F, f.gd, t.W,
              f.C, t.idx, t.cnt, t.FB);
   __syncthreads();
@@ -1276,5 +1191,25 @@ __device__ float ray_density_ts(const RayField& f, const RayTile& t,
                t.dens, nullptr);
   return threadIdx.x < TS ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;
 }
+
+// Secant bracket of one owner ray: the field is below 0 at dl, above at dh.
+struct Bracket {
+  float dl, fl, dh, fh;
+  __device__ float pred() const {
+    float denom = fsub(fh, fl);
+    if (fabsf(denom) < 1e-12f) denom = 1e-12f;
+    return fadd(fdiv(fmul(-fl, fsub(dh, dl)), denom), dl);
+  }
+  // one secant step: the field's value fm at the prediction dp
+  __device__ void step(float dp, float fm) {
+    if (fm < 0.f) {
+      dl = dp;
+      fl = fm;
+    } else {
+      dh = dp;
+      fh = fm;
+    }
+  }
+};
 
 }  // namespace nm

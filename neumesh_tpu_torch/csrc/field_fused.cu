@@ -20,8 +20,8 @@
 // every 256-wide layer, the weights streamed through a two-slice
 // shared-memory ring. What holds it above the bound now is the exact-f32
 // work left on the CUDA cores: the epilogue's softplus / softplus' (the
-// largest part), the candidate passes (8 lanes a sample, d2 recomputed
-// per pass) and the feature blend, then
+// largest part), the candidate passes (8 lanes a sample) and the feature
+// blend, then
 // the heads, the embeddings and every f32 layer (selective-f32 d0/c0, the
 // f32 models: thread-per-column as before, in the 64-sample block).
 //
@@ -85,14 +85,18 @@ __global__ void __launch_bounds__(TNT, 1)
   __syncthreads();
 
   {
+    // the kNN weight rows only where a blend reads them
+    constexpr int OUT = mlp ? PICK_ROWS : PICK_NONE;
     const int s = tid / LPS, lane = tid % LPS;   // TNT / LPS == TS
+    const float x0 = sxyz[s * 4], x1 = sxyz[s * 4 + 1], x2 = sxyz[s * 4 + 2];
+    const Picks po{sW + s * C, nullptr, nullptr, nullptr};
     Interp r;
     if (C <= KC * LPS)
-      interp_sample<KC>(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1],
-                        sxyz[s * 4 + 2], a.w1, a.k, tang, lane, sW + s * C, r);
+      interp_sample<KC, OUT>(sgeo, C, x0, x1, x2, a.w1, a.k, tang, lane, po,
+                             r);
     else
-      interp_sample(sgeo, C, sxyz[s * 4], sxyz[s * 4 + 1], sxyz[s * 4 + 2],
-                    a.w1, a.k, tang, lane, sW + s * C, r);
+      interp_sample<0, OUT>(sgeo, C, x0, x1, x2, a.w1, a.k, tang, lane, po,
+                            r);
     if (lane == 0) {
       sds[s] = r.ds;
       sdh[s * 4] = r.dh0;

@@ -43,7 +43,7 @@ __global__ void __launch_bounds__(TNT, 1)
   TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, C, false),
                          &f.dens, nullptr, 1, f.ldx);
   tile_start(m);
-  const RayTile t = ray_tile_load_ts(f, m, b, r0);
+  const RayTile t = ray_tile_load(f, m, b, r0);
   float* sdev = t.end;                 // TS
   float* sdm = sdev + TS;              // TS
   float* sA = sdm + TS;                // TS * KSEL (frozen picks)
@@ -154,11 +154,8 @@ __global__ void __launch_bounds__(TNT, 1)
   // density (minus tau) at depth dv of each owner's ray; all threads call
   auto field = [&](float dv) -> float {
     if constexpr (!FROZEN) {
-      if (C <= KC * LPS)
-        ray_interp_at<TS, TNT, KC>(f, t, dv);
-      else
-        ray_interp_at<TS, TNT>(f, t, dv);
-      return ray_density_ts(f, t, m, b);
+      ray_interp_at<true>(f, t, dv);
+      return ray_density(f, t, m, b);
     }
     if (owner) sdev[tid] = dv;
     __syncthreads();
@@ -205,7 +202,7 @@ __global__ void __launch_bounds__(TNT, 1)
       if (lane == 0) t.ds[s] = ds;
     }
     __syncthreads();
-    return ray_density_ts(f, t, m, b);
+    return ray_density(f, t, m, b);
   };
 
   // the re-bracket's evaluations (d_high_w, then d_low_w) and the n_iters
@@ -221,12 +218,8 @@ __global__ void __launch_bounds__(TNT, 1)
     }
     if (it == -1) {
       if (fhr > 0.f && fv < 0.f) br = Bracket{dlw, fv, dhw, fhr};
-    } else if (fv < 0.f) {
-      br.dl = dp;
-      br.fl = fv;
     } else {
-      br.dh = dp;
-      br.fh = fv;
+      br.step(dp, fv);
     }
     dp = br.pred();
   }
@@ -242,7 +235,7 @@ size_t nm_secant_refine_smem(const nm::SecantArgs* a) {
   const size_t TS = nm::TS;
   return nm::tile_plan_bytes(nm::tile_plan(&a->f.dens, nullptr, a->f.ldx,
                                            a->f.C, false)) +
-         sizeof(float) * (nm::ray_tile_floats_ts(a->f) + 2 * TS +
+         sizeof(float) * (nm::ray_tile_floats(a->f) + 2 * TS +
                           5 * TS * nm::KSEL) +
          TS * a->f.C;
 }

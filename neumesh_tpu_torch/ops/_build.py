@@ -22,7 +22,8 @@ import time
 import torch
 
 MAX_LAYERS = 8      # csrc/field_common.cuh MAX_LAYERS
-NT = 256            # threads per block (csrc/field_common.cuh NT)
+NT = 256            # widest hidden layer: one thread per output column
+                    # of an f32 layer (csrc/field_common.cuh NT)
 KS = 64             # K rows per staged weight slice (csrc KS)
 NPAD = 256          # packed layers' output width (csrc NPAD)
 
@@ -168,10 +169,9 @@ def _lib(name: str):
                     fn = getattr(lib, entry)
                     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                     fn.restype = ctypes.c_int
-                    smem = getattr(lib, entry + "_smem", None)
-                    if smem is not None:
-                        smem.argtypes = [ctypes.c_void_p]
-                        smem.restype = ctypes.c_size_t
+                    smem = getattr(lib, entry + "_smem")
+                    smem.argtypes = [ctypes.c_void_p]
+                    smem.restype = ctypes.c_size_t
             lib.nm_error_string.argtypes = [ctypes.c_int]
             lib.nm_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib

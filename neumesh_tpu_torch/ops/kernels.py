@@ -315,11 +315,10 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
         dens_d = col_d = None
         ldx = 4
     else:
-        dens_d, ldx_d = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep,
-                                  tile=True)
+        dens_d, ldx_d = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
         col_d, ldx_c = (_mlp_desc(_col_layers(col_ws, F - geometry_dim,
                                               multires_d, multires_view),
-                                  keep, tile=True)
+                                  keep)
                         if want == "full" else (None, 0))
         ldx = max(ldx_d, ldx_c)
     d = dirs.contiguous() if want == "full" else None
@@ -490,7 +489,7 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
     keep = []
     field = _ray_field("secant_refine", rays_o, rays_d, geo, feat, w1,
                        dens_ws, out, k, multires_d, multires_fg,
-                       geometry_dim, dtype, logit_tau, keep, tile=True)
+                       geometry_dim, dtype, logit_tau, keep)
     vec = [v.to(torch.float32).contiguous()
            for v in (d_low, d_high, f_low, f_high)]
     wvec = ([d_low_w.to(torch.float32).contiguous(),
@@ -631,26 +630,40 @@ def surface_locate(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, *,
                                     dens_ws, **kw)
     from . import _build
 
+    out = torch.empty((4, rays_o.shape[0]), device=rays_o.device,
+                      dtype=torch.float32)
+    if rays_o.shape[0] == 0:
+        return out[0], *(out[1:] > 0.5)
+    args, _keep = _locate_args(rays_o, rays_d, near, far, geo, feat, w1,
+                               dens_ws, out, **kw)
+    _build.launch("surface_locate", args)
+    LAUNCHES["surface_locate"]["f32" if dtype is None else "bf16"] += 1
+    return out[0], out[1] > 0.5, out[2] > 0.5, out[3] > 0.5
+
+
+def _locate_args(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, out, *,
+                 n_steps, n_secant, k, multires_d, multires_fg, geometry_dim,
+                 dtype, logit_tau):
+    """surface_locate's argument block (C padded to a multiple of 128, the
+    density MLP described for the tile stage) and the tensors it points
+    into."""
+    from . import _build
+
     R = rays_o.shape[0]
     geo, feat = _pad_candidates(geo, feat)
     for v in (near, far):
         if tuple(v.shape) != (R,) or v.device != rays_o.device:
             raise ValueError(f"surface_locate: near/far {tuple(v.shape)} on "
                              f"{v.device}, want ({R},) on {rays_o.device}")
-    out = torch.empty((4, R), device=rays_o.device, dtype=torch.float32)
-    if R == 0:
-        return out[0], *(out[1:] > 0.5)
     keep = []
     field = _ray_field("surface_locate", rays_o, rays_d, geo, feat, w1,
                        dens_ws, out, k, multires_d, multires_fg,
-                       geometry_dim, dtype, logit_tau, keep, tile=False)
+                       geometry_dim, dtype, logit_tau, keep)
     args = _build.LocateArgs(
         f=field, near=_ptr(near.to(torch.float32).contiguous(), keep),
         far=_ptr(far.to(torch.float32).contiguous(), keep),
         n_steps=n_steps, n_secant=n_secant)
-    _build.launch("surface_locate", args)
-    LAUNCHES["surface_locate"]["f32" if dtype is None else "bf16"] += 1
-    return out[0], out[1] > 0.5, out[2] > 0.5, out[3] > 0.5
+    return args, keep
 
 
 # ---------------------------------------------------------------------------
@@ -834,20 +847,20 @@ def pack_layer(w, split: int):
     return packed, (blocks[0][1] if split else kp), kp
 
 
-def _mlp_desc(layers, keep, tile: bool = False):
-    """ctypes MLP descriptor + the row stride (floats) of the f32
-    activation rows: wide enough for every layer's input (the second row
-    block of a first layer starts at a multiple of 4) and output. tile:
-    for the tensor-core tile stage (field_fused, secant_refine): every
-    bf16 hidden layer packed by pack_layer, every bf16 layer given the
-    width of the bf16 tile it reads, and the row stride at least NPAD."""
+def _mlp_desc(layers, keep):
+    """ctypes MLP descriptor for the tensor-core tile stage + the row
+    stride (floats) of the f32 activation rows. Every bf16 hidden layer is
+    packed by pack_layer and every bf16 layer given the width of the bf16
+    tile it reads; the row stride is at least NPAD and wide enough for
+    every f32 layer's input (the second row block of a first layer starts
+    at a multiple of 4) and output."""
     from . import _build
 
     if len(layers) > _build.MAX_LAYERS:
         raise ValueError(f"field kernels: at most {_build.MAX_LAYERS} layers")
     desc = _build.MLPDesc()
     desc.n = len(layers)
-    ldx = _build.NPAD if tile else 4
+    ldx = _build.NPAD
     for i, (w, b, split) in enumerate(layers):
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"field kernels: weight dtype {w.dtype}")
@@ -862,7 +875,7 @@ def _mlp_desc(layers, keep, tile: bool = False):
         desc.l[i].K, desc.l[i].N = K, N
         desc.l[i].bf16 = bf16 = int(w.dtype == torch.bfloat16)
         desc.l[i].split = split
-        if tile and bf16:
+        if bf16:
             if hidden:
                 wp, desc.l[i].kp1, desc.l[i].kp = pack_layer(w, split)
                 desc.l[i].wp = _ptr(wp, keep)
@@ -873,11 +886,9 @@ def _mlp_desc(layers, keep, tile: bool = False):
 
 
 def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,
-               multires_d, multires_fg, geometry_dim, dtype, logit_tau, keep,
-               tile):
-    """The RayField block shared by secant_refine (tile: the tensor-core
-    stage) and surface_locate: R rays in R // B consecutive tiles of geo
-    (B, 8, C) / feat (B, C, F)."""
+               multires_d, multires_fg, geometry_dim, dtype, logit_tau, keep):
+    """The RayField block shared by secant_refine and surface_locate: R
+    rays in R // B consecutive tiles of geo (B, 8, C) / feat (B, C, F)."""
     from . import _build
 
     R = rays_o.shape[0]
@@ -888,8 +899,7 @@ def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,
         feat = feat.to(dtype)
     feat = feat.contiguous()
     _check_inputs(rays_o, geo, feat, rays_d)
-    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep,
-                            tile=tile)
+    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
     return _build.RayField(
         rays_o=_ptr(rays_o.contiguous(), keep),
         rays_d=_ptr(rays_d.contiguous(), keep),

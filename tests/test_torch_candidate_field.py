@@ -11,7 +11,8 @@ import pytest
 from neumesh_tpu.ops.pallas_kernels import candidate_field as jax_v2
 from neumesh_tpu.ops.pallas_kernels import candidate_field_v3 as jax_v3
 from test_torch_cuda import (CAND_CASES, assert_candidate_close, no_tie_mask,
-                             pack_geo, ray_contexts, torch_candidate)
+                             pack_geo, ray_contexts, tie_contexts,
+                             torch_candidate)
 
 
 def _jax_candidate(c, v3, want_dh, want_feat, k, **kw):
@@ -66,3 +67,50 @@ def test_candidate_sentinels_are_never_selected(v3):
     trimmed = torch_candidate(cut, v3, True, True, 8)
     for a, b in zip(got, trimmed):
         np.testing.assert_allclose(a, b, atol=1e-6, rtol=1e-6)
+
+
+def _masked_min_weights(c, k):
+    """Numpy model (float32 throughout) of the kernels' selection rule on
+    ray_contexts `c`: d2 = max(xx + pp - 2 x.v, 0), tie-broken by
+    (1 + c 2e-7), k passes that each remove everything <= the pass
+    minimum, inverse-distance weights on all that were removed."""
+    f = np.float32
+    x, p = c["xyz"][:, :, None, :], c["pts"][:, None]
+    xv = (x[..., 0] * p[..., 0] + x[..., 1] * p[..., 1]) + x[..., 2] * p[..., 2]
+    xx = (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
+    d2 = np.maximum((xx + c["pp"][:, None]) - f(2) * xv, f(0)).astype(f)
+    tb = d2 * (f(1) + np.arange(d2.shape[-1], dtype=f) * f(2e-7))
+    cur = tb.copy()
+    for _ in range(k):
+        thr = cur.min(-1, keepdims=True)
+        cur = np.where(cur <= thr, np.inf, cur)
+    raw = np.where(tb <= thr, f(1) / (np.sqrt(d2) + f(1e-7)), f(0)).astype(f)
+    return raw / raw.sum(-1, keepdims=True)
+
+
+@pytest.mark.parametrize("v3", [True, False])
+@pytest.mark.parametrize("k", [1, 8])
+def test_candidate_plain_sums_every_tied_pick(v3, k):
+    """A sample exactly on a duplicated candidate: one masked-min pass
+    removes both copies, so k passes select k + 1 candidates and the blend
+    must sum them all. The plain version is held to the interpreted TPU
+    kernel on that sample (ds 1e-5 + 1e-4 rel, feats 5e-5 + 1e-4 rel, the
+    tolerances of the no-tie samples) and to a numpy model of the
+    masked-min rule (k + 1 nonzero weights, feats 5e-5 + 1e-4 rel)."""
+    c = tie_contexts()
+    got = torch_candidate(c, v3, False, True, k)
+    want = _jax_candidate(c, v3, False, True, k)
+    W = _masked_min_weights(c, k)
+    assert ((W[:, 0] != 0).sum(-1) == k + 1).all()
+    assert (W[:, 0, 3] == W[:, 0, 17]).all() and (W[:, 0, 3] > 0.49).all()
+    model = np.einsum("rsc,rcf->rsf", W.astype(np.float64),
+                      c["feat"].astype(np.float64))
+    np.testing.assert_allclose(got[2][:, 0], model[:, 0], atol=5e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got[2][:, 0], want[2][:, 0], atol=5e-5,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got[0][:, 0], want[0][:, 0], atol=1e-5,
+                               rtol=1e-4)
+    ok = no_tie_mask(c["xyz"], pack_geo(c), k=k)
+    assert not ok[:, 0].any() and ok.mean() > 0.5
+    assert_candidate_close(got, want, ok)
