@@ -31,8 +31,22 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     through the plain versions, PSNR of rgb (and of the surface normals)
     between them; frame time, Mrays/s, peak memory and traced idle share
     of every structure.
-Prints the card line, one {"kernels": [...]} line (each row with its
-design, "wgmma" or "simt"), and last {"ok": true, "device": {...}}.
+ 5. the render CLI (neumesh_tpu_torch.cli.render.main) on a 4-view
+    synthetic DTU-format scene written by the port (128x128 PNGs,
+    cameras.npz), with the phase-2 model's .pt and .ply and a config made
+    from configs/neumesh_dtu_scan63.yaml, 2 spiral views a case
+    (CLI_CASES): the shipped defaults (per-ray contexts, use_pallas off,
+    f32), use_pallas on, the surface mode, the no-nablas model, volume
+    with 128-ray scanline tiles. Each case renders once with the launch
+    counters set to 0 just before and read just after (its kernel modes
+    asserted; ms/view, Mrays/s, frame peak memory), then one view again
+    with every kernel call recorded: each call replayed against its plain
+    version, each (kernel, mode, samples a context) timed with its bound
+    and the share of live rows in its blocks; the written PNGs decoded by
+    the port's reader equal the returned frames.
+Prints the card line, one {"cli": {...}} line, one {"kernels": [...]}
+line (each row with its design, "wgmma" or "simt"), and last {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -137,6 +151,26 @@ STRUCTURES = {
     "nonablas_volume": ("nonablas_vol", "volume", 256, VOL_RENDER,
                         {("candidate_field_v3", "ds_feat")}, 5),
 }
+# the render CLI's cases: (flags, the model with nablas input?, kernel modes
+# it must launch). Per-ray contexts unless --ray_tile; without use_pallas
+# only the up-sampling density is a kernel (forward_density_only_nograd)
+CLI_CASES = {
+    "cli_defaults": ([], True, {(FF, "density")}),
+    "cli_pallas": (["--model:use_pallas", "true"], True,
+                   {(FF, "density"), (FF, "density_nabla"), (FF, "full")}),
+    "cli_surface": (["--render_mode", "surface", "--model:use_pallas",
+                     "true"], True,
+                    {(FF, "density"), (SR, "plain"), (FF, "full")}),
+    "cli_nonablas": (["--model:use_pallas", "true",
+                      "--model:enable_nablas_input", "false"], False,
+                     {(FF, "density"), (FF, "density_nabla"),
+                      ("candidate_field_v3", "ds_feat")}),
+    "cli_tile128": (["--ray_tile", "128"], True, {(FF, "density")}),
+}
+CLI_SIDE, CLI_VIEWS = 128, 2
+# rows of a kernel's block: samples (rays) of one context
+BLOCK_ROWS = {"field_fused": 64, "secant_refine": 64, "surface_locate": 64,
+              "candidate_field_v3": 32, "candidate_field": 32}
 # crops through the plain versions: least PSNR of rgb (and of the surface
 # normals, peak-to-peak 2) kernel vs plain, by the structure's model dtype
 CROP_PSNR = {"bf16": 30.0, "f32": 55.0}
@@ -227,11 +261,11 @@ def plain_on_card():
     return swap_kernels(lambda n, f: getattr(kernels, n + "_plain"))
 
 
-def record_inputs(store):
-    """Keep the first call's arguments of every kernel mode."""
+def record_calls(calls):
+    """Append (kernel, mode, args, kw) of every kernel call."""
     def make(name, fn):
         def rec(*a, **kw):
-            store.setdefault((name, mode_of(name, kw)), (a, dict(kw)))
+            calls.append((name, mode_of(name, kw), a, dict(kw)))
             return fn(*a, **kw)
         return rec
     return swap_kernels(make)
@@ -704,7 +738,7 @@ def build_scene(tmp, device):
     mg2 = MeshGrid(load_ply(os.path.join(tmp, "mesh.ply")), device=device)
     models = {}
     for tag, (serving, bf16, extra) in MODELS.items():
-        kw = dict(FLAGSHIP, **serving, **extra)
+        kw = dict(FLAGSHIP, use_pallas=True, **serving, **extra)
         m = NeuMesh(mg2, device=device,
                     compute_dtype=torch.bfloat16 if bf16 else None, **kw)
         load_reference_pt(pts[kw["enable_nablas_input"]], m)
@@ -765,6 +799,173 @@ def check_image(tag, rgb, depth, H, W):
         raise AssertionError(f"{tag}: rgb outside [0, 1]")
 
 
+@contextlib.contextmanager
+def frame_peaks(cli, peaks):
+    """For the block, every view the CLI renders appends its peak device
+    memory above what was allocated before it (the model, its tables and
+    the earlier views' results are not counted)."""
+    import torch
+    render_function = cli.render_function
+
+    def measured(args, model, kwargs, render_fn):
+        def fn(*a, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = render_fn(*a, **kw)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+            return out
+        if hasattr(render_fn, "set_image_hw"):
+            fn.set_image_hw = render_fn.set_image_hw
+        return render_function(args, model, kwargs, fn)
+    cli.render_function = measured
+    try:
+        yield
+    finally:
+        cli.render_function = render_function
+
+
+def rows_per_context(name, args):
+    """(contexts, samples or rays of each) of one kernel call."""
+    if name in ("secant_refine", "surface_locate"):
+        B = args[6].shape[0] if name == "secant_refine" else args[4].shape[0]
+        return B, args[0].shape[0] // B
+    return args[0].shape[0], args[0].shape[1]
+
+
+def live_share(name, args):
+    """Live rows over all rows of the call's blocks (a block serves one
+    context)."""
+    _, n = rows_per_context(name, args)
+    rows = BLOCK_ROWS[name]
+    return n / (rows * -(-n // rows))
+
+
+def write_cli_inputs(tmp):
+    """A 4-view synthetic DTU-format scene and the config: the shipped
+    configs/neumesh_dtu_scan63.yaml pointed at it and at the phase-2 mesh,
+    no teacher. Returns the config's path."""
+    from neumesh_tpu_torch.config import load_yaml, save_yaml
+    from neumesh_tpu_torch.dataio.synthetic import generate_sphere_scene
+    root = os.path.dirname(os.path.abspath(__file__))
+    scene = generate_sphere_scene(os.path.join(tmp, "scene"), n_views=4,
+                                  H=CLI_SIDE, W=CLI_SIDE,
+                                  focal=1.25 * CLI_SIDE)
+    cfg = load_yaml(os.path.join(root, "configs", "neumesh_dtu_scan63.yaml"))
+    cfg.expname = "cli"
+    cfg.data.update(data_dir=scene, cam_file="cameras.npz", downscale=1)
+    cfg.model.prior_mesh = os.path.join(tmp, "mesh.ply")
+    cfg.training.update(teacher_config=None, teacher_ckpt=None)
+    path = os.path.join(tmp, "cli.yaml")
+    save_yaml(cfg, path)
+    return path
+
+
+def check_cli_frames(tag, out):
+    """The returned frames: finite, in range, (H, W, 3); the written PNGs
+    decode (port reader) to exactly the frames' 8-bit values."""
+    from neumesh_tpu_torch.utils.image_io import read_png
+    H, W = out["H"], out["W"]
+    pngs = [f for f in out["files"] if "_rgb_" in os.path.basename(f)]
+    normal_pngs = [f for f in out["files"] if "_normal_" in f]
+    if len(pngs) != len(out["rgb"]) or len(normal_pngs) != len(out["rgb"]):
+        raise AssertionError(f"{tag}: {len(pngs)} rgb and {len(normal_pngs)} "
+                             f"normal PNGs for {len(out['rgb'])} views")
+    for rgb, nrm, f_rgb, f_nrm in zip(out["rgb"], out["normals"], pngs,
+                                      normal_pngs):
+        if rgb.shape != (H, W, 3) or nrm.shape != (H, W, 3):
+            raise AssertionError(f"{tag}: frame shapes {rgb.shape} "
+                                 f"{nrm.shape}")
+        if not (np.isfinite(rgb).all() and np.isfinite(nrm).all()):
+            raise AssertionError(f"{tag}: non-finite frame")
+        if rgb.min() < -1e-4 or rgb.max() > 1 + 1e-4 \
+                or np.abs(nrm).max() > 1 + 1e-4:
+            raise AssertionError(f"{tag}: rgb outside [0, 1] or normals "
+                                 "outside [-1, 1]")
+        for f, img in ((f_rgb, rgb), (f_nrm, nrm / 2.0 + 0.5)):
+            want = (np.clip(img, 0, 1) * 255.0).astype(np.uint8)
+            if not np.array_equal(read_png(f), want):
+                raise AssertionError(f"{tag}: {f} is not the returned frame")
+
+
+def run_cli(tmp):
+    """Phase 5: every CLI case once counted, once recorded; returns
+    ({case: stats}, {case: counts}, [variants to check], {(kernel, mode, n,
+    case): timed call})."""
+    import torch
+    from neumesh_tpu_torch.cli import render as cli
+    from neumesh_tpu_torch.ops import kernels
+    cfg = write_cli_inputs(tmp)
+    stats, counts, variants, timed = {}, {}, [], {}
+    for tag, (flags, nablas, must) in CLI_CASES.items():
+        argv = ["--config", cfg, "--load_pt",
+                os.path.join(tmp, f"neumesh_{int(nablas)}.pt"),
+                "--outbase", tag] + flags
+        peaks = []
+        with contextlib.chdir(tmp):
+            with frame_peaks(cli, peaks):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                out = cli.main(argv + ["--num_views", str(CLI_VIEWS)])
+                torch.cuda.synchronize()
+                cnt = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
+            peak = max(peaks)
+            missed = [f"{k}/{md}" for k, md in sorted(must) if cnt[k][md] <= 0]
+            if missed:
+                raise AssertionError(f"{tag}: never launched {missed}")
+            check_cli_frames(tag, out)
+            calls = []
+            with record_calls(calls):
+                cli.main(argv + ["--num_views", "1", "--outbase",
+                                 tag + "_rec"])
+        counts[tag] = cnt
+        per_call = {}
+        for name, mode, a, kw in calls:
+            B, n = rows_per_context(name, a)
+            key = (name, mode, n)
+            per_call.setdefault(key, {"calls": 0, "contexts": 0,
+                                      "live_share": live_share(name, a)})
+            per_call[key]["calls"] += 1
+            per_call[key]["contexts"] += B
+            timed.setdefault(key + (tag,), (a, kw))
+            variants.append((name, mode, tag, a, kw, tol_key(name, kw)))
+        view_s = out["view_s"]
+        stats[tag] = {
+            "flags": flags, "views": len(view_s), "side": out["H"],
+            "view_s": view_s, "ms_per_view_steady": 1e3 * float(
+                np.mean(view_s[1:])), "mrays_s": out["mrays_s"],
+            "frame_peak_bytes": peak,
+            "launches": {k: {md: v for md, v in modes.items() if v}
+                         for k, modes in cnt.items()},
+            "per_frame_calls": [
+                {"kernel": k[0], "mode": k[1], "rows_per_context": k[2],
+                 **v} for k, v in sorted(per_call.items())]}
+        log(f"[cli] {tag}: {stats[tag]['ms_per_view_steady']:.1f} ms/view, "
+            f"{out['mrays_s']:.4f} Mrays/s, frame peak {peak / 2**20:.0f} MB; "
+            + ", ".join(f"{k[0]}/{k[1]} x{v['calls']} at {k[2]} rows "
+                        f"(live {v['live_share']:.3f})"
+                        for k, v in sorted(per_call.items())))
+    return stats, counts, variants, timed
+
+
+def time_cli_calls(timed, stats):
+    """Kernel ms and bound of the first call of each (kernel, mode, rows a
+    context) of each case, into the case's per_frame_calls."""
+    from neumesh_tpu_torch.ops import kernels
+    for (name, mode, n, tag), (a, kw) in timed.items():
+        fn = getattr(kernels, name)
+        ms = cuda_ms(lambda: fn(*a, **kw))
+        bound, by = kernel_bound(name, a, kw)
+        for row in stats[tag]["per_frame_calls"]:
+            if (row["kernel"], row["mode"], row["rows_per_context"]) == \
+                    (name, mode, n):
+                row.update(ms=ms, bound_ms=bound, bound_by=by,
+                           shapes=_shape_note(name, a))
+        log(f"[cli] {tag}: {name}/{mode} at {n} rows a context: {ms:.3f} ms "
+            f"(bound {bound:.4f}, {by})")
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -782,7 +983,12 @@ def main() -> int:
     log(f"[build] all kernels {build_s:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
-        models = build_scene(tmp, "cuda")
+        return run_all(tmp, name, card, build_s, t_start)
+
+
+def run_all(tmp, name, card, build_s, t_start) -> int:
+    import torch
+    models = build_scene(tmp, "cuda")
 
     # ---- the main paths: counters around each structure's render, after a
     # warm-up render; the peak memory holds nothing kept by the checks
@@ -816,9 +1022,13 @@ def main() -> int:
     # also read each kernel's shared memory per block
     rec, smem = {}, {}
     for st, (mkey, kind, H, kw, _, _) in STRUCTURES.items():
-        rec[st] = {}
-        with record_inputs(rec[st]), shared_memory_probe(smem):
+        calls = []
+        with record_calls(calls), shared_memory_probe(smem):
             render(models[mkey], kind, H, **kw)
+        rec[st] = {}
+        for kname, mode, a, kwargs in calls:     # the first call of a mode
+            rec[st].setdefault((kname, mode), (a, kwargs))
+        del calls
     log("[build] dynamic shared memory per block on the main paths (the "
         "largest launch): "
         + ", ".join(f"{k} {v} B" for k, v in sorted(smem.items())))
@@ -865,6 +1075,20 @@ def main() -> int:
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))
 
+    # ---- the render CLI: the counted cases, then every recorded call
+    # against its plain version, and the per-call times
+    del models
+    torch.cuda.empty_cache()
+    cli_stats, cli_counts, cli_variants, cli_timed = run_cli(tmp)
+    cli_rows = check_kernels(cli_variants)
+    del cli_variants
+    time_cli_calls(cli_timed, cli_stats)
+    del cli_timed
+    print(json.dumps({"cli": cli_stats, "card": card,
+                      "checks": {f"{k}/{m}": len(r["checks"])
+                                 for (k, m), r in cli_rows.items()},
+                      "total_s": time.perf_counter() - t_start}))
+
     on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
@@ -878,6 +1102,8 @@ def main() -> int:
             "launches_all_structures": sum(by_st.values()),
             "launches_by_structure": by_st,
             "launches_reference_structure": by_st["reference_f32"],
+            "launches_by_cli_case": {c: cli_counts[c][kname][mode]
+                                     for c in CLI_CASES},
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

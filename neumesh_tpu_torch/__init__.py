@@ -5,9 +5,10 @@ nothing from it (and never imports jax). Plain tensor code is PyTorch;
 every TPU kernel on the ported path is a hand-written CUDA C++ kernel
 for Hopper (`csrc/`, built with nvcc at first use, bound with ctypes).
 
-Device rule: every entry point takes `device=`, default "cuda". Without a
-card the default raises; only an explicit `device="cpu"` runs on the
-CPU, where each kernel wrapper uses its plain PyTorch version.
+Device rule: every entry point takes `device=` (the render CLI
+`--device`), default "cuda". Without a card the default raises; only an
+explicit `device="cpu"` runs on the CPU, where each kernel wrapper uses
+its plain PyTorch version.
 """
 from __future__ import annotations
 

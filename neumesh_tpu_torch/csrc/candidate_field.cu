@@ -69,8 +69,10 @@ __device__ __forceinline__ void blend_sample(const float* feat, int F, int f,
 template <bool V2, bool FEAT>
 __device__ __forceinline__ void candidate_body(const CandArgs& a) {
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y;
-  const int s0 = blockIdx.x * SB;
+  // one 1-D grid over (context, sample block): any number of contexts
+  const int nblk = (a.S + SB - 1) / SB;
+  const int b = blockIdx.x / nblk;
+  const int s0 = (blockIdx.x % nblk) * SB;
   const int C = a.C, S = a.S, F = a.F, tid = threadIdx.x;
   float* sgeo = smem;                  // 8 * C
   float* sxyz = sgeo + 8 * C;          // SB * 4
@@ -195,7 +197,8 @@ namespace {
 int launch_cand(void (*kernel)(const nm::CandArgs), const nm::CandArgs* a,
                 void* stream) {
   if (a->B <= 0 || a->S <= 0) return 0;
-  if (a->B > 65535 || a->C < 1 || a->C > 65535 || a->k < 1 ||
+  const long long nblk = (a->S + nm::SB - 1) / nm::SB;
+  if (nblk * a->B > INT_MAX || a->C < 1 || a->C > 65535 || a->k < 1 ||
       (a->want_feat && a->F < 1))
     return (int)cudaErrorInvalidValue;
   const size_t smem = nm_candidate_field_smem(a);
@@ -203,7 +206,7 @@ int launch_cand(void (*kernel)(const nm::CandArgs), const nm::CandArgs* a,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a->S + nm::SB - 1) / nm::SB, a->B);
+  dim3 grid((unsigned)(nblk * a->B));
   kernel<<<grid, nm::NT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

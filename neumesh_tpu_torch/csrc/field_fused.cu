@@ -48,8 +48,10 @@ template <int KIND>
 __global__ void __launch_bounds__(TNT, 1)
     field_fused_kernel(const __grid_constant__ FieldArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int b = blockIdx.y;
-  const int s0 = blockIdx.x * TS;
+  // one 1-D grid over (context, sample block): any number of contexts
+  const int nblk = (a.S + TS - 1) / TS;
+  const int b = blockIdx.x / nblk;
+  const int s0 = (blockIdx.x % nblk) * TS;
   const int C = a.C, S = a.S, tid = threadIdx.x;
   constexpr bool mlp = KIND != DISTANCE, tang = KIND == DENSITY_NABLA;
   const bool full = tang && a.mode == FULL;
@@ -148,7 +150,8 @@ size_t nm_field_fused_smem(const nm::FieldArgs* a) {
 
 int nm_field_fused(const nm::FieldArgs* a, void* stream) {
   if (a->B <= 0 || a->S <= 0) return 0;
-  if (a->B > 65535 || a->k < 1 || (a->ldx & 3) || a->ldx < 4)
+  const long long nblk = (a->S + nm::TS - 1) / nm::TS;
+  if (nblk * a->B > INT_MAX || a->k < 1 || (a->ldx & 3) || a->ldx < 4)
     return (int)cudaErrorInvalidValue;
   if (a->mode != nm::DISTANCE &&
       (!nm::tile_mlp_ok(a->dens, a->ldx) ||
@@ -162,7 +165,7 @@ int nm_field_fused(const nm::FieldArgs* a, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a->S + nm::TS - 1) / nm::TS, a->B);
+  dim3 grid((unsigned)(nblk * a->B));
   kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -38,7 +38,10 @@ __global__ void __launch_bounds__(TNT, 1)
     secant_refine_kernel(const __grid_constant__ SecantArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RayField& f = a.f;
-  const int b = blockIdx.y, r0 = blockIdx.x * TS, tid = threadIdx.x;
+  // one 1-D grid over (context, ray block): any number of contexts
+  const int nblk = (f.T + TS - 1) / TS;
+  const int b = blockIdx.x / nblk, r0 = (blockIdx.x % nblk) * TS;
+  const int tid = threadIdx.x;
   const int C = f.C, k = f.k;
   TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, C, false),
                          &f.dens, nullptr, 1, f.ldx);
@@ -243,7 +246,9 @@ size_t nm_secant_refine_smem(const nm::SecantArgs* a) {
 int nm_secant_refine(const nm::SecantArgs* a, void* stream) {
   const nm::RayField& f = a->f;
   if (f.R <= 0) return 0;
-  if (f.B <= 0 || f.B > 65535 || f.T * f.B != f.R || f.k < 1 ||
+  const long long nblk = (f.T + nm::TS - 1) / nm::TS;
+  if (f.B <= 0 || f.T <= 0 || nblk * f.B > INT_MAX || f.T * f.B != f.R ||
+      f.k < 1 ||
       f.k > nm::KSEL || (f.ldx & 3) || !nm::tile_mlp_ok(f.dens, f.ldx))
     return (int)cudaErrorInvalidValue;
   const size_t smem = nm_secant_refine_smem(a);
@@ -253,7 +258,7 @@ int nm_secant_refine(const nm::SecantArgs* a, void* stream) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((f.T + nm::TS - 1) / nm::TS, f.B);
+  dim3 grid((unsigned)(nblk * f.B));
   kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -40,7 +40,10 @@ __global__ void __launch_bounds__(TNT, 1)
     surface_locate_kernel(const __grid_constant__ LocateArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RayField& f = a.f;
-  const int b = blockIdx.y, r0 = blockIdx.x * TS, tid = threadIdx.x;
+  // one 1-D grid over (context, ray block): any number of contexts
+  const int nblk = (f.T + TS - 1) / TS;
+  const int b = blockIdx.x / nblk, r0 = (blockIdx.x % nblk) * TS;
+  const int tid = threadIdx.x;
   TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, f.C, false),
                          &f.dens, nullptr, 1, f.ldx);
   tile_start(m);                       // weights load under the scan
@@ -133,7 +136,9 @@ size_t nm_surface_locate_smem(const nm::LocateArgs* a) {
 int nm_surface_locate(const nm::LocateArgs* a, void* stream) {
   const nm::RayField& f = a->f;
   if (f.R <= 0) return 0;
-  if (f.B <= 0 || f.B > 65535 || f.T * f.B != f.R || f.k < 1 ||
+  const long long nblk = (f.T + nm::TS - 1) / nm::TS;
+  if (f.B <= 0 || f.T <= 0 || nblk * f.B > INT_MAX || f.T * f.B != f.R ||
+      f.k < 1 ||
       a->n_steps < 1 || a->n_secant < 0 || (f.ldx & 3) ||
       !nm::tile_mlp_ok(f.dens, f.ldx))
     return (int)cudaErrorInvalidValue;
@@ -143,7 +148,7 @@ int nm_surface_locate(const nm::LocateArgs* a, void* stream) {
       nm::surface_locate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((f.T + nm::TS - 1) / nm::TS, f.B);
+  dim3 grid((unsigned)(nblk * f.B));
   nm::surface_locate_kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

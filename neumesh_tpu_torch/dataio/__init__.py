@@ -1,0 +1,27 @@
+"""Dataset factory (counterpart of neumesh_tpu/dataio/__init__.py; the
+DTU type only, the paint dataset waits for the editing slice and the
+train/val pair for the training slice)."""
+from __future__ import annotations
+
+
+def get_data(args, **overwrite_cfgs):
+    dataset_type = args.data.get("type", "DTU")
+    if dataset_type != "DTU":
+        raise NotImplementedError(f"unknown dataset type {dataset_type}")
+    if args.data.get("paint_dataset", False):
+        raise NotImplementedError(
+            "data.paint_dataset: the paint dataset waits for the editing "
+            "slice of the port")
+    from .dtu import SceneDataset
+    cfgs = {
+        "scale_radius": args.data.get("scale_radius", -1),
+        "downscale": args.data.downscale,
+        "data_dir": args.data.data_dir,
+        "train_cameras": False,
+        "split": args.data.get("split", "entire"),
+        "intrinsic_from_cammat": args.data.get("intrinsic_from_cammat",
+                                               False),
+        "cam_file": args.data.get("cam_file", None),
+    }
+    cfgs.update(overwrite_cfgs)
+    return SceneDataset(**cfgs)

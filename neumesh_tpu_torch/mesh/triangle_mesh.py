@@ -226,3 +226,26 @@ def save_ply(mesh: TriangleMesh, path: str, binary: bool = True) -> None:
             for i in range(m):
                 f.write((f"3 {mesh.triangles[i, 0]} {mesh.triangles[i, 1]} "
                          f"{mesh.triangles[i, 2]}\n").encode("ascii"))
+
+
+def load_obj(path: str) -> TriangleMesh:
+    """Minimal OBJ reader (v / f; polygon faces fan-triangulated)."""
+    verts, faces = [], []
+    with open(path, "r", encoding="utf8", errors="replace") as f:
+        for line in f:
+            t = line.split()
+            if not t:
+                continue
+            if t[0] == "v":
+                verts.append([float(x) for x in t[1:4]])
+            elif t[0] == "f":
+                idx = [int(x.split("/")[0]) - 1 for x in t[1:]]
+                for i in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[i], idx[i + 1]])
+    return TriangleMesh(np.asarray(verts), np.asarray(faces, dtype=np.int64))
+
+
+def load_mesh(path: str) -> TriangleMesh:
+    if path.endswith(".obj"):
+        return load_obj(path)
+    return load_ply(path)

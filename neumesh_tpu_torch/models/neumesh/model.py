@@ -1,16 +1,25 @@
-"""NeuMesh on tile-shared candidate contexts (counterpart of
-neumesh_tpu/models/neumesh/model.py, the render path).
+"""NeuMesh (counterpart of neumesh_tpu/models/neumesh/model.py, the
+render path).
 
 Per-vertex geometry/colour feature codes and learnable indicator vectors
 on a fixed mesh scaffold, decoded by a density MLP (input: the embedded
 kNN-interpolated signed distance and geometry feature) and a colour MLP
 (input: [nabla, d_emb, view_emb, ft_emb]).
 
-Coherent camera rays are grouped into tiles of `tile` consecutive rays
-that share ONE candidate set (make_tile_context); every sample query of
-the bound model (TileBoundNeuMesh) then runs the fused field kernels of
-ops/kernels.py against the tile's (8, C) packed geometry and (C, F)
-features.
+Three ways to answer a sample query:
+  - unbound (NeuMesh.forward...): kNN through the mesh grid per sample
+    (the per-sample protocol; brute-force kNN without a grid);
+  - per-ray contexts (make_ray_context / bind_rays -> RayBoundNeuMesh):
+    each ray gathers its own candidate set once, every sample of the ray
+    is answered from it;
+  - tile-shared contexts (make_tile_context / bind_rays_tiled ->
+    TileBoundNeuMesh): `tile` consecutive rays share ONE candidate set.
+A bound model runs the fused field kernels of ops/kernels.py against its
+contexts' (8, C) packed geometry and (C, F) features when use_pallas is
+set, else the differentiable context math of NeuMesh._ctx_* in plain
+torch (the JAX package's XLA route, the one training differentiates).
+The renderer's up-sampling density takes the field_fused kernel on the
+card either way (forward_density_only_nograd).
 """
 from __future__ import annotations
 
@@ -24,7 +33,7 @@ from ... import resolve_device
 from ...mesh.grid import MeshGrid
 from ...nn import (get_embedder, maybe_wnorm_apply, maybe_wnorm_apply_parts,
                    softplus100, wnorm_weight)
-from ...ops import kernels
+from ...ops import interp, kernels
 
 
 class _WNLinear(nn.Module):
@@ -67,6 +76,7 @@ class NeuMesh(nn.Module):
                  multires_ft: int = 2, enable_nablas_input: bool = False,
                  ln_s: float = 0.2996, speed_factor: float = 1.0,
                  learn_indicator_weight: bool = True, compute_dtype=None,
+                 use_pallas: bool = False,
                  max_candidates: int = 96, f32_layers: tuple = (),
                  scan_candidates: int = 0, tile_kp_per_probe: int = 0,
                  use_fused_locate: bool = False,
@@ -89,6 +99,9 @@ class NeuMesh(nn.Module):
         self.learn_indicator_weight = learn_indicator_weight
         self.enable_nablas_input = enable_nablas_input
         self.compute_dtype = compute_dtype
+        # the fused field kernels on the bound models' routes; off, they
+        # run the context math (forward_density_only_nograd excepted)
+        self.use_pallas = use_pallas
         self.max_candidates = max_candidates
         self.f32_layers = tuple(f32_layers)
         self.scan_candidates = scan_candidates
@@ -186,7 +199,9 @@ class NeuMesh(nn.Module):
         """Geometry MLP on (embedded ds, embedded fg) -> (density (..., 1)
         f32, d_emb). Every layer runs in compute_dtype (f32_layers do not
         apply here); d_emb stays f32 and fg is embedded after the cast."""
-        dt = self.compute_dtype
+        return self._density_mlp(ds, fg, self.compute_dtype)
+
+    def _density_mlp(self, ds, fg, dt):
         d_emb = self.embed_fn_d(ds)
         fg_emb = self.embed_fn_fg(fg if dt is None else fg.to(dt))
         h = softplus100(maybe_wnorm_apply_parts(self.pts_linears[0],
@@ -199,7 +214,10 @@ class NeuMesh(nn.Module):
     def _color_from_interp(self, d_emb, view_dirs, ft, nabla):
         """Colour MLP on [nabla (with nablas input), d_emb, view_emb,
         ft_emb] -> rgb (..., 3) f32, every layer in compute_dtype."""
-        dt = self.compute_dtype
+        return self._color_mlp(d_emb, view_dirs, ft, nabla,
+                               self.compute_dtype)
+
+    def _color_mlp(self, d_emb, view_dirs, ft, nabla, dt):
         parts = [nabla] if self.enable_nablas_input else []
         parts += [d_emb, self.embed_fn_view(view_dirs),
                   self.embed_fn_ft(ft if dt is None else ft.to(dt))]
@@ -211,6 +229,212 @@ class NeuMesh(nn.Module):
         return torch.sigmoid(logits.to(torch.float32))
 
     # ------------------------------------------------------------------
+    # per-sample protocol: kNN through the mesh grid, every layer in f32
+    # ------------------------------------------------------------------
+    def compute_distance(self, xyz, K: int = 8):
+        """(ds (..., 1), indices (..., K), weights (..., K))."""
+        return self.mesh_grid.compute_distance(
+            xyz, indicator_vector=self.indicator_vector,
+            indicator_weight=self.forward_indicator_weight(), K=K)
+
+    def _knn(self, xyz, K: int = 8):
+        sq, idx = self.mesh_grid.knn(xyz, K)
+        return interp.knn_weights(sq), idx
+
+    def _density_from_parts(self, ds, indices, weights):
+        fg = interp.interpolate_features(self.geometry_features, indices,
+                                         weights)
+        return self._density_mlp(ds, fg, None)
+
+    def _color_from_parts(self, d_emb, view_dirs, indices, weights, nabla):
+        ft = interp.interpolate_features(self.color_features, indices,
+                                         weights)
+        return self._color_mlp(d_emb, view_dirs, ft, nabla, None)
+
+    def _density_and_nabla(self, xyz, indices, weights):
+        """(density, nabla, d_emb) with the kNN selection fixed: the
+        density depends on xyz only through the scalar h, so nabla =
+        dDensity/dh * grad_x h (one scalar-tangent jvp through the MLP
+        and the gradient of h)."""
+        indices, weights = indices.detach(), weights.detach()
+        ds, dh_dx = interp.interpolated_distance_and_grad(
+            xyz, self.mesh_grid.vertices[indices],
+            self.indicator_vector[indices], weights,
+            self.forward_indicator_weight())
+        fg = interp.interpolate_features(self.geometry_features, indices,
+                                         weights)
+        (density, d_emb), (dD_dh, _) = torch.func.jvp(
+            lambda d: self._density_mlp(d, fg, None), (ds,),
+            (torch.ones_like(ds),))
+        return density, dD_dh * dh_dx, d_emb
+
+    def forward(self, xyz, view_dirs):
+        """(sdf (...,), rgb (..., 3))."""
+        ds, indices, weights = self.compute_distance(xyz)
+        if self.enable_nablas_input:
+            density, nabla, d_emb = self._density_and_nabla(xyz, indices,
+                                                            weights)
+        else:
+            density, d_emb = self._density_from_parts(ds, indices, weights)
+            nabla = None
+        color = self._color_from_parts(d_emb, view_dirs, indices, weights,
+                                       nabla)
+        return density[..., 0], color
+
+    def forward_density_only(self, xyz):
+        ds, indices, weights = self.compute_distance(xyz)
+        return self._density_from_parts(ds, indices, weights)[0][..., 0]
+
+    def forward_with_nablas(self, xyz):
+        weights, indices = self._knn(xyz)
+        density, nabla, _ = self._density_and_nabla(xyz, indices, weights)
+        return density[..., 0], nabla
+
+    # ------------------------------------------------------------------
+    # the differentiable context math (the bound models' route without
+    # use_pallas): kNN selection, interpolated distance and feature blend
+    # over a context's C candidates as batched tensor math
+    # ------------------------------------------------------------------
+    def _ctx_distance_parts(self, ctx, xyz, K: int = 8,
+                            want_grad: bool = False):
+        """xyz (B, S, 3) against (B, C, ...) contexts -> (ds (B, S, 1), W
+        (B, S, C) detached kNN weights[, dh (B, S, 3)]). ds is analytic in
+        xyz and the indicator parameters; want_grad adds the closed-form
+        spatial gradient of the interpolated distance,
+
+            dh = A @ n + (sum_c B_c) x - B @ v,
+            A_c = W_c w1 / (w1 + d_c)
+            B_c = W_c (3 d_c^2 (w1 + d_c) - term_c) / ((w1 + d_c)^2 d_c).
+
+        x.v and x.n are exact f32 broadcasts, never a (TF32) dot: d2 =
+        |x|^2 + |v|^2 - 2 x.v cancels catastrophically near the surface
+        and a ~1e-3 error in x.v flips the kNN selection."""
+        w1 = self.forward_indicator_weight()
+        x0, x1, x2 = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+        pts, ind = ctx["pts"], ctx["ind"]
+        xv = (x0 * pts[:, None, :, 0] + x1 * pts[:, None, :, 1]
+              + x2 * pts[:, None, :, 2])                      # (B, S, C)
+        xx = torch.sum(xyz * xyz, dim=-1)
+        d2 = torch.clamp(xx[..., None] + ctx["pp"][:, None, :] - 2.0 * xv,
+                         min=0.0)
+        # K masked-min passes; the index-proportional perturbation breaks
+        # exact ties toward the lower candidate index
+        d2_sg = d2.detach()
+        iota = torch.arange(d2.shape[-1], device=d2.device,
+                            dtype=torch.float32) * 2e-7
+        d2_tb = d2_sg * (1.0 + iota)
+        cur = d2_tb
+        thresh = None
+        for _ in range(K):
+            thresh = torch.amin(cur, dim=-1, keepdim=True)
+            cur = torch.where(cur <= thresh, torch.full_like(cur, math.inf),
+                              cur)
+        mask = d2_tb <= thresh
+        w_raw = mask * (1.0 / (torch.sqrt(d2_sg) + 1e-7))
+        W = (w_raw / torch.sum(w_raw, dim=-1, keepdim=True)).detach()
+
+        d = torch.sqrt(torch.clamp(d2, min=1e-20))            # analytic
+        xn = (x0 * ind[:, None, :, 0] + x1 * ind[:, None, :, 1]
+              + x2 * ind[:, None, :, 2])
+        inv = 1.0 / (w1 + d)
+        term = w1 * (xn - ctx["vn"][:, None, :]) + d * d2
+        ds = torch.sum(W * term * inv, dim=-1, keepdim=True)
+        if not want_grad:
+            return ds, W
+        A = W * (w1 * inv)
+        Bc = W * (3.0 * d2 * (w1 + d) - term) * inv * inv / d
+        dh = torch.stack(
+            [torch.sum(A * ind[:, None, :, k] - Bc * pts[:, None, :, k],
+                       dim=-1) for k in range(3)], dim=-1) \
+            + torch.sum(Bc, dim=-1, keepdim=True) * xyz
+        return ds, W, dh
+
+    def _ctx_interp_feats(self, ctx, W, lo=None, hi=None):
+        """One batched product W @ feat[..., lo:hi] -> (B, S, F): true f32
+        in the f32 mode; in a low-precision mode both operands rounded to
+        it, products exact and sums in f32."""
+        dt = self.compute_dtype
+        feat = ctx["feat"][..., lo:hi]
+        if dt is None:
+            return torch.matmul(W, feat)
+        return torch.matmul(W.to(dt).to(torch.float32),
+                            feat.to(dt).to(torch.float32))
+
+    def _ctx_density(self, ctx, ds, W):
+        fg = self._ctx_interp_feats(ctx, W, hi=self.geometry_dim)
+        return self._density_from_interp(ds, fg)
+
+    def _ctx_density_and_nabla(self, ctx, xyz, with_ft: bool = False):
+        """(density, nabla, d_emb, W, ft | None); with_ft blends the colour
+        features in the same product as the geometry features."""
+        ds, W, dh_dx = self._ctx_distance_parts(ctx, xyz, want_grad=True)
+        gd = self.geometry_dim
+        if with_ft:
+            feats = self._ctx_interp_feats(ctx, W)
+            fg, ft = feats[..., :gd], feats[..., gd:]
+        else:
+            fg, ft = self._ctx_interp_feats(ctx, W, hi=gd), None
+        (density, d_emb), (dD_dh, _) = torch.func.jvp(
+            lambda d: self._density_from_interp(d, fg), (ds,),
+            (torch.ones_like(ds),))
+        return density, dD_dh * dh_dx, d_emb, W, ft
+
+    def _ctx_color(self, ctx, d_emb, view_dirs, W, nabla):
+        ft = self._ctx_interp_feats(ctx, W, lo=self.geometry_dim)
+        return self._color_from_interp(d_emb, view_dirs, ft, nabla)
+
+    # ------------------------------------------------------------------
+    # per-ray candidate contexts
+    # ------------------------------------------------------------------
+    def make_ray_context(self, rays_o, rays_d, near, far, n_probes: int = 8,
+                         kp_per_probe=None, max_candidates=None,
+                         for_bounds: bool = False):
+        """Per-ray candidate cache: the union of the candidate lists of
+        n_probes cells along each ray. rays_o/d (R, 3), near/far (R, 1).
+        Returns a dict of (R, C, ...) tensors, or None without a grid
+        (brute mode). Duplicates become the sentinel id; more than
+        max_candidates survivors keep the ones nearest the ray segment.
+        for_bounds=True returns only {"pts"} of the raw lists (enough for
+        candidate_bounded_near_far: min/max ignore duplicates)."""
+        grid = self.mesh_grid.grid
+        if grid is None:
+            return None
+        R = rays_o.shape[0]
+        dev = rays_o.device
+        t = torch.linspace(0.0, 1.0, n_probes, device=dev)
+        z = near + (far - near) * t                            # (R, P)
+        probes = rays_o[:, None, :] + z[..., None] * rays_d[:, None, :]
+        flat = self._flat_cells(probes)
+        kp = (min(kp_per_probe, grid.Kp) if kp_per_probe is not None
+              else grid.Kp)
+        ids = grid.cand_idx[:, :kp][grid.cell_row[flat]].reshape(R, -1) \
+            .to(torch.int64)
+        if for_bounds:
+            return {"pts": self._verts_ext()[ids]}
+        if max_candidates is None:
+            max_candidates = self.max_candidates
+        ids = torch.sort(ids, dim=-1).values
+        dup = torch.cat([torch.zeros((R, 1), dtype=torch.bool, device=dev),
+                         ids[:, 1:] == ids[:, :-1]], dim=-1)
+        ids = torch.where(dup, torch.full_like(ids, self.num_vertices), ids)
+        if max_candidates is not None and ids.shape[1] > max_candidates:
+            vp = self._verts_ext()[ids]                        # (R, C0, 3)
+            d2_seg = _segment_d2(vp[..., 0], vp[..., 1], vp[..., 2], rays_o,
+                                 rays_d, near, far)
+            order = torch.sort(d2_seg, dim=-1, stable=True).indices
+            ids = torch.gather(ids, -1, order)[:, :max_candidates]
+        return self._pack_ctx(ids)
+
+    def bind_rays(self, rays_o, rays_d, near, far, n_probes: int = 8):
+        """A per-ray candidate binding of (R, 3) rays: RayBoundNeuMesh, or
+        None without a grid."""
+        ctx = self.make_ray_context(rays_o.reshape(-1, 3),
+                                    rays_d.reshape(-1, 3),
+                                    near.reshape(-1, 1), far.reshape(-1, 1),
+                                    n_probes)
+        return None if ctx is None else RayBoundNeuMesh(self, ctx)
+
+    # ------------------------------------------------------------------
     # tile-shared candidate contexts
     # ------------------------------------------------------------------
     def make_tile_context(self, rays_o, rays_d, near, far, tile: int,
@@ -218,10 +442,12 @@ class NeuMesh(nn.Module):
                           max_candidates=None):
         """Tile-shared candidate cache. rays_o/d (R, 3) with consecutive
         rays grouped into tiles of `tile`; near/far (R, 1). Returns a dict
-        of (R // tile, C, ...) tensors; candidates are proximity-ranked
-        (nearest the tile's centroid segment first) when more than
-        max_candidates survive the dedup."""
+        of (R // tile, C, ...) tensors (None without a grid); candidates
+        are proximity-ranked (nearest the tile's centroid segment first)
+        when more than max_candidates survive the dedup."""
         grid = self.mesh_grid.grid
+        if grid is None:
+            return None
         dev = rays_o.device
         R = rays_o.shape[0]
         T = tile
@@ -325,7 +551,7 @@ class NeuMesh(nn.Module):
         tightened from the same candidate geometry. Returns
         (TileBoundNeuMesh, near, far), or None for tile <= 1 or a ray count
         that is not a tile multiple."""
-        if tile <= 1:
+        if self.mesh_grid.grid is None or tile <= 1:
             return None
         # the tile's union covers tile * n_probes staggered depths, so the
         # per-ray probe count shrinks as tiles grow
@@ -405,26 +631,51 @@ def candidate_bounded_near_far_tiled(ctx, rays_o, rays_d, near, far,
     return near_new.reshape(R, 1), far_new.reshape(R, 1)
 
 
-class TileBoundNeuMesh:
-    """A NeuMesh bound to tile-shared candidate caches: `tile` consecutive
-    rays share one (C, ...) candidate set; a sample query (R, S, 3) is
-    answered as (R // tile, tile * S) samples per tile by the fused
-    kernels."""
+def candidate_bounded_near_far(ctx, rays_o, rays_d, near, far,
+                               distance_thresh: float = 0.1):
+    """Per-ray near/far tightened to where the ray passes within
+    distance_thresh of one of its candidate vertices (closed form: t_c =
+    <v - o, d>, d_perp^2 = |v - o|^2 - t_c^2, covered for t in t_c -+
+    sqrt(thresh^2 - d_perp^2)), clamped to the input bounds, with the
+    reference's 'too close' widening. rays (R, 3), near/far (R, 1)."""
+    ov = ctx["pts"] - rays_o[:, None, :]                     # (R, C, 3)
+    t_c = torch.sum(ov * rays_d[:, None, :], dim=-1)
+    d_perp2 = torch.sum(ov * ov, dim=-1) - t_c * t_c
+    s2 = distance_thresh * distance_thresh - d_perp2
+    covered = s2 > 0
+    s = torch.sqrt(torch.where(covered, s2, torch.ones_like(s2))) * covered
+    t_lo = torch.where(covered, t_c - s, torch.full_like(s, 1e10))
+    t_hi = torch.where(covered, t_c + s, torch.full_like(s, -1e10))
+    near_new = torch.amin(t_lo, dim=-1, keepdim=True)
+    far_new = torch.amax(t_hi, dim=-1, keepdim=True)
+    near_new = torch.minimum(torch.maximum(near_new, near), far)
+    far_new = torch.minimum(torch.maximum(far_new, near), far)
+    hit = torch.any(covered, dim=-1, keepdim=True)
+    near_new = torch.where(hit, near_new, near)
+    far_new = torch.where(hit, far_new, far)
+    too_close = (far_new - near_new) < 0.1
+    far_new = torch.where(too_close, far_new + 0.05, far_new)
+    near_new = torch.where(too_close, near_new - 0.05, near_new)
+    return near_new, far_new
 
-    def __init__(self, model: NeuMesh, ctx: dict, tile: int):
+
+class RayBoundNeuMesh:
+    """A NeuMesh bound to per-ray candidate caches: a sample query (R, S,
+    3) of the R bound rays is answered from each ray's (C, ...) context,
+    by the fused kernels with use_pallas, else by the context math."""
+
+    def __init__(self, model: NeuMesh, ctx: dict):
         self.model = model
         self.ctx = ctx
-        self.tile = tile
         self._weights = {}
         self._w1 = None
 
     def _flat(self, x):
-        """(R, S, d) -> (R // tile, tile * S, d)."""
-        return x.reshape(-1, self.tile * x.shape[1], *x.shape[2:])
+        """(R, S, d) -> (contexts, samples per context, d)."""
+        return x
 
     def _unflat(self, y):
-        """(R // tile, tile * S, ...) -> (R, S, ...)."""
-        return y.reshape(-1, y.shape[1] // self.tile, *y.shape[2:])
+        return y
 
     def forward_s(self):
         return self.model.forward_s()
@@ -528,7 +779,7 @@ class TileBoundNeuMesh:
 
     def _fused_density(self, xyz, need_ft: bool):
         """Density from the candidate_field_v3 kernel (ds + feature blend,
-        full tile context) and the plain-torch density MLP ->
+        full context) and the plain-torch density MLP ->
         (density (B, S', 1), d_emb, ft | None). The reachable branch of the
         JAX _fused_density_nabla: its callers never ask for nablas."""
         m = self.model
@@ -558,28 +809,54 @@ class TileBoundNeuMesh:
             multires_fg=m.embed_fn_fg.multires, geometry_dim=m.geometry_dim,
             dtype=m.compute_dtype, logit_tau=logit_tau)
 
-    def compute_distance(self, xyz):
-        """Interpolated mesh distance (R, S, 1) (the scan proxy, k =
-        scan_knn_k or 8)."""
-        out = self._fused_field(self._flat(xyz), "distance")
-        return self._unflat(out[0][..., None])
+    def compute_distance(self, xyz, K: int = 8):
+        """(ds (R, S, 1), None, None): the renderers' bounded near/far and
+        the surface scan consume only ds (k = scan_knn_k or K)."""
+        m = self.model
+        x = self._flat(xyz)
+        if m.use_pallas:
+            ds = self._fused_field(x, "distance")[0][..., None]
+        else:
+            ds, _ = m._ctx_distance_parts(self.ctx, x, m.scan_knn_k or K)
+        return self._unflat(ds), None, None
 
     def forward_density_only(self, xyz):
         """sdf (R, S)."""
+        m = self.model
+        x = self._flat(xyz)
+        if m.use_pallas:
+            return self._unflat(self._fused_field(x, "density")[0])
+        ds, W = m._ctx_distance_parts(self.ctx, x)
+        return self._unflat(m._ctx_density(self.ctx, ds, W)[0][..., 0])
+
+    def forward_density_only_nograd(self, xyz):
+        """The renderer's up-sampling density (sample placement, no
+        gradient): the field_fused density kernel on the card whatever
+        use_pallas says, as the JAX package runs it on the TPU; on the CPU
+        the route of forward_density_only."""
+        if not xyz.is_cuda:
+            return self.forward_density_only(xyz)
         return self._unflat(self._fused_field(self._flat(xyz),
                                               "density")[0])
 
     def forward_with_nablas(self, xyz):
-        """(sdf (R, S), nablas (R, S, 3)) from one fused 'density_nabla'
-        launch."""
-        out = self._fused_field(self._flat(xyz), "density_nabla")
-        return (self._unflat(out[0]),
-                self._unflat(torch.stack(out[1:4], dim=-1)))
+        """(sdf (R, S), nablas (R, S, 3)): one fused 'density_nabla'
+        launch, or the context math with the closed-form dh."""
+        m = self.model
+        x = self._flat(xyz)
+        if m.use_pallas:
+            out = self._fused_field(x, "density_nabla")
+            return (self._unflat(out[0]),
+                    self._unflat(torch.stack(out[1:4], dim=-1)))
+        density, nabla, _, _, _ = m._ctx_density_and_nabla(self.ctx, x)
+        return self._unflat(density[..., 0]), self._unflat(nabla)
 
     def forward_full(self, xyz, view_dirs):
         """(sdf, rgb, nablas) at the same points: one fused 'full' launch
-        with nablas input, else forward + forward_with_nablas."""
-        if self.model.enable_nablas_input and view_dirs is not None:
+        with use_pallas and nablas input, else forward +
+        forward_with_nablas."""
+        m = self.model
+        if m.use_pallas and m.enable_nablas_input and view_dirs is not None:
             out = self._fused_field(self._flat(xyz), "full",
                                     dirs=self._flat(view_dirs))
             return (self._unflat(out[0]),
@@ -590,14 +867,45 @@ class TileBoundNeuMesh:
         return sdf, rgb, nablas
 
     def forward(self, xyz, view_dirs):
-        """(sdf (R, S), rgb (R, S, 3)): one fused 'full' launch with nablas
-        input; else candidate_field_v3 and the plain-torch MLPs."""
+        """(sdf (R, S), rgb (R, S, 3)). use_pallas: one fused 'full' launch
+        with nablas input, else candidate_field_v3 and the plain-torch
+        MLPs; without it the context math."""
         m = self.model
         x, v = self._flat(xyz), self._flat(view_dirs)
-        if m.enable_nablas_input:
+        if m.use_pallas and m.enable_nablas_input:
             out = self._fused_field(x, "full", dirs=v)
             return (self._unflat(out[0]),
                     self._unflat(torch.stack(out[4:7], dim=-1)))
-        density, d_emb, ft = self._fused_density(x, need_ft=True)
-        color = m._color_from_interp(d_emb, v, ft, None)
+        if m.use_pallas:
+            density, d_emb, ft = self._fused_density(x, need_ft=True)
+            nabla = None
+        elif m.enable_nablas_input:
+            density, nabla, d_emb, _, ft = m._ctx_density_and_nabla(
+                self.ctx, x, with_ft=True)
+        else:
+            ds, W = m._ctx_distance_parts(self.ctx, x)
+            feats = m._ctx_interp_feats(self.ctx, W)
+            density, d_emb = m._density_from_interp(
+                ds, feats[..., :m.geometry_dim])
+            ft = feats[..., m.geometry_dim:]
+            nabla = None
+        color = m._color_from_interp(d_emb, v, ft, nabla)
         return self._unflat(density[..., 0]), self._unflat(color)
+
+
+class TileBoundNeuMesh(RayBoundNeuMesh):
+    """A NeuMesh bound to tile-shared candidate caches: `tile` consecutive
+    rays share one (C, ...) candidate set; a sample query (R, S, 3) is
+    answered as (R // tile, tile * S) samples per tile."""
+
+    def __init__(self, model: NeuMesh, ctx: dict, tile: int):
+        super().__init__(model, ctx)
+        self.tile = tile
+
+    def _flat(self, x):
+        """(R, S, d) -> (R // tile, tile * S, d)."""
+        return x.reshape(-1, self.tile * x.shape[1], *x.shape[2:])
+
+    def _unflat(self, y):
+        """(R // tile, tile * S, ...) -> (R, S, ...)."""
+        return y.reshape(-1, y.shape[1] // self.tile, *y.shape[2:])

@@ -1,5 +1,6 @@
-"""Per-cell precomputed-candidate grid over mesh vertices (counterpart of
-neumesh_tpu/ops/knn.py:161-329).
+"""k-nearest-neighbour search over mesh vertices (counterpart of
+neumesh_tpu/ops/knn.py): the exact brute force `knn_brute`, and the
+per-cell precomputed-candidate grid.
 
 A dense grid over the query domain maps every cell to a candidate ROW
 (`cell_row`); rows (`cand_idx`) hold the Kp vertices nearest the cell
@@ -62,6 +63,40 @@ class CandidateGrid:
             cand_idx=self.cand_idx.to(device),
             origin=self.origin.to(device), inv_h=self.inv_h.to(device))
 
+    def query(self, xyz: torch.Tensor, k: int = 8, q_chunk: int = 262144):
+        """Device kNN through the table: xyz (..., 3) -> (sq_dist (..., k)
+        ascending, indices (..., k) int64); the k nearest of each query
+        cell's Kp candidates, ties to the lower candidate slot."""
+        shape = xyz.shape[:-1]
+        q = xyz.reshape(-1, 3)
+        parts = [self._query_chunk(q[i:i + q_chunk], k)
+                 for i in range(0, q.shape[0], q_chunk)] or \
+            [self._query_chunk(q, k)]
+        sq = torch.cat([a for a, _ in parts], 0)
+        idx = torch.cat([b for _, b in parts], 0)
+        return sq.reshape(shape + (k,)), idx.reshape(shape + (k,))
+
+    def _pts_device(self, device) -> torch.Tensor:
+        """cand_pts on `device`, copied there at first use (the tile and
+        ray contexts only need cand_idx)."""
+        cache = self.__dict__.setdefault("_pts_dev", {})
+        if device not in cache:
+            cache[device] = torch.as_tensor(self.cand_pts, device=device)
+        return cache[device]
+
+    def _query_chunk(self, q, k: int):
+        dims = torch.as_tensor(self.dims, device=q.device)
+        cell = torch.floor((q - self.origin) * self.inv_h).to(torch.int64)
+        cell = torch.minimum(torch.clamp(cell, min=0), dims - 1)
+        flat = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
+        row = self.cell_row[flat].to(torch.int64)
+        cpts = self._pts_device(q.device)[row]               # (Q, Kp, 3)
+        cidx = self.cand_idx[row].to(torch.int64)            # (Q, Kp)
+        d2 = torch.sum((cpts - q[:, None, :]) ** 2, dim=-1)
+        d2s, sel = torch.sort(d2, dim=-1, stable=True)
+        return (torch.clamp(d2s[:, :k], min=0.0),
+                torch.gather(cidx, -1, sel[:, :k]))
+
     def query_np(self, q: np.ndarray, k: int = 8):
         """Host kNN through the table: q (Q, 3) -> (sq_dist (Q, k)
         ascending, indices (Q, k))."""
@@ -79,6 +114,25 @@ class CandidateGrid:
         sel = np.argsort(d2, axis=-1, kind="stable")[:, :k]
         return (np.maximum(np.take_along_axis(d2, sel, -1), 0.0),
                 np.take_along_axis(cidx, sel, -1))
+
+
+def knn_brute(query: torch.Tensor, points: torch.Tensor, k: int,
+              q_chunk: int = 8192):
+    """Exact kNN: query (Q, 3), points (N, 3) -> (sq_dist (Q, k)
+    ascending, indices (Q, k) int64), ties to the lower index. d2 =
+    |q|^2 + |p|^2 - 2 q.p with a true-f32 product (set_fp32_precision on
+    the card: a TF32 product would wreck the cancellation)."""
+    k = min(k, points.shape[0])
+    pp = torch.sum(points * points, dim=-1)
+    sqs, idxs = [], []
+    for i in range(0, max(query.shape[0], 1), q_chunk):
+        q = query[i:i + q_chunk]
+        d2 = (torch.sum(q * q, dim=-1, keepdim=True) + pp[None, :]
+              - 2.0 * (q @ points.T))
+        d2s, idx = torch.sort(d2, dim=-1, stable=True)
+        sqs.append(torch.clamp(d2s[:, :k], min=0.0))
+        idxs.append(idx[:, :k])
+    return torch.cat(sqs, 0), torch.cat(idxs, 0)
 
 
 def _host_knn(points: np.ndarray, queries: np.ndarray, kp: int):
@@ -186,3 +240,11 @@ def build_candidate_grid(points, kp: int = 24, cell_size=None,
                  origin=grid.origin.numpy(), inv_h=grid.inv_h.numpy(),
                  dims=np.asarray(grid.dims))
     return grid
+
+
+def build_uniform_grid(points, cell_size=None, **kwargs) -> CandidateGrid:
+    """The JAX package's older name of build_candidate_grid."""
+    for name in ("capacity_cap", "coarse_factor", "coarse_capacity_cap",
+                 "k_ref", "verbose"):
+        kwargs.pop(name, None)
+    return build_candidate_grid(points, cell_size=cell_size, **kwargs)

@@ -1,13 +1,14 @@
 """Surface rendering (counterpart of neumesh_tpu/render/ray_casting.py):
 DVR-style root finding and sphere tracing, composed into surface_render
-(tiled branch) and the frame entry render_surface_image. Sign
-convention: (+) outside, (-) inside."""
+(tile-shared or per-ray candidate bindings) and the frame entry
+render_surface_image. Sign convention: (+) outside, (-) inside."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from .. import resolve_device, set_fp32_precision
+from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.kernels import secant_pred
 from ..ops.rays import block_order_indices, get_rays, near_far_from_sphere
 
@@ -138,17 +139,20 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
                    device="cuda"):
     """Cast (..., 3) rays to the zero level set, then shade once per ray.
 
-    Rays bind to tile-shared candidate contexts of `ray_tile` consecutive
-    rays (ray_tile > 1 must divide the ray count); every query runs on the
-    bound model's kernels. scan_mode="distance" scans the interpolated
-    mesh distance and refines on the density (scan + fused secant, or one
-    surface_locate launch with use_fused_locate). The hit is shaded by one
-    fused (sdf, rgb, nablas) query, or with shade_composite > 0 by the
-    volume renderer's root-anchored tail (density at shade_composite
-    depths around the root, colour at the shade_topk highest-visibility
-    midpoints) with normals from one density_nabla query. Returns (rgb
-    (..., 3), depth (...), {"implicit_nablas", "mask_surface",
-    "normals_surface" (calc_normal)})."""
+    ray_tile > 1 dividing the ray count binds tile-shared candidate
+    contexts of `ray_tile` consecutive rays; otherwise every ray binds its
+    own context after the closed-form mesh-bounded near/far (a model
+    without a candidate grid is queried per sample). With use_pallas the
+    secant runs as one fused launch (secant_refine, one ray per context on
+    the per-ray binding). scan_mode="distance" scans the interpolated
+    mesh distance and refines on the density (scan + secant, or one
+    surface_locate launch with use_fused_locate and use_pallas). The hit
+    is shaded by one (sdf, rgb, nablas) query, or with shade_composite >
+    0 by the volume renderer's root-anchored tail (density at
+    shade_composite depths around the root, colour at the shade_topk
+    highest-visibility midpoints) with normals from one forward_with_nablas
+    query. Returns (rgb (..., 3), depth (...), {"implicit_nablas",
+    "mask_surface", "normals_surface" (calc_normal)})."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model on {model.device}, device={dev}")
@@ -161,15 +165,24 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     R = rays_o.shape[0]
     near, far = near_far_from_sphere(rays_o, rays_d, keepdim=False)
-    tb = model.bind_rays_tiled(rays_o, rays_d, near[:, None], far[:, None],
-                               tile=ray_tile,
-                               max_candidates=tile_max_candidates)
-    if tb is None:
-        raise ValueError(
-            "surface_render needs the tiled candidate binding: ray_tile > 1 "
-            f"dividing the ray count (ray_tile={ray_tile}, rays={R})")
-    bound, near_b, far_b = tb
-    near, far = near_b[:, 0], far_b[:, 0]
+    bound = model
+    if ray_tile > 1 and R % ray_tile == 0:
+        tb = model.bind_rays_tiled(rays_o, rays_d, near[:, None],
+                                   far[:, None], tile=ray_tile,
+                                   max_candidates=tile_max_candidates)
+        if tb is not None:
+            bound, near_b, far_b = tb
+            near, far = near_b[:, 0], far_b[:, 0]
+    else:
+        pre_ctx = model.make_ray_context(rays_o, rays_d, near[:, None],
+                                         far[:, None], n_probes=16,
+                                         for_bounds=True)
+        if pre_ctx is not None:
+            near_b, far_b = candidate_bounded_near_far(
+                pre_ctx, rays_o, rays_d, near[:, None], far[:, None])
+            near, far = near_b[:, 0], far_b[:, 0]
+            bound = model.bind_rays(rays_o, rays_d, near[:, None],
+                                    far[:, None])
     for key, v in (("near", near), ("far", far)):
         cfgs[key] = torch.broadcast_to(torch.as_tensor(
             cfgs.get(key, v), dtype=torch.float32, device=rays_o.device),
@@ -183,17 +196,20 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     scan_fn, refine_fn = query_fn, None
     if scan_mode == "distance":
         def scan_fn(pts):
-            return bound.compute_distance(pts)[..., 0]
+            return bound.compute_distance(pts)[0][..., 0]
         refine_fn = query_fn
 
-    def secant_override(f_low, f_high, d_low, d_high, n, tau, d_low_w=None,
-                        d_high_w=None):
-        return bound.fused_secant(rays_o, rays_d, d_low, d_high, f_low,
-                                  f_high, n_iters=n, logit_tau=tau,
-                                  d_low_w=d_low_w, d_high_w=d_high_w)
+    secant_override = None
+    if model.use_pallas and hasattr(bound, "fused_secant"):
+        def secant_override(f_low, f_high, d_low, d_high, n, tau,
+                            d_low_w=None, d_high_w=None):
+            return bound.fused_secant(rays_o, rays_d, d_low, d_high, f_low,
+                                      f_high, n_iters=n, logit_tau=tau,
+                                      d_low_w=d_low_w, d_high_w=d_high_w)
 
     if (ray_casting_algo == "root_finding" and scan_mode == "distance"
-            and model.use_fused_locate):
+            and model.use_pallas and model.use_fused_locate
+            and hasattr(bound, "fused_locate")):
         d_pred, mask, _, val0_pos = bound.fused_locate(
             rays_o, rays_d, cfgs["near"], cfgs["far"],
             n_steps=cfgs.get("N_steps", 24),
@@ -202,7 +218,10 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
         d_pred, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask, val0_pos,
                                       cfgs["far"], cfgs.get("fill_inf", True))
     elif ray_casting_algo == "root_finding":
-        cfgs.setdefault("rebracket", model.secant_rebracket)
+        # an unbound model re-brackets whatever its secant_rebracket says,
+        # as the JAX package does
+        cfgs.setdefault("rebracket", getattr(getattr(bound, "model", None),
+                                             "secant_rebracket", True))
         d_pred, pt_pred, mask, _ = root_finding_surface_points(
             scan_fn, rays_o, rays_d, refine_query_fn=refine_fn,
             secant_override=secant_override, **cfgs)
@@ -231,9 +250,13 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
             _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
         else:
             nablas = torch.zeros_like(pt_pred)[:, None, :]
-    else:
+    elif hasattr(bound, "forward_full"):
         _, color, nablas = bound.forward_full(pt_pred[:, None, :],
                                               rays_d[:, None, :])
+        color = color[:, 0]
+    else:
+        _, color = bound.forward(pt_pred[:, None, :], rays_d[:, None, :])
+        _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
         color = color[:, 0]
     color = torch.where(mask[:, None], color, torch.zeros_like(color))
     nablas = nablas[:, 0]

@@ -1,5 +1,9 @@
-"""NeuS-CDF volume rendering over tile-shared candidate contexts
-(counterpart of neumesh_tpu/render/volume.py, the tiled branch).
+"""NeuS-CDF volume rendering (counterpart of neumesh_tpu/render/volume.py).
+
+Rays bind to tile-shared candidate contexts (ray_tile > 1), or to
+per-ray contexts after a closed-form mesh-bounded near/far (ray_tile 0,
+the render CLI's default); a model without a candidate grid is queried
+per sample, its near/far from a 256-probe distance scan.
 
 Two sampling structures:
   reference: N_samples coarse depths, N_upsample_iters rounds of NeuS
@@ -16,10 +20,36 @@ import numpy as np
 import torch
 
 from .. import resolve_device, set_fp32_precision
+from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.alpha import alpha_to_w, cdf_Phi_s, sdf_to_alpha
 from ..ops.rays import (block_order_indices, get_rays, near_far_from_sphere,
                         sample_pdf)
 from .ray_casting import root_finding_surface_points
+
+
+def compute_bounded_near_far(model, rays_o, rays_d, near, far,
+                             sample_grid: int = 256,
+                             distance_thresh: float = 0.1):
+    """near/far tightened to the segment where the interpolated mesh
+    distance of sample_grid probes is below distance_thresh. near/far
+    (R, 1)."""
+    _t = _linspace(sample_grid, rays_o.device)
+    d_coarse = near * (1 - _t) + far * _t
+    pts = rays_o[:, None, :] + d_coarse[..., None] * rays_d[:, None, :]
+    ds = model.compute_distance(pts)[0][..., 0]
+    mask = ds < distance_thresh
+    near_new = torch.amin(torch.where(mask, d_coarse,
+                                      torch.full_like(d_coarse, 1e10)),
+                          dim=-1, keepdim=True)
+    near_new = torch.where(near_new > 1e5, near, near_new)
+    far_new = torch.amax(torch.where(mask, d_coarse,
+                                     torch.full_like(d_coarse, -1e10)),
+                         dim=-1, keepdim=True)
+    far_new = torch.where(far_new < -1e5, far, far_new)
+    too_close = (far_new - near_new) < 0.1
+    far_new = torch.where(too_close, far_new + 0.05, far_new)
+    near_new = torch.where(too_close, near_new - 0.05, near_new)
+    return near_new, far_new
 
 
 def root_anchored_depths(near, far, d_root, mask, N_fine: int, window,
@@ -57,10 +87,10 @@ def _linspace(n, device):
     return torch.linspace(0.0, 1.0, n, device=device)
 
 
-def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 128,
+def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 0,
                        tile_max_candidates=None,
                        obj_bounding_radius: float = 1.0,
-                       white_bkgd: bool = False,
+                       calc_normal: bool = False, white_bkgd: bool = False,
                        bounded_near_far: bool = True, perturb: bool = False,
                        generator=None, N_samples: int = 64,
                        N_importance: int = 64, N_upsample_iters: int = 4,
@@ -69,76 +99,115 @@ def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 128,
                        root_anchored: bool = False, root_steps: int = 16,
                        root_secant: int = 3, root_n_fine: int = 48,
                        root_window: float = 0.0, root_win_frac: float = 0.5):
-    """Render one chunk of (R, 3) rays through the tile-shared candidate
-    binding (R a multiple of ray_tile, rays in tile order). rays_d need
-    not be normalised. Returns {"rgb" (R, 3), "depth_volume" (R,),
-    "mask_volume" (R,)}."""
+    """Render one chunk of (R, 3) rays (rays in tile order for ray_tile >
+    1). rays_d need not be normalised. ray_tile > 1 dividing R binds
+    tile-shared contexts; otherwise (ray_tile 0, or the tiled binding
+    unavailable) per-ray contexts after the closed-form bounded near/far.
+    calc_normal adds "normals_volume" (R, 3), the weight-summed unit
+    nablas at the samples. Returns {"rgb" (R, 3), "depth_volume" (R,),
+    "mask_volume" (R,)[, "normals_volume"]}."""
     rays_o = rays_o.to(torch.float32)
     rays_d = rays_d.to(torch.float32)
     rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     near, far = near_far_from_sphere(rays_o, rays_d, r=obj_bounding_radius)
-    tb = model.bind_rays_tiled(rays_o, rays_d, near, far, tile=ray_tile,
-                               max_candidates=tile_max_candidates)
-    if tb is None:
-        raise ValueError(
-            "volume_render_rays needs the tiled candidate binding: ray_tile "
-            f"> 1 dividing the ray count (ray_tile={ray_tile}, "
-            f"rays={rays_o.shape[0]})")
-    bound, near_t, far_t = tb
-    if bounded_near_far:
-        near, far = near_t, far_t
+    core = dict(calc_normal=calc_normal, white_bkgd=white_bkgd,
+                perturb=perturb, generator=generator, N_samples=N_samples,
+                N_importance=N_importance,
+                N_upsample_iters=N_upsample_iters, phi_s_base=phi_s_base,
+                reuse_upsample_sdf=reuse_upsample_sdf, color_topk=color_topk)
 
-    d_all = None
+    tb = None
+    if ray_tile > 1:
+        tb = model.bind_rays_tiled(rays_o, rays_d, near, far, tile=ray_tile,
+                                   max_candidates=tile_max_candidates)
+    if tb is not None:
+        bound, near_t, far_t = tb
+        if bounded_near_far:
+            near, far = near_t, far_t
+        d_all = None
+        if root_anchored:
+            if calc_normal:
+                raise ValueError("root_anchored volume serving takes "
+                                 "calc_normal=False")
+            d_all = _root_anchored(model, bound, rays_o, rays_d, near, far,
+                                   root_steps, root_secant, root_n_fine,
+                                   root_window, root_win_frac)
+        return _render_core(bound, rays_o, rays_d, near, far,
+                            d_all_override=d_all, **core)
     if root_anchored:
-        def scan_fn(pts):
-            return bound.compute_distance(pts)[..., 0]
+        # the per-ray path would render a different sampling structure
+        raise ValueError(
+            "root_anchored volume serving needs the tiled candidate binding: "
+            f"ray_tile > 1 dividing the ray count (ray_tile={ray_tile}, "
+            f"rays={rays_o.shape[0]})")
 
-        def refine_fn(pts):
-            return bound.forward_density_only(pts[:, None, :])[..., 0]
+    if bounded_near_far:
+        pre_ctx = model.make_ray_context(rays_o, rays_d, near, far,
+                                         n_probes=16, for_bounds=True)
+        if pre_ctx is not None:
+            near, far = candidate_bounded_near_far(pre_ctx, rays_o, rays_d,
+                                                   near, far)
+        else:
+            near, far = compute_bounded_near_far(model, rays_o, rays_d, near,
+                                                 far)
+    bound = model.bind_rays(rays_o, rays_d, near, far, n_probes=8)
+    return _render_core(model if bound is None else bound, rays_o, rays_d,
+                        near, far, **core)
 
+
+def _root_anchored(model, bound, rays_o, rays_d, near, far, root_steps,
+                   root_secant, root_n_fine, root_window, root_win_frac):
+    """Sorted depths concentrated around the first located crossing: a
+    distance-proxy scan, the secant (fused with use_pallas) with the
+    density re-bracket."""
+    def scan_fn(pts):
+        return bound.compute_distance(pts)[0][..., 0]
+
+    def refine_fn(pts):
+        return bound.forward_density_only(pts[:, None, :])[..., 0]
+
+    secant_override = None
+    if model.use_pallas:
         def secant_override(f_low, f_high, d_low, d_high, n, tau,
                             d_low_w=None, d_high_w=None):
             return bound.fused_secant(rays_o, rays_d, d_low, d_high, f_low,
                                       f_high, n_iters=n, logit_tau=tau,
                                       d_low_w=d_low_w, d_high_w=d_high_w)
 
-        d_pred, _, mask, _ = root_finding_surface_points(
-            scan_fn, rays_o, rays_d, near=near[..., 0], far=far[..., 0],
-            N_steps=root_steps, N_secant_steps=root_secant, fill_inf=False,
-            refine_query_fn=refine_fn, secant_override=secant_override,
-            rebracket=model.secant_rebracket)
-        s_val = model.forward_s()
-        win = (root_window if root_window
-               else torch.clamp(6.0 / s_val, 0.02, 0.5))
-        d_all = root_anchored_depths(near, far, d_pred, mask, root_n_fine,
-                                     win, root_win_frac)
-
-    return _render_core(
-        bound, rays_o, rays_d, near, far, white_bkgd=white_bkgd, perturb=perturb, generator=generator,
-        N_samples=N_samples, N_importance=N_importance,
-        N_upsample_iters=N_upsample_iters, phi_s_base=phi_s_base,
-        reuse_upsample_sdf=reuse_upsample_sdf, color_topk=color_topk,
-        d_all_override=d_all)
+    d_pred, _, mask, _ = root_finding_surface_points(
+        scan_fn, rays_o, rays_d, near=near[..., 0], far=far[..., 0],
+        N_steps=root_steps, N_secant_steps=root_secant, fill_inf=False,
+        refine_query_fn=refine_fn, secant_override=secant_override,
+        rebracket=model.secant_rebracket)
+    s_val = model.forward_s()
+    win = root_window if root_window else torch.clamp(6.0 / s_val, 0.02, 0.5)
+    return root_anchored_depths(near, far, d_pred, mask, root_n_fine, win,
+                                root_win_frac)
 
 
-def _render_core(model, rays_o, rays_d, near, far, *, white_bkgd, perturb, generator, N_samples, N_importance,
+def _render_core(model, rays_o, rays_d, near, far, *, calc_normal=False,
+                 white_bkgd, perturb, generator, N_samples, N_importance,
                  N_upsample_iters, phi_s_base, reuse_upsample_sdf,
                  color_topk=0, d_all_override=None):
     """Sampling + up-sampling + evaluation + compositing on a bound model
     with near/far resolved; d_all_override supplies sorted depths (the
-    root-anchored structure) in place of coarse + up-sampling."""
+    root-anchored structure) in place of coarse + up-sampling. The
+    up-sampling densities come from forward_density_only_nograd where the
+    model has it; calc_normal evaluates the final sdf with nablas."""
     dev = rays_o.device
 
     def at(d):
         return rays_o[:, None, :] + d[..., None] * rays_d[:, None, :]
 
+    sdf_up = None
     if d_all_override is not None:
         d_all = d_all_override
-        sdf = model.forward_density_only(at(d_all))
     else:
+        dens_fn = getattr(model, "forward_density_only_nograd",
+                          model.forward_density_only)
         _t = _linspace(N_samples, dev)
         d = near * (1 - _t) + far * _t
-        sdf_up = model.forward_density_only(at(d))
+        sdf_up = dens_fn(at(d))
         n_per = N_importance // N_upsample_iters
         for i in range(N_upsample_iters):
             prev_sdf, next_sdf = sdf_up[..., :-1], sdf_up[..., 1:]
@@ -158,14 +227,20 @@ def _render_core(model, rays_o, rays_d, near, far, *, white_bkgd, perturb, gener
             alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
             d_fine = sample_pdf(d, alpha_to_w(alpha), n_per,
                                 det=not perturb, generator=generator)
-            sdf_fine = model.forward_density_only(at(d_fine))
+            sdf_fine = dens_fn(at(d_fine))
             d = torch.cat([d, d_fine], dim=-1)
             sdf_up = torch.cat([sdf_up, sdf_fine], dim=-1)
             d, order = torch.sort(d, dim=-1, stable=True)
             sdf_up = torch.gather(sdf_up, -1, order)
         d_all = d
-        sdf = (sdf_up if reuse_upsample_sdf
-               else model.forward_density_only(at(d_all)))
+
+    nablas = None
+    if calc_normal:
+        sdf, nablas = model.forward_with_nablas(at(d_all))
+    elif reuse_upsample_sdf and sdf_up is not None:
+        sdf = sdf_up
+    else:
+        sdf = model.forward_density_only(at(d_all))
 
     d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
     _, alpha = sdf_to_alpha(sdf, model.forward_s())
@@ -190,7 +265,15 @@ def _render_core(model, rays_o, rays_d, near, far, *, white_bkgd, perturb, gener
     acc = torch.sum(w, dim=-1)
     if white_bkgd:
         rgb = rgb + (1.0 - acc[..., None])
-    return {"rgb": rgb, "depth_volume": depth, "mask_volume": acc}
+    ret = {"rgb": rgb, "depth_volume": depth, "mask_volume": acc}
+    if calc_normal:
+        normals = nablas / torch.clamp(
+            torch.linalg.vector_norm(nablas, dim=-1, keepdim=True),
+            min=1e-12)
+        n_pts = min(w.shape[-1], normals.shape[-2])
+        ret["normals_volume"] = torch.sum(
+            normals[..., :n_pts, :] * w[..., :n_pts, None], dim=-2)
+    return ret
 
 
 @torch.no_grad()
@@ -241,3 +324,20 @@ def render_image(model, c2w, K, H: int, W: int, *, block=(8, 16),
                                     device=device, **kwargs)
     ret = {k: v[inv].reshape(H, W, *v.shape[1:]) for k, v in ret.items()}
     return ret["rgb"], ret["depth_volume"], ret
+
+
+class SingleRenderer:
+    """The volume render as a callable on one model (the render CLI's
+    render_fn): (rays_o, rays_d, **render kwargs) -> (rgb, depth,
+    extras). The builders' training-only kwargs are dropped."""
+
+    _TRAINING_ONLY = ("batched", "N_nograd_samples")
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, rays_o, rays_d, **kwargs):
+        for k in self._TRAINING_ONLY:
+            kwargs.pop(k, None)
+        return volume_render(self.model, rays_o, rays_d,
+                             device=self.model.device, **kwargs)

@@ -65,7 +65,11 @@ def load_reference_pt(path: str, model) -> None:
     """Fill `model` from a reference-format `.pt` (weight_g (out, 1),
     weight_v (out, in), weight (out, in), bias)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    sd = ckpt["model"] if "model" in ckpt else ckpt
+    load_reference_state(ckpt["model"] if "model" in ckpt else ckpt, model)
+
+
+def load_reference_state(sd: dict, model) -> None:
+    """Fill `model` from a reference-layout state dict of CPU tensors."""
     for name in ("ln_s", "geometry_features", "color_features",
                  "indicator_vector"):
         _put(getattr(model, name), sd[name].numpy())

@@ -32,21 +32,32 @@ SMALL = dict(D_density=3, D_color=2, W=32, geometry_dim=8, color_dim=8,
              speed_factor=10.0)
 
 
-def small_scene(seed=0, jax_kw=None, torch_kw=None, subdivisions=3):
+def small_scene(seed=0, jax_kw=None, torch_kw=None, subdivisions=3,
+                jitter=0.0):
     """(jax model, jax params, torch model) on the icosphere at
     `subdivisions`, binding IDENTICAL candidate tables (the JAX grid's,
     adopted through CandidateGrid.from_arrays) and identical numpy-seeded
-    parameters."""
-    jm = JNeuMesh(JMeshGrid(jax_icosphere(0.5, subdivisions), "grid"),
+    parameters; both on the fused route (use_pallas=True). jitter moves
+    the vertices by that much Gaussian noise, which removes the sphere's
+    exact kNN ties."""
+    jmesh, tmesh = (jax_icosphere(0.5, subdivisions),
+                    icosphere_mesh(0.5, subdivisions))
+    if jitter:
+        noise = np.random.default_rng(seed + 100).normal(
+            size=jmesh.vertices.shape) * jitter
+        for mesh in (jmesh, tmesh):
+            mesh.vertices = mesh.vertices + noise
+            mesh.compute_vertex_normals()
+    jm = JNeuMesh(JMeshGrid(jmesh, "grid"),
                   use_pallas=True, **{**SMALL, **(jax_kw or {})})
     g = jm.mesh_grid.grid
     grid = CandidateGrid.from_arrays(
         np.asarray(g.cell_row), np.asarray(g.cand_idx),
         np.asarray(g.cand_pts), np.asarray(g.origin), np.asarray(g.inv_h),
         g.dims)
-    tm = NeuMesh(MeshGrid(icosphere_mesh(0.5, subdivisions), device="cpu",
-                          grid=grid),
-                 device="cpu", **{**SMALL, **(torch_kw or {})}).init(seed)
+    tm = NeuMesh(MeshGrid(tmesh, device="cpu", grid=grid),
+                 device="cpu", use_pallas=True,
+                 **{**SMALL, **(torch_kw or {})}).init(seed)
     return jm, jax_params_of(tm), tm
 
 
@@ -286,11 +297,50 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import sys, neumesh_tpu_torch, neumesh_tpu_torch.render.volume, "
         "neumesh_tpu_torch.render.ray_casting, "
         "neumesh_tpu_torch.utils.state, neumesh_tpu_torch.ops.kernels, "
-        "neumesh_tpu_torch.ops._build\n"
+        "neumesh_tpu_torch.ops._build, neumesh_tpu_torch.cli.render, "
+        "neumesh_tpu_torch.models.neumesh, neumesh_tpu_torch.dataio.dtu, "
+        "neumesh_tpu_torch.utils.checkpoints\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or "
-        "m == 'neumesh_tpu' or m.startswith('neumesh_tpu.')]\n"
+        "m == 'neumesh_tpu' or m.startswith('neumesh_tpu.') or "
+        "m.split('.')[0] in ('yaml', 'PIL', 'cv2', 'msgpack', 'flax', "
+        "'imageio')]\n"
         "print(repr(bad)); sys.exit(1 if bad else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_modules_import_none_of_the_missing_packages():
+    """Every import statement of every module of the port, module level or
+    inside a function: none of jax, neumesh_tpu, PyYAML, Pillow, OpenCV,
+    msgpack or flax (the card machine has none of them); imageio only
+    inside a function of the CLI (its optional video writer)."""
+    import ast
+    banned = {"jax", "jaxlib", "neumesh_tpu", "yaml", "PIL", "cv2",
+              "msgpack", "flax"}
+    pkg = os.path.join(REPO, "neumesh_tpu_torch")
+    found = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            tree = ast.parse(open(path).read(), path)
+            top = {id(n) for n in tree.body}
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                    mods = [node.module]
+                else:
+                    continue
+                for m in mods:
+                    head = m.split(".")[0]
+                    rel = os.path.relpath(path, REPO)
+                    if head in banned or (head == "imageio" and (
+                            rel != os.path.join("neumesh_tpu_torch", "cli",
+                                                "render.py")
+                            or id(node) in top)):
+                        found.append((rel, m))
+    assert not found, found

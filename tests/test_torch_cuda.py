@@ -54,6 +54,11 @@ CARD_SECANT_CASES = ([(*c, (), 100, {}) for c in SECANT_CASES]
                         (True, False, "bf16", (), 100, dict(C=192)),
                         (True, False, None, (), 100, dict(C=192)),
                         (True, True, "bf16", (), 100, dict(WIDE, C=256))])
+# the per-ray path's shapes (one context a ray, C = 96 candidates, F = 64):
+# up-sampling S = 16, surface shading S = 1, colour at S = 127 midpoints
+PER_RAY_FIELD_CASES = [(want, dt, S) for S in (1, 16, 127)
+                       for want in ("density", "density_nabla", "full")
+                       for dt in (None, "bf16")] + [("distance", None, 128)]
 # (want_dh, want_feat, k) of candidate_field_v3 / candidate_field
 CAND_CASES = [(True, True, 8), (False, True, 8), (True, False, 8),
               (False, False, 8), (True, True, 1)]
@@ -753,6 +758,78 @@ def test_surface_locate_kernel_matches_plain_on_card(dtype, tags, T, n_steps,
     if n_steps >= 16 and B * T >= 64:
         assert got[1].mean() > 0.5
     assert_locate_close(got, want, ok, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want,dtype,S", PER_RAY_FIELD_CASES)
+def test_field_fused_at_per_ray_shapes_on_card(want, dtype, S):
+    _need_card()
+    inp = random_context(seed=31, B=512, S=S, C=96, gd=32, cd=32)
+    mask = no_tie_mask(inp["xyz"], inp["geo"])
+    got = [o.cpu().numpy() for o in
+           torch_field(inp, want, 8, dtype, (), device="cuda")]
+    ref = [o.cpu().numpy() for o in
+           torch_field(inp, want, 8, dtype, (), device="cuda", plain=True)]
+    assert_field_close(got, ref, mask, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_secant_and_candidate_v3_at_one_ray_a_context_on_card(dtype):
+    """T = 1: the secant of the per-ray surface render and the no-nablas
+    colour stage at S = 1, one context a ray."""
+    _need_card()
+    inp = random_context(seed=32, B=1024, S=1, C=96, gd=32, cd=32)
+    br = brackets(33, 1024)
+    got = torch_secant(inp, br, True, False, dtype, "cuda")
+    ref = torch_secant(inp, br, True, False, dtype, "cuda", plain=True)
+    assert_roots_close(got.cpu().numpy(), ref.cpu().numpy(), dtype)
+    c = ray_contexts(seed=34, R=1024, S=1, C=96, F=64)
+    ok = no_tie_mask(c["xyz"], pack_geo(c))
+    assert_candidate_close(
+        torch_candidate(c, True, False, True, 8, device="cuda"),
+        torch_candidate(c, True, False, True, 8, device="cuda", plain=True),
+        ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["field_fused", "secant_refine",
+                                  "surface_locate", "candidate_field_v3"])
+def test_kernels_launch_more_than_65535_contexts_on_card(name):
+    """B = 70,000 contexts, one sample or ray each (a per-ray chunk of more
+    than 65,535 rays): every launcher takes them and agrees with the plain
+    version."""
+    _need_card()
+    B = 70000
+    inp = random_context(seed=35, B=B, S=1, C=96, outward=True)
+    kernels.reset_launch_counts()
+    if name == "field_fused":
+        got = torch_field(inp, "distance", 8, None, (), device="cuda")
+        ref = torch_field(inp, "distance", 8, None, (), device="cuda",
+                          plain=True)
+        mask = no_tie_mask(inp["xyz"], inp["geo"])
+        assert_field_close([o.cpu().numpy() for o in got],
+                           [o.cpu().numpy() for o in ref], mask, "distance",
+                           None)
+    elif name == "secant_refine":
+        br = brackets(36, B)
+        got = torch_secant(inp, br, True, False, None, "cuda")
+        ref = torch_secant(inp, br, True, False, None, "cuda", plain=True)
+        assert_roots_close(got.cpu().numpy(), ref.cpu().numpy(), None)
+    elif name == "surface_locate":
+        lr = locate_rays(37, B, 1, 16)
+        ok = no_tie_mask(lr["scan"], inp["geo"]).reshape(-1, 16).all(-1)
+        got = torch_locate(inp, lr, None, 16, device="cuda")
+        want = torch_locate(inp, lr, None, 16, device="cuda", plain=True)
+        assert_locate_close(got, want, ok, None)
+    else:
+        c = ray_contexts(seed=38, R=B, S=1, C=96, F=16)
+        ok = no_tie_mask(c["xyz"], pack_geo(c))
+        assert_candidate_close(
+            torch_candidate(c, True, False, True, 8, device="cuda"),
+            torch_candidate(c, True, False, True, 8, device="cuda",
+                            plain=True), ok)
+    assert sum(kernels.LAUNCHES[name].values()) == 1
 
 
 def test_new_wrappers_take_the_plain_version_on_cpu_tensors():

@@ -213,9 +213,11 @@ def test_surface_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         surface_render(tm, torch.from_numpy(o), torch.from_numpy(d),
                        ray_tile=TILE)
-    with pytest.raises(ValueError, match="tiled candidate binding"):
-        surface_render(tm, torch.from_numpy(o), torch.from_numpy(d),
-                       ray_tile=0, device="cpu")
+    # ray_tile 0 on the CPU renders through per-ray contexts
+    rgb, depth, _ = surface_render(tm, torch.from_numpy(o),
+                                   torch.from_numpy(d), ray_tile=0,
+                                   device="cpu")
+    assert rgb.shape == (256, 3) and bool(torch.isfinite(depth).all())
 
 
 def test_sphere_tracing_matches_jax():
