@@ -44,9 +44,26 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     version, each (kernel, mode, samples a context) timed with its bound
     and the share of live rows in its blocks; the written PNGs decoded by
     the port's reader equal the returned frames.
-Prints the card line, one {"cli": {...}} line, one {"kernels": [...]}
-line (each row with its design, "wgmma" or "simt"), and last {"ok": true,
-"device": {...}}.
+ 6. training (neumesh_tpu_torch.cli.train.main) on the same scene, at
+    the flagship widths of the shipped configs: the NeuS teacher from
+    configs/neus_dtu_scan63.yaml, then the NeuMesh student from
+    configs/neumesh_dtu_scan63.yaml on the phase-2 icosphere, distilled
+    from that teacher's latest.ckpt with every loss on, TRAIN_ITERS
+    iterations each (i_log 1, validation at the last iteration). The
+    launch counters are set to 0 just before the NeuMesh run and read just
+    after. Checks: every loss term finite at every step; final_*.ckpt
+    loads back and the render CLI renders one 64x64 view from it; the
+    teacher's ln_s bit-equal to its checkpoint; every field_fused call of
+    one training step against its plain version (f32 tolerances); the
+    first step's total loss and global grad norm through the kernels and
+    through the plain versions (TF32 off) within TRAIN_REL. Reports ms/it
+    (median after TRAIN_WARMUP iterations) and rays/s as the loop logs
+    them, a step's peak memory above the resident models, the device-time
+    split of one NeuMesh step (CUDA events; idle share from the profiler),
+    and the field_fused density time per call at 512 x 64 and 512 x 16.
+Prints the card line, one {"cli": {...}} line, one {"training": {...}}
+line, one {"kernels": [...]} line (each row with its design, "wgmma" or
+"simt"), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -100,11 +117,11 @@ VOL_RENDER = dict(root_anchored=True, root_n_fine=8, root_steps=16,
                   root_secant=3, root_win_frac=0.25, color_topk=4,
                   ray_tile=128, tile_max_candidates=128, N_samples=64,
                   N_importance=64, N_upsample_iters=4,
-                  reuse_upsample_sdf=True)
+                  reuse_upsample_sdf=True, detailed_output=False)
 # reference structure: 64 coarse + 4x16 up-sampling, colour at midpoints
 REF_RENDER = dict(ray_tile=128, tile_max_candidates=128, N_samples=64,
                   N_importance=64, N_upsample_iters=4,
-                  reuse_upsample_sdf=True)
+                  reuse_upsample_sdf=True, detailed_output=False)
 # surface serving knobs (the JAX bench's SERVING, TPU-only knobs dropped)
 SURF_MODEL = dict(tile_kp_per_probe=8, f32_layers=("d0", "dh", "c0", "ch"),
                   secant_full_precision=False, scan_knn_k=1,
@@ -168,6 +185,11 @@ CLI_CASES = {
     "cli_tile128": (["--ray_tile", "128"], True, {(FF, "density")}),
 }
 CLI_SIDE, CLI_VIEWS = 128, 2
+# training phase: iterations a run (depth cut; widths as shipped), warm-up
+# iterations left out of the ms/it median, the kernel-vs-plain agreement of
+# the first step's loss and grad norm (relative), the render of the trained
+# student (side of the view)
+TRAIN_ITERS, TRAIN_WARMUP, TRAIN_REL, TRAIN_RENDER_SIDE = 20, 3, 1e-4, 64
 # rows of a kernel's block: samples (rays) of one context
 BLOCK_ROWS = {"field_fused": 64, "secant_refine": 64, "surface_locate": 64,
               "candidate_field_v3": 32, "candidate_field": 32}
@@ -966,6 +988,349 @@ def time_cli_calls(timed, stats):
             f"(bound {bound:.4f}, {by})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+DEV = "cuda"
+
+
+def write_train_inputs(tmp):
+    """{"neus", "neumesh"}: config paths made from the shipped configs,
+    pointed at the CLI phase's scene (with masks), the phase-2 mesh and the
+    teacher's files; TRAIN_ITERS iterations, a log line every iteration,
+    validation at the last one (and at 0, as the loop crosses it)."""
+    from neumesh_tpu_torch.config import load_yaml, save_yaml
+    root = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(tmp, "logs")
+    paths = {}
+    for name in ("neus", "neumesh"):
+        cfg = load_yaml(os.path.join(root, "configs",
+                                     f"{name}_dtu_scan63.yaml"))
+        cfg.expname = f"train_{name}"
+        cfg.data.update(data_dir=os.path.join(tmp, "scene"),
+                        cam_file="cameras.npz", downscale=1)
+        cfg.training.update(num_iters=TRAIN_ITERS, i_log=1,
+                            i_val=TRAIN_ITERS - 1, log_root_dir=logs)
+        if name == "neumesh":
+            teacher = os.path.join(logs, "train_neus")
+            cfg.model.prior_mesh = os.path.join(tmp, "mesh.ply")
+            cfg.training.update(
+                teacher_config=os.path.join(teacher, "config.yaml"),
+                teacher_ckpt=os.path.join(teacher, "ckpts", "latest.ckpt"))
+        paths[name] = os.path.join(tmp, f"train_{name}.yaml")
+        save_yaml(cfg, paths[name])
+    return paths
+
+
+class _Lines:
+    """Collects the messages of the port's logger for a block."""
+
+    def __enter__(self):
+        import logging
+        self.lines = []
+        lines = self.lines
+
+        class H(logging.Handler):
+            def emit(self, record):
+                lines.append(record.getMessage())
+        self.h, self.lg = H(), logging.getLogger("neumesh_tpu_torch")
+        self.level = self.lg.level
+        self.lg.addHandler(self.h)
+        self.lg.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.lg.removeHandler(self.h)
+        self.lg.setLevel(self.level)
+
+
+def train_run_stats(tag, out, lines, wall_s):
+    """Every loss term and the grad norm finite at every step (the stats
+    the loop logged); ms/it and rays/s of each iteration from its log
+    lines; medians after TRAIN_WARMUP iterations."""
+    import pickle
+    import re
+    import statistics
+    with open(os.path.join(out["exp_dir"], "stats.p_0"), "rb") as f:
+        stats = pickle.load(f)
+    series = dict(stats["losses"], grad_norm=stats["extras"]["grad_norm"])
+    for k, v in series.items():
+        vals = [x for _, x in v]
+        if len(vals) != TRAIN_ITERS or not np.isfinite(vals).all():
+            raise AssertionError(f"{tag}: {k} not finite at every step: "
+                                 f"{vals}")
+    perf = [(float(m.group(1)), float(m.group(2).replace(",", "")))
+            for m in re.finditer(r"\(([\d.]+) ms/it, ([\d,]+) rays/s\)",
+                                 "\n".join(lines))]
+    if len(perf) != TRAIN_ITERS:
+        raise AssertionError(f"{tag}: {len(perf)} log lines for "
+                             f"{TRAIN_ITERS} iterations")
+    ms = [p[0] for p in perf]
+    return {"iters": out["it"], "wall_s": wall_s, "ms_per_it": ms,
+            "ms_per_it_median": statistics.median(ms[TRAIN_WARMUP:]),
+            "rays_s_median": statistics.median(
+                [p[1] for p in perf[TRAIN_WARMUP:]]),
+            "losses_first": {k: v[0][1] for k, v in series.items()},
+            "losses_last": {k: v[-1][1] for k, v in series.items()},
+            "val_psnr": [x for _, x in stats.get("validation", {}).get(
+                "psnr", [])]}
+
+
+def train_batch(cfg_path):
+    """View 0 of the config's dataset as device tensors, with (H, W,
+    N_rays)."""
+    from neumesh_tpu_torch.config import load_yaml
+    from neumesh_tpu_torch.dataio import get_data
+    from neumesh_tpu_torch.train.loop import to_device
+    cfg = load_yaml(cfg_path)
+    ds = get_data(cfg)
+    _, mi, gt = ds.batch([0])
+    return (to_device(mi, DEV), to_device(gt, DEV), ds.H, ds.W,
+            cfg.data.N_rays)
+
+
+def loss_and_grad_norm(trainer, rk, batch, seed=0):
+    """Total loss and global grad norm of one step on `batch` (no optimizer
+    step; exact f32 matmuls; rays and perturbations from a generator of
+    `seed`)."""
+    import torch
+    from neumesh_tpu_torch.train.loop import _set_matmul_precision
+    mi, gt, H, W, n = batch
+    _set_matmul_precision("highest", DEV)
+    model = trainer.model
+    model.requires_grad_(True)
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    total = trainer.render_and_loss(mi, gt, rk, n, H, W,
+                                    generator=gen)["losses"]["total"]
+    total.backward()
+    gn = torch.sqrt(sum(torch.sum(p.grad * p.grad)
+                        for p in model.parameters() if p.grad is not None))
+    model.zero_grad(set_to_none=True)
+    return float(total.detach()), float(gn)
+
+
+@contextlib.contextmanager
+def step_events(trainer, evs):
+    """For the block, CUDA events around the up-sampling densities, the
+    teacher, the whole forward (render + losses), backward and the
+    optimizer step, appended to evs[name]."""
+    import torch
+    from neumesh_tpu_torch.models.neumesh.model import RayBoundNeuMesh
+    from neumesh_tpu_torch.train.optimizers import Adam
+
+    def timed(name, fn):
+        def w(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **kw)
+            e1.record()
+            evs.setdefault(name, []).append((e0, e1))
+            return out
+        return w
+    targets = [(RayBoundNeuMesh, "forward_density_only_nograd", "upsampling"),
+               (trainer, "_teacher", "teacher"),
+               (trainer, "render_and_loss", "forward"),
+               (torch.Tensor, "backward", "backward"),
+               (Adam, "step", "optimizer")]
+    saved = [(obj, attr, getattr(obj, attr)) for obj, attr, _ in targets]
+    for (obj, attr, name), (_, _, fn) in zip(targets, saved):
+        setattr(obj, attr, timed(name, fn))
+    try:
+        yield
+    finally:
+        for obj, attr, fn in saved:
+            if obj is trainer:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
+
+
+def step_split(run, trainer):
+    """Device-time split (ms) of one step from CUDA events: the up-sampling
+    field_fused calls, the teacher, the forward context math (the rest of
+    the forward), backward, optimizer, other (grad norm, zero_grad)."""
+    import torch
+    evs = {}
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with step_events(trainer, evs):
+        torch.cuda.synchronize()
+        e0.record()
+        run()
+        e1.record()
+    torch.cuda.synchronize()
+    t = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in evs.items()}
+    total = e0.elapsed_time(e1)
+    out = {"step_ms": total, "upsampling_field_fused": t["upsampling"],
+           "teacher": t["teacher"],
+           "forward_context_math": t["forward"] - t["upsampling"]
+           - t["teacher"],
+           "backward": t["backward"], "optimizer": t["optimizer"]}
+    out["other"] = total - t["forward"] - t["backward"] - t["optimizer"]
+    return out
+
+
+def run_training(tmp, card):
+    """Phase 6. Returns (the {"training"} dict, launch counts of the NeuMesh
+    run, [kernel variants to check], the field_fused density rows)."""
+    import torch
+    from neumesh_tpu_torch.cli import render as render_cli
+    from neumesh_tpu_torch.cli import train as train_cli
+    from neumesh_tpu_torch.config import load_yaml
+    from neumesh_tpu_torch.models import build_framework
+    from neumesh_tpu_torch.ops import kernels
+    from neumesh_tpu_torch.train.loop import build_train_step
+    from neumesh_tpu_torch.train.optimizers import get_optimizer
+    from neumesh_tpu_torch.utils.checkpoints import CheckpointIO
+    paths = write_train_inputs(tmp)
+    result, runs = {"card": card}, {}
+    for name in ("neus", "neumesh"):
+        with contextlib.chdir(tmp), _Lines() as cap:
+            torch.cuda.synchronize()
+            if name == "neumesh":
+                kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = train_cli.main(["--config", paths[name], "--device", DEV])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if name == "neumesh":
+                counts = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
+        runs[name] = out
+        result[name] = train_run_stats(name, out, cap.lines, wall)
+        log(f"[train] {name}: {result[name]['ms_per_it_median']:.1f} ms/it "
+            f"(median after {TRAIN_WARMUP}), "
+            f"{result[name]['rays_s_median']:.0f} rays/s, total loss "
+            f"{result[name]['losses_first']['total']:.4f} -> "
+            f"{result[name]['losses_last']['total']:.4f}, {wall:.1f} s")
+    if counts["field_fused"]["density"] <= 0:
+        raise AssertionError("training never launched field_fused/density")
+    result["launches"] = {k: {m: v for m, v in modes.items() if v}
+                          for k, modes in counts.items()}
+
+    # the teacher: bit-equal to its checkpoint after the student's run
+    student = runs["neumesh"]
+    teacher = student["trainer"].teacher_model
+    saved = torch.load(os.path.join(runs["neus"]["exp_dir"], "ckpts",
+                                    "latest.ckpt"), weights_only=True)
+    if not torch.equal(teacher.ln_s.detach().cpu(), saved["model"]["ln_s"]):
+        raise AssertionError("the teacher's ln_s changed during training")
+    if student["model"].ln_s.data_ptr() == teacher.ln_s.data_ptr():
+        raise AssertionError("student and teacher share ln_s")
+
+    # final_*.ckpt: loads back into a fresh build, renders through the CLI
+    exp = student["exp_dir"]
+    final = os.path.join(exp, "ckpts", f"final_{TRAIN_ITERS:08d}.ckpt")
+    trained = {n: p.detach().clone() for n, p in
+               student["model"].named_parameters()}
+    del runs, student, teacher, saved
+    torch.cuda.empty_cache()
+    with contextlib.chdir(tmp):
+        view = render_cli.main([
+            "--config", os.path.join(exp, "config.yaml"), "--load_pt", final,
+            "--num_views", "1", "--H", str(TRAIN_RENDER_SIDE), "--W",
+            str(TRAIN_RENDER_SIDE), "--outbase", "train_render",
+            "--device", DEV])
+    rgb = view["rgb"][0]
+    if rgb.shape != (TRAIN_RENDER_SIDE, TRAIN_RENDER_SIDE, 3) \
+            or not np.isfinite(rgb).all() or rgb.min() < -1e-4 \
+            or rgb.max() > 1 + 1e-4:
+        raise AssertionError(f"render of the trained student: {rgb.shape}")
+    result["render_view_s"] = view["view_s"]
+
+    # a fresh build: the first step through the kernels and through the
+    # plain versions; then steps for memory, split, calls and times
+    cfg = load_yaml(paths["neumesh"])
+    model, trainer, rk, _, _ = build_framework(cfg, "NeuMesh", device=DEV)
+    batch = train_batch(paths["neumesh"])
+    k_loss, k_gn = loss_and_grad_norm(trainer, rk, batch)
+    with plain_on_card():
+        p_loss, p_gn = loss_and_grad_norm(trainer, rk, batch)
+    rel = max(abs(k_loss - p_loss) / abs(p_loss), abs(k_gn - p_gn) / p_gn)
+    result["first_step"] = {"loss_kernel": k_loss, "loss_plain": p_loss,
+                            "grad_norm_kernel": k_gn,
+                            "grad_norm_plain": p_gn, "max_rel": rel,
+                            "limit": TRAIN_REL}
+    log(f"[train] first step, kernels vs plain (TF32 off): loss {k_loss:.6f}"
+        f" / {p_loss:.6f}, grad norm {k_gn:.6f} / {p_gn:.6f}, rel {rel:.2e}")
+    if not rel <= TRAIN_REL:
+        raise AssertionError(f"first step: kernel and plain routes differ by "
+                             f"{rel:.2e} (limit {TRAIN_REL})")
+
+    opt = get_optimizer(cfg, model)
+    mi, gt, H, W, n = batch
+    step = build_train_step(trainer, opt, rk, n, H, W,
+                            matmul_precision=cfg.training.get(
+                                "matmul_precision", "default"))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+
+    def run():
+        step(mi, gt, gen)
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    result["step_peak_bytes"] = torch.cuda.max_memory_allocated() - resident
+    result["resident_bytes"] = resident
+    result["split_ms"] = step_split(run, trainer)
+    result["profile"] = profile_frame(run)
+    # the kernel calls of one step's forward (the optimizer step would
+    # move the weights they alias)
+    calls = []
+    with record_calls(calls):
+        loss_and_grad_norm(trainer, rk, batch, seed=1)
+    torch.cuda.synchronize()
+    log(f"[train] step peak {result['step_peak_bytes'] / 2**20:.0f} MB above "
+        f"{resident / 2**20:.0f} MB resident; split (ms) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in result["split_ms"].items())
+        + f"; idle share {result['profile']['idle_share']}")
+
+    # every kernel call of the step, and per-call times at each shape
+    variants, rows, seen = [], [], set()
+    torch.set_grad_enabled(False)
+    for name, mode, a, kw in calls:
+        B, S = rows_per_context(name, a)
+        variants.append((name, mode, f"training:B{B}_S{S}", a, kw,
+                         tol_key(name, kw)))
+        if (name, mode, S) in seen:
+            continue
+        seen.add((name, mode, S))
+        fn = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        bound, by = kernel_bound(name, a, kw)
+        rows.append({"kernel": name, "mode": mode, "B": B, "S": S,
+                     "C": a[1].shape[2],
+                     "calls_per_step": sum(
+                         1 for c in calls if c[0] == name and c[1] == mode
+                         and rows_per_context(name, c[2])[1] == S),
+                     "ms": cuda_ms(lambda: fn(*a, **kw)),
+                     "plain_ms": cuda_ms(lambda: plain(*a, **kw), reps=2),
+                     "bound_ms": bound, "bound_by": by,
+                     "live_share": live_share(name, a)})
+        log(f"[train] {name}/{mode} B={B} S={S} C={a[1].shape[2]}: "
+            f"{rows[-1]['ms']:.3f} ms (plain {rows[-1]['plain_ms']:.3f}, "
+            f"bound {bound:.4f} {by}), live rows {rows[-1]['live_share']:.3f}")
+    torch.set_grad_enabled(True)
+    if {r["S"] for r in rows if r["kernel"] == "field_fused"} != {64, 16}:
+        raise AssertionError(f"training step kernel shapes: {rows}")
+    result["field_fused_calls"] = rows
+
+    # the final checkpoint equals the trained parameters
+    CheckpointIO().load_file(final, model)
+    bad = [n for n, p in model.named_parameters()
+           if not torch.equal(p.detach(), trained[n])]
+    if bad:
+        raise AssertionError(f"final checkpoint differs in {bad}")
+    del model, trainer, opt, step, calls
+    torch.cuda.empty_cache()
+    return result, counts, variants, rows
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -1089,6 +1454,16 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
                                  for (k, m), r in cli_rows.items()},
                       "total_s": time.perf_counter() - t_start}))
 
+    # ---- training: the NeuS teacher, the NeuMesh student, their checks
+    train, train_counts, train_variants, _ = run_training(tmp, card)
+    with torch.no_grad():
+        train_rows = check_kernels(train_variants)
+    del train_variants
+    train["checks"] = {f"{k}/{m}": len(r["checks"])
+                       for (k, m), r in train_rows.items()}
+    train["total_s"] = time.perf_counter() - t_start
+    print(json.dumps({"training": train}))
+
     on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
@@ -1104,6 +1479,7 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
             "launches_reference_structure": by_st["reference_f32"],
             "launches_by_cli_case": {c: cli_counts[c][kname][mode]
                                      for c in CLI_CASES},
+            "launches_training_neumesh": train_counts[kname][mode],
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

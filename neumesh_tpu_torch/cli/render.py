@@ -127,6 +127,7 @@ def render_function(args, model, render_kwargs_test, render_fn):
     kwargs = {k: v for k, v in render_kwargs_test.items() if k != "batched"}
     kwargs["calc_normal"] = True
     kwargs["reuse_upsample_sdf"] = True
+    kwargs["detailed_output"] = False
     out = {"mrays_s": 0.0, "view_s": [], "H": H, "W": W,
            "output_dir": output_dir, "files": [], "rgb": [], "normals": [],
            "depth": []}

@@ -463,3 +463,29 @@ def load_config(args, unknown: Optional[list] = None,
     config.setdefault("device_ids", [0])
     config.setdefault("ddp", False)
     return config
+
+
+def backup_sources(backup_dir: str, source_root: str = ".") -> None:
+    """Snapshot the .py / .yaml / .json files under source_root into the
+    experiment directory (hidden directories, caches, logs, outputs, data
+    and build trees are skipped)."""
+    import shutil
+
+    skip = ("__pycache__", "logs", "out", "data", "node_modules", "build")
+    backup_dir = os.path.abspath(backup_dir)
+    os.makedirs(backup_dir, exist_ok=True)
+    for dirpath, dirnames, filenames in os.walk(source_root):
+        dirnames[:] = [d for d in dirnames
+                       if d not in skip and not d.startswith(".")
+                       and os.path.abspath(os.path.join(dirpath, d))
+                       != backup_dir]
+        for fn in filenames:
+            if fn.endswith((".py", ".yaml", ".json")):
+                src = os.path.join(dirpath, fn)
+                dst = os.path.join(backup_dir,
+                                   os.path.relpath(src, source_root))
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                try:
+                    shutil.copy2(src, dst)
+                except OSError:
+                    pass

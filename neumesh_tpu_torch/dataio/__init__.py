@@ -1,10 +1,12 @@
 """Dataset factory (counterpart of neumesh_tpu/dataio/__init__.py; the
-DTU type only, the paint dataset waits for the editing slice and the
-train/val pair for the training slice)."""
+DTU type only, the paint dataset waits for the editing slice)."""
 from __future__ import annotations
 
 
-def get_data(args, **overwrite_cfgs):
+def get_data(args, return_val: bool = False, val_downscale: float = 4.0,
+             **overwrite_cfgs):
+    """The dataset, or with return_val the (train, val) pair, which differ
+    only in their downscale."""
     dataset_type = args.data.get("type", "DTU")
     if dataset_type != "DTU":
         raise NotImplementedError(f"unknown dataset type {dataset_type}")
@@ -24,4 +26,7 @@ def get_data(args, **overwrite_cfgs):
         "cam_file": args.data.get("cam_file", None),
     }
     cfgs.update(overwrite_cfgs)
+    if return_val:
+        return (SceneDataset(**cfgs),
+                SceneDataset(**dict(cfgs, downscale=val_downscale)))
     return SceneDataset(**cfgs)

@@ -132,3 +132,23 @@ class SceneDataset:
         if not self.train_cameras:
             sample["c2w"] = self.c2w_all[idx]
         return idx, sample, {"rgb": self.rgb_images[idx]}
+
+    def batch(self, indices):
+        """Items stacked into batched numpy dicts (the collate step):
+        (indices, model_input, ground_truth)."""
+        items = [self[i] for i in indices]
+        idxs = np.asarray([it[0] for it in items])
+        model_input = {k: np.stack([it[1][k] for it in items])
+                       for k in items[0][1]}
+        ground_truth = {k: np.stack([it[2][k] for it in items])
+                        for k in items[0][2]}
+        return idxs, model_input, ground_truth
+
+    def epoch_batches(self, batch_size: int, rng: np.random.Generator,
+                      shuffle: bool = True):
+        """One epoch of full batches in an order drawn from `rng`."""
+        order = np.arange(len(self))
+        if shuffle:
+            rng.shuffle(order)
+        for i in range(0, len(order) - batch_size + 1, batch_size):
+            yield self.batch(order[i:i + batch_size])

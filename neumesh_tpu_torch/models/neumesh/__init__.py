@@ -2,28 +2,44 @@
 neumesh_tpu/models/neumesh/__init__.py): every model-config key the JAX
 builder reads, with its defaults written back into the config, except the
 TPU's program blocking (pallas_sample_block, *_tiles_per_program), which
-has no counterpart here."""
+has no counterpart here. With training.teacher_config / teacher_ckpt set,
+the frozen NeuS teacher is built and loaded, and the student starts from
+a copy of its ln_s and takes its speed_factor."""
 from __future__ import annotations
 
 import copy
 
 import torch
 
+from ...config import load_yaml
 from ...mesh.grid import MeshGrid
 from ...mesh.triangle_mesh import load_mesh
+from ..neus import loss_weights_of
 from .model import NeuMesh
+
+
+def load_teacher(teacher_config_path: str, teacher_ckpt_path: str,
+                 device="cuda"):
+    """The frozen teacher from its config and checkpoint (a torch zip in
+    the reference layout, or the JAX package's native msgpack `.ckpt`):
+    every parameter without gradient."""
+    from .. import build_framework
+    from ...utils.checkpoints import CheckpointIO
+
+    teacher_config = load_yaml(teacher_config_path)
+    teacher, *_ = build_framework(teacher_config,
+                                  teacher_config.model.framework,
+                                  device=device, seed=0)
+    CheckpointIO().load_file(teacher_ckpt_path, teacher)
+    teacher.requires_grad_(False)
+    return teacher
 
 
 def get_model(args, device="cuda", seed: int = 42):
     from ...render.volume import SingleRenderer
+    from ...train.trainer import Trainer
 
     model_args = args["model"]
-    if (args.training.get("teacher_ckpt") is not None
-            and args.training.get("teacher_config") is not None):
-        raise NotImplementedError(
-            "training.teacher_config / teacher_ckpt: the NeuS teacher waits "
-            "for the training slice of the port; set both to null to render")
-
     mesh = load_mesh(model_args.prior_mesh)
     mesh_grid = MeshGrid(
         mesh, device=device,
@@ -77,8 +93,8 @@ def get_model(args, device="cuda", seed: int = 42):
         "white_bkgd": args.model.setdefault("white_bkgd", False),
         "bounded_near_far": model_args.setdefault("bounded_near_far", True),
     }
-    loss_weights = args.training.get("loss_weights", {}) or {}
-    if loss_weights.get("eikonal", 0.0) > 0:
+    loss_weights = loss_weights_of(args, indicator_reg=0.1)
+    if loss_weights["eikonal"] > 0:
         render_kwargs_train["calc_normal"] = True
 
     render_kwargs_test = copy.deepcopy(render_kwargs_train)
@@ -87,5 +103,24 @@ def get_model(args, device="cuda", seed: int = 42):
     render_kwargs_test["perturb"] = False
 
     model = NeuMesh(mesh_grid, device=device, **model_config).init(seed)
-    return (model, None, render_kwargs_train, render_kwargs_test,
+
+    teacher = None
+    if (args.training.get("teacher_ckpt") is not None
+            and args.training.get("teacher_config") is not None):
+        teacher = load_teacher(args.training.teacher_config,
+                               args.training.teacher_ckpt, device=device)
+        # the student starts from a COPY of the teacher's CDF sharpness:
+        # its own parameter, trained apart from the frozen teacher's
+        with torch.no_grad():
+            model.ln_s.copy_(teacher.ln_s.detach().clone())
+        model.speed_factor = teacher.speed_factor
+
+    # distill_density_clip: None is the plain L1 mean the reference ships;
+    # a float opts into the masked variant
+    trainer = Trainer(
+        model, loss_weights, teacher_model=teacher,
+        distill_density_clip=args.training.setdefault(
+            "distill_density_clip", None),
+        teacher_dtype=args.training.get("teacher_dtype", None))
+    return (model, trainer, render_kwargs_train, render_kwargs_test,
             SingleRenderer(model))

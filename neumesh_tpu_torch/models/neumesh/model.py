@@ -31,38 +31,9 @@ from torch import nn
 
 from ... import resolve_device
 from ...mesh.grid import MeshGrid
-from ...nn import (get_embedder, maybe_wnorm_apply, maybe_wnorm_apply_parts,
-                   softplus100, wnorm_weight)
+from ...nn import (Linear, WNLinear, get_embedder, maybe_wnorm_apply,
+                   maybe_wnorm_apply_parts, softplus100)
 from ...ops import interp, kernels
-
-
-class _WNLinear(nn.Module):
-    """Weight-normalised linear in the JAX layout: g (out,), v (in, out)."""
-
-    def __init__(self, in_dim, out_dim, device):
-        super().__init__()
-        z = dict(device=device, dtype=torch.float32)
-        self.g = nn.Parameter(torch.ones(out_dim, **z), requires_grad=False)
-        self.v = nn.Parameter(torch.zeros(in_dim, out_dim, **z),
-                              requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(out_dim, **z), requires_grad=False)
-
-    def weight(self):
-        return wnorm_weight(self.g, self.v)
-
-
-class _Linear(nn.Module):
-    """Plain linear in the JAX layout: w (in, out)."""
-
-    def __init__(self, in_dim, out_dim, device):
-        super().__init__()
-        z = dict(device=device, dtype=torch.float32)
-        self.w = nn.Parameter(torch.zeros(in_dim, out_dim, **z),
-                              requires_grad=False)
-        self.b = nn.Parameter(torch.zeros(out_dim, **z), requires_grad=False)
-
-    def weight(self):
-        return self.w
 
 
 class NeuMesh(nn.Module):
@@ -144,13 +115,13 @@ class NeuMesh(nn.Module):
         self.indicator_weight_raw = (par(torch.full((1,), -2.0, **z))
                                      if learn_indicator_weight else None)
         self.pts_linears = nn.ModuleList(
-            [_WNLinear(self.input_ch_pts, W, dev)]
-            + [_WNLinear(W, W, dev) for _ in range(D_density - 1)])
-        self.density_linear = _WNLinear(W, 1, dev)
+            [WNLinear(self.input_ch_pts, W, dev)]
+            + [WNLinear(W, W, dev) for _ in range(D_density - 1)])
+        self.density_linear = WNLinear(W, 1, dev)
         self.views_linears = nn.ModuleList(
-            [_Linear(self.input_ch_color, W, dev)]
-            + [_Linear(W, W, dev) for _ in range(D_color - 1)])
-        self.color_linear = _Linear(W, 3, dev)
+            [Linear(self.input_ch_color, W, dev)]
+            + [Linear(W, W, dev) for _ in range(D_color - 1)])
+        self.color_linear = Linear(W, 3, dev)
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -177,7 +148,7 @@ class NeuMesh(nn.Module):
             bound = 1.0 / math.sqrt(w.shape[0])
             wv = rng.uniform(-bound, bound, tuple(w.shape))
             put(lin.b, rng.uniform(-bound, bound, tuple(lin.b.shape)))
-            if isinstance(lin, _WNLinear):
+            if isinstance(lin, WNLinear):
                 put(lin.v, wv)
                 put(lin.g, np.linalg.norm(wv, axis=0))
             else:
@@ -740,6 +711,12 @@ class RayBoundNeuMesh:
 
     def _fused_field(self, xyz, want: str, dirs=None):
         m = self.model
+        if torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in m.parameters()):
+            # the kernels have no backward: the training route is the
+            # context math (use_pallas off)
+            raise RuntimeError("the fused field kernels have no backward; "
+                               "train with model.use_pallas off")
         w1 = self._indicator_weight()
         if want == "distance":
             geo, _ = self._scan_ctx_slice(self.ctx["geo"])
@@ -829,11 +806,15 @@ class RayBoundNeuMesh:
         ds, W = m._ctx_distance_parts(self.ctx, x)
         return self._unflat(m._ctx_density(self.ctx, ds, W)[0][..., 0])
 
+    @torch.no_grad()
     def forward_density_only_nograd(self, xyz):
         """The renderer's up-sampling density (sample placement, no
         gradient): the field_fused density kernel on the card whatever
         use_pallas says, as the JAX package runs it on the TPU; on the CPU
-        the route of forward_density_only."""
+        the route of forward_density_only. Runs under no_grad on detached
+        inputs, so neither the kernel nor the folded weights it is given
+        carry a gradient."""
+        xyz = xyz.detach()
         if not xyz.is_cuda:
             return self.forward_density_only(xyz)
         return self._unflat(self._fused_field(self._flat(xyz),

@@ -7,7 +7,66 @@ effective weight v * g / max(||v||_col, 1e-12), per output column
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+from torch import nn
+
+
+class WNLinear(nn.Module):
+    """Weight-normalised linear in the JAX layout: g (out,), v (in, out).
+    Parameters are made frozen; a trainer turns on their gradients."""
+
+    def __init__(self, in_dim, out_dim, device):
+        super().__init__()
+        z = dict(device=device, dtype=torch.float32)
+        self.g = nn.Parameter(torch.ones(out_dim, **z), requires_grad=False)
+        self.v = nn.Parameter(torch.zeros(in_dim, out_dim, **z),
+                              requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(out_dim, **z), requires_grad=False)
+
+    def weight(self):
+        return wnorm_weight(self.g, self.v)
+
+    @torch.no_grad()
+    def set_weight(self, w, b) -> None:
+        """Effective weight (in, out) and bias from numpy: v = w, g =
+        ||w||_col (torch weight-norm init)."""
+        w = np.asarray(w, np.float32)
+        self.v.copy_(torch.as_tensor(w))
+        self.g.copy_(torch.as_tensor(np.linalg.norm(w, axis=0)))
+        self.b.copy_(torch.as_tensor(np.asarray(b, np.float32)))
+
+
+class Linear(nn.Module):
+    """Plain linear in the JAX layout: w (in, out)."""
+
+    def __init__(self, in_dim, out_dim, device):
+        super().__init__()
+        z = dict(device=device, dtype=torch.float32)
+        self.w = nn.Parameter(torch.zeros(in_dim, out_dim, **z),
+                              requires_grad=False)
+        self.b = nn.Parameter(torch.zeros(out_dim, **z), requires_grad=False)
+
+    def weight(self):
+        return self.w
+
+    @torch.no_grad()
+    def set_weight(self, w, b) -> None:
+        self.w.copy_(torch.as_tensor(np.asarray(w, np.float32)))
+        self.b.copy_(torch.as_tensor(np.asarray(b, np.float32)))
+
+
+def maybe_wnorm_linear(in_dim, out_dim, weight_norm: bool, device):
+    return (WNLinear if weight_norm else Linear)(in_dim, out_dim, device)
+
+
+def torch_default_init(rng, in_dim, out_dim):
+    """U(-1/sqrt(in), 1/sqrt(in)) weight (in, out) and bias, from numpy."""
+    bound = 1.0 / math.sqrt(in_dim)
+    return (rng.uniform(-bound, bound, (in_dim, out_dim)),
+            rng.uniform(-bound, bound, (out_dim,)))
 
 
 def wnorm_weight(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

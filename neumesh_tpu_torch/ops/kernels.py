@@ -299,6 +299,7 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
                                  **kw)
     from . import _build
 
+    _no_grad(xyz, geo, feat, w1, dens_ws, col_ws, dirs)
     B, S, _ = xyz.shape
     C = geo.shape[2]
     if dtype is not None:
@@ -475,6 +476,8 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
                                    f_high, geo, feat, w1, dens_ws, **kw)
     from . import _build
 
+    _no_grad(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat, w1,
+             dens_ws, d_low_w, d_high_w)
     R = rays_o.shape[0]
     for v in (d_low, d_high, f_low, f_high, d_low_w, d_high_w):
         if v is not None and tuple(v.shape) != (R,):
@@ -630,6 +633,7 @@ def surface_locate(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, *,
                                     dens_ws, **kw)
     from . import _build
 
+    _no_grad(rays_o, rays_d, near, far, geo, feat, w1, dens_ws)
     out = torch.empty((4, rays_o.shape[0]), device=rays_o.device,
                       dtype=torch.float32)
     if rays_o.shape[0] == 0:
@@ -698,6 +702,7 @@ def candidate_field_v3(xyz, geo, feat, w1, *, k: int = 8,
                                         want_dh=want_dh, want_feat=want_feat)
     from . import _build
 
+    _no_grad(xyz, geo, feat)
     geo, feat = _pad_candidates(geo, feat if want_feat else None)
     B, S, _ = xyz.shape
     C = geo.shape[2]
@@ -742,6 +747,7 @@ def candidate_field(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
                                      want_dh=want_dh, want_feat=want_feat)
     from . import _build
 
+    _no_grad(xyz, pts, pp, ind, vn, feat)
     R, S, _ = xyz.shape
     C = pts.shape[1]
     for name, t, shape in (("pts", pts, (R, C, 3)), ("ind", ind, (R, C, 3)),
@@ -915,6 +921,20 @@ def _ptr(t, keep):
         return None
     keep.append(t)
     return t.data_ptr()
+
+
+def _no_grad(*ts):
+    """A kernel has no backward: under grad mode a tensor that requires
+    grad raises instead of leaving the output silently without gradient."""
+    if not torch.is_grad_enabled():
+        return
+    for t in ts:
+        for x in (t if isinstance(t, (list, tuple)) else (t,)):
+            if isinstance(x, torch.Tensor) and x.requires_grad:
+                raise RuntimeError(
+                    "field kernels have no backward: call them under "
+                    "torch.no_grad() or on detached tensors (an input "
+                    "requires grad)")
 
 
 def _check_inputs(xyz, geo, feat, dirs):

@@ -7,28 +7,50 @@ import torch
 
 
 def lift(x, y, z, intrinsics):
-    """Pixel coords -> camera-space points, with skew support."""
-    fx, fy = intrinsics[..., 0, 0], intrinsics[..., 1, 1]
-    cx, cy = intrinsics[..., 0, 2], intrinsics[..., 1, 2]
-    sk = intrinsics[..., 0, 1]
+    """Pixel coords (..., N) -> camera-space points (..., N, 4), with skew
+    support; intrinsics (..., 3|4, 3|4)."""
+    fx, fy = intrinsics[..., 0, 0, None], intrinsics[..., 1, 1, None]
+    cx, cy = intrinsics[..., 0, 2, None], intrinsics[..., 1, 2, None]
+    sk = intrinsics[..., 0, 1, None]
     x_lift = (x - cx + cy * sk / fy - sk * y / fy) / fx * z
     y_lift = (y - cy) / fy * z
     return torch.stack((x_lift, y_lift, z, torch.ones_like(z)), dim=-1)
 
 
-def get_rays(c2w, intrinsics, H: int, W: int):
-    """All H*W pixel rays of one camera in row-major order.
-    c2w (4, 4), intrinsics (3|4, 3|4) -> rays_o, rays_d (H*W, 3); rays_d
-    normalised in camera space, then rotated to world."""
-    idx = torch.arange(H * W, device=c2w.device)
-    i = (idx % W).to(torch.float32)
-    j = (idx // W).to(torch.float32)
+def get_rays(c2w, intrinsics, H: int, W: int, N_rays: int = -1,
+             generator=None, select_inds=None):
+    """Pixel rays of a camera, or of a batch of cameras: c2w (..., 4, 4),
+    intrinsics (..., 3|4, 3|4) -> rays_o, rays_d (..., N, 3); rays_d
+    normalised in camera space, then rotated to world.
+
+    Without N_rays or select_inds: all H*W pixels in row-major order,
+    returned as (rays_o, rays_d). With N_rays > 0: min(N_rays, H*W)
+    pixels by independently uniform row and column indices drawn from
+    `generator` (shared by the cameras of a batch), or the given
+    select_inds (N,); returned as (rays_o, rays_d, select_inds (..., N))."""
+    prefix = c2w.shape[:-2]
+    dev = c2w.device
+    sampled = N_rays > 0 or select_inds is not None
+    if select_inds is None:
+        if N_rays > 0:
+            n = min(N_rays, H * W)
+            hs = torch.randint(0, H, (n,), generator=generator, device=dev)
+            ws = torch.randint(0, W, (n,), generator=generator, device=dev)
+            select_inds = hs * W + ws
+        else:
+            select_inds = torch.arange(H * W, device=dev)
+    select_inds = torch.as_tensor(select_inds, device=dev).expand(
+        prefix + select_inds.shape[-1:])
+    i = (select_inds % W).to(torch.float32)
+    j = (select_inds // W).to(torch.float32)
     cam = lift(i, j, torch.ones_like(i), intrinsics)
     d = cam[..., :3]
     d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    rays_d = d @ c2w[:3, :3].T
-    rays_o = c2w[:3, 3].expand_as(rays_d)
-    return rays_o.contiguous(), rays_d
+    rays_d = torch.matmul(d, c2w[..., :3, :3].transpose(-1, -2))
+    rays_o = c2w[..., None, :3, 3].expand_as(rays_d).contiguous()
+    if sampled:
+        return rays_o, rays_d, select_inds
+    return rays_o, rays_d
 
 
 def near_far_from_sphere(rays_o, rays_d, r: float = 1.0,

@@ -33,6 +33,7 @@ def run_secant_method(f_low, f_high, d_low, d_high, rays_o, rays_d,
 
 def root_finding_surface_points(surface_query_fn, rays_o, rays_d, near, far,
                                 N_steps: int = 256, logit_tau: float = 0.0,
+                                method: str = "secant",
                                 N_secant_steps: int = 8,
                                 fill_inf: bool = True, refine_query_fn=None,
                                 secant_override=None,
@@ -41,7 +42,8 @@ def root_finding_surface_points(surface_query_fn, rays_o, rays_d, near, far,
     then secant refinement on refine_query_fn (the true density) when
     given. With secant_override the refinement is one fused launch and a
     re-bracket at the half-step-widened scan endpoints is folded into it.
-    Returns (d_pred (R,), pt_pred (R, 3), mask, mask_sign_change)."""
+    Any other method than "secant" skips the refinement: d_pred = 1 at
+    every hit, as the JAX package does. Returns (d_pred (R,), pt_pred (R, 3), mask, mask_sign_change)."""
     R = rays_o.shape[0]
     dev = rays_o.device
     t = torch.linspace(0.0, 1.0, N_steps, device=dev)
@@ -66,7 +68,7 @@ def root_finding_surface_points(surface_query_fn, rays_o, rays_d, near, far,
     mask = mask_sign_change & (f_high > 0) & mask_0_not_occupied
 
     do_rebracket = refine_query_fn is not None and rebracket
-    fold = do_rebracket and secant_override is not None
+    fold = do_rebracket and method == "secant" and secant_override is not None
     step = (far - near) / max(N_steps - 1, 1)
     if do_rebracket and not fold:
         d_high_w = torch.maximum(d_high - 0.5 * step, near)
@@ -81,19 +83,21 @@ def root_finding_surface_points(surface_query_fn, rays_o, rays_d, near, far,
         d_high = torch.where(ok, d_high_w, d_high)
         d_low = torch.where(ok, d_low_w, d_low)
 
-    if secant_override is not None:
+    if method == "secant" and secant_override is not None:
         kw = {}
         if fold:
             kw["d_high_w"] = torch.maximum(d_high - 0.5 * step, near)
             kw["d_low_w"] = torch.minimum(d_low + 0.5 * step, far)
         d_pred = secant_override(f_low, f_high, d_low, d_high,
                                  N_secant_steps, logit_tau, **kw)
-    else:
+    elif method == "secant":
         secant_fn = (refine_query_fn if refine_query_fn is not None
                      else surface_query_fn)
         d_pred = run_secant_method(f_low, f_high, d_low, d_high, rays_o,
                                    rays_d, secant_fn, N_secant_steps,
                                    logit_tau)
+    else:
+        d_pred = torch.ones_like(near)
 
     d_out, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask,
                                  mask_0_not_occupied, far, fill_inf)
@@ -136,7 +140,7 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
                    scan_mode: str = "density", tile_max_candidates=None,
                    shade_composite: int = 0, shade_topk: int = 0,
                    shade_win_frac: float = 0.5, shade_window: float = 0.0,
-                   device="cuda"):
+                   device="cuda", **not_used_kwargs):
     """Cast (..., 3) rays to the zero level set, then shade once per ray.
 
     ray_tile > 1 dividing the ray count binds tile-shared candidate
@@ -151,8 +155,9 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     0 by the volume renderer's root-anchored tail (density at
     shade_composite depths around the root, colour at the shade_topk
     highest-visibility midpoints) with normals from one forward_with_nablas
-    query. Returns (rgb (..., 3), depth (...), {"implicit_nablas",
-    "mask_surface", "normals_surface" (calc_normal)})."""
+    query. Keywords of the volume renderer that do not apply here are
+    accepted and ignored. Returns (rgb (..., 3), depth (...),
+    {"implicit_nablas", "mask_surface", "normals_surface" (calc_normal)})."""
     dev = resolve_device(device)
     if model.device.type != dev.type:
         raise ValueError(f"model on {model.device}, device={dev}")
@@ -245,7 +250,8 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
             white_bkgd=False, perturb=False, generator=None,
             N_samples=shade_composite, N_importance=0, N_upsample_iters=1,
             phi_s_base=256.0, reuse_upsample_sdf=False,
-            color_topk=shade_topk, d_all_override=d_shade)["rgb"]
+            color_topk=shade_topk, detailed_output=False,
+            d_all_override=d_shade)["rgb"]
         if calc_normal:
             _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
         else:

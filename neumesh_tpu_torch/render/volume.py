@@ -90,50 +90,80 @@ def _linspace(n, device):
 def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 0,
                        tile_max_candidates=None,
                        obj_bounding_radius: float = 1.0,
-                       calc_normal: bool = False, white_bkgd: bool = False,
+                       calc_normal: bool = False, use_view_dirs: bool = True,
+                       white_bkgd: bool = False, near_bypass=None,
+                       far_bypass=None, detailed_output: bool = True,
                        bounded_near_far: bool = True, perturb: bool = False,
                        generator=None, N_samples: int = 64,
                        N_importance: int = 64, N_upsample_iters: int = 4,
+                       samples_output: bool = False,
+                       random_color_direction: bool = False,
                        phi_s_base: float = 256.0,
                        reuse_upsample_sdf: bool = False, color_topk: int = 0,
                        root_anchored: bool = False, root_steps: int = 16,
                        root_secant: int = 3, root_n_fine: int = 48,
-                       root_window: float = 0.0, root_win_frac: float = 0.5):
-    """Render one chunk of (R, 3) rays (rays in tile order for ray_tile >
-    1). rays_d need not be normalised. ray_tile > 1 dividing R binds
-    tile-shared contexts; otherwise (ray_tile 0, or the tiled binding
-    unavailable) per-ray contexts after the closed-form bounded near/far.
-    calc_normal adds "normals_volume" (R, 3), the weight-summed unit
-    nablas at the samples. Returns {"rgb" (R, 3), "depth_volume" (R,),
-    "mask_volume" (R,)[, "normals_volume"]}."""
-    rays_o = rays_o.to(torch.float32)
-    rays_d = rays_d.to(torch.float32)
+                       root_window: float = 0.0, root_win_frac: float = 0.5,
+                       **not_used_kwargs):
+    """Render one chunk of (..., N, 3) rays (rays in tile order for
+    ray_tile > 1); leading batch dims are flattened into the ray axis and
+    restored on every output. rays_d need not be normalised. ray_tile > 1
+    dividing the ray count binds tile-shared contexts; otherwise (ray_tile
+    0, or the tiled binding unavailable) per-ray contexts after the
+    closed-form bounded near/far. `generator` draws the perturbed
+    up-sampling and the random colour directions.
+
+    Returns {"rgb" (..., 3), "depth_volume" (...), "mask_volume" (...)},
+    with calc_normal "normals_volume" (..., 3), the weight-summed unit
+    nablas. detailed_output (the default, as in the JAX package) adds the
+    per-sample "implicit_surface", "radiance", "alpha", "cdf",
+    "visibility_weights", "d_final" (and "implicit_nablas" with
+    calc_normal), samples_output the distillation buffers "xyz", "dirs",
+    "density", "colors" at the midpoints. color_topk applies only without
+    detailed_output and random_color_direction: serving callers pass
+    detailed_output=False."""
+    prefix = rays_o.shape[:-1]
+    rays_o = rays_o.reshape(-1, 3).to(torch.float32)
+    rays_d = rays_d.reshape(-1, 3).to(torch.float32)
     rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     near, far = near_far_from_sphere(rays_o, rays_d, r=obj_bounding_radius)
-    core = dict(calc_normal=calc_normal, white_bkgd=white_bkgd,
+    core = dict(calc_normal=calc_normal, use_view_dirs=use_view_dirs,
+                white_bkgd=white_bkgd, detailed_output=detailed_output,
                 perturb=perturb, generator=generator, N_samples=N_samples,
                 N_importance=N_importance,
-                N_upsample_iters=N_upsample_iters, phi_s_base=phi_s_base,
+                N_upsample_iters=N_upsample_iters,
+                samples_output=samples_output,
+                random_color_direction=random_color_direction,
+                phi_s_base=phi_s_base,
                 reuse_upsample_sdf=reuse_upsample_sdf, color_topk=color_topk)
 
+    def bypass(near, far):
+        if near_bypass is not None:
+            near = torch.full_like(near, near_bypass)
+        if far_bypass is not None:
+            far = torch.full_like(far, far_bypass)
+        return near, far
+
     tb = None
-    if ray_tile > 1:
+    if ray_tile > 1 and hasattr(model, "bind_rays_tiled"):
         tb = model.bind_rays_tiled(rays_o, rays_d, near, far, tile=ray_tile,
                                    max_candidates=tile_max_candidates)
     if tb is not None:
         bound, near_t, far_t = tb
         if bounded_near_far:
             near, far = near_t, far_t
+        near, far = bypass(near, far)
         d_all = None
         if root_anchored:
-            if calc_normal:
-                raise ValueError("root_anchored volume serving takes "
-                                 "calc_normal=False")
+            if len(prefix) != 1 or calc_normal or random_color_direction:
+                # a different sampling structure than the one asked for
+                raise ValueError(
+                    "root_anchored volume serving takes flat (R, 3) rays and "
+                    "calc_normal=random_color_direction=False")
             d_all = _root_anchored(model, bound, rays_o, rays_d, near, far,
                                    root_steps, root_secant, root_n_fine,
                                    root_window, root_win_frac)
-        return _render_core(bound, rays_o, rays_d, near, far,
-                            d_all_override=d_all, **core)
+        return _unflat(_render_core(bound, rays_o, rays_d, near, far,
+                                    d_all_override=d_all, **core), prefix)
     if root_anchored:
         # the per-ray path would render a different sampling structure
         raise ValueError(
@@ -141,18 +171,29 @@ def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 0,
             f"ray_tile > 1 dividing the ray count (ray_tile={ray_tile}, "
             f"rays={rays_o.shape[0]})")
 
-    if bounded_near_far:
-        pre_ctx = model.make_ray_context(rays_o, rays_d, near, far,
-                                         n_probes=16, for_bounds=True)
-        if pre_ctx is not None:
-            near, far = candidate_bounded_near_far(pre_ctx, rays_o, rays_d,
-                                                   near, far)
-        else:
-            near, far = compute_bounded_near_far(model, rays_o, rays_d, near,
-                                                 far)
-    bound = model.bind_rays(rays_o, rays_d, near, far, n_probes=8)
-    return _render_core(model if bound is None else bound, rays_o, rays_d,
-                        near, far, **core)
+    bound = model
+    if hasattr(model, "bind_rays"):
+        if bounded_near_far:
+            pre_ctx = model.make_ray_context(rays_o, rays_d, near, far,
+                                             n_probes=16, for_bounds=True)
+            if pre_ctx is not None:
+                near, far = candidate_bounded_near_far(pre_ctx, rays_o,
+                                                       rays_d, near, far)
+            else:
+                near, far = compute_bounded_near_far(model, rays_o, rays_d,
+                                                     near, far)
+        near, far = bypass(near, far)
+        bound = model.bind_rays(rays_o, rays_d, near, far, n_probes=8)
+        bound = model if bound is None else bound
+    else:
+        # a model without a mesh (NeuS): the sphere bounds
+        near, far = bypass(near, far)
+    return _unflat(_render_core(bound, rays_o, rays_d, near, far, **core),
+                   prefix)
+
+
+def _unflat(ret, prefix):
+    return {k: v.reshape(prefix + v.shape[1:]) for k, v in ret.items()}
 
 
 def _root_anchored(model, bound, rays_o, rays_d, near, far, root_steps,
@@ -186,14 +227,17 @@ def _root_anchored(model, bound, rays_o, rays_d, near, far, root_steps,
 
 
 def _render_core(model, rays_o, rays_d, near, far, *, calc_normal=False,
-                 white_bkgd, perturb, generator, N_samples, N_importance,
-                 N_upsample_iters, phi_s_base, reuse_upsample_sdf,
-                 color_topk=0, d_all_override=None):
+                 use_view_dirs=True, white_bkgd, detailed_output=False,
+                 perturb, generator, N_samples, N_importance,
+                 N_upsample_iters, samples_output=False,
+                 random_color_direction=False, phi_s_base,
+                 reuse_upsample_sdf, color_topk=0, d_all_override=None):
     """Sampling + up-sampling + evaluation + compositing on a bound model
     with near/far resolved; d_all_override supplies sorted depths (the
     root-anchored structure) in place of coarse + up-sampling. The
-    up-sampling densities come from forward_density_only_nograd where the
-    model has it; calc_normal evaluates the final sdf with nablas."""
+    up-sampling runs without gradient, its densities from
+    forward_density_only_nograd where the model has it; calc_normal
+    evaluates the final sdf with nablas."""
     dev = rays_o.device
 
     def at(d):
@@ -201,64 +245,52 @@ def _render_core(model, rays_o, rays_d, near, far, *, calc_normal=False,
 
     sdf_up = None
     if d_all_override is not None:
-        d_all = d_all_override
+        d_all = d_all_override.detach()
     else:
-        dens_fn = getattr(model, "forward_density_only_nograd",
-                          model.forward_density_only)
-        _t = _linspace(N_samples, dev)
-        d = near * (1 - _t) + far * _t
-        sdf_up = dens_fn(at(d))
-        n_per = N_importance // N_upsample_iters
-        for i in range(N_upsample_iters):
-            prev_sdf, next_sdf = sdf_up[..., :-1], sdf_up[..., 1:]
-            prev_z, next_z = d[..., :-1], d[..., 1:]
-            mid_sdf = (prev_sdf + next_sdf) * 0.5
-            dot_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
-            prev_dot = torch.cat([torch.zeros_like(dot_val[..., :1]),
-                                  dot_val[..., :-1]], dim=-1)
-            dot_val = torch.clamp(torch.minimum(prev_dot, dot_val), -10.0,
-                                  0.0)
-            dist = next_z - prev_z
-            prev_esti = mid_sdf - dot_val * dist * 0.5
-            next_esti = mid_sdf + dot_val * dist * 0.5
-            s_i = phi_s_base * (2 ** i)
-            prev_cdf = cdf_Phi_s(prev_esti, s_i)
-            next_cdf = cdf_Phi_s(next_esti, s_i)
-            alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
-            d_fine = sample_pdf(d, alpha_to_w(alpha), n_per,
-                                det=not perturb, generator=generator)
-            sdf_fine = dens_fn(at(d_fine))
-            d = torch.cat([d, d_fine], dim=-1)
-            sdf_up = torch.cat([sdf_up, sdf_fine], dim=-1)
-            d, order = torch.sort(d, dim=-1, stable=True)
-            sdf_up = torch.gather(sdf_up, -1, order)
-        d_all = d
+        with torch.no_grad():
+            d_all, sdf_up = _upsample(model, at, near, far, perturb,
+                                      generator, N_samples, N_importance,
+                                      N_upsample_iters, phi_s_base)
 
     nablas = None
     if calc_normal:
         sdf, nablas = model.forward_with_nablas(at(d_all))
     elif reuse_upsample_sdf and sdf_up is not None:
+        # inference only: the up-sampling densities carry no gradient
         sdf = sdf_up
     else:
         sdf = model.forward_density_only(at(d_all))
 
     d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
-    _, alpha = sdf_to_alpha(sdf, model.forward_s())
+    cdf, alpha = sdf_to_alpha(sdf, model.forward_s())
     w = alpha_to_w(alpha)
-    if color_topk and color_topk < d_mid.shape[-1]:
+    view_dirs = rays_d if use_view_dirs else None
+    use_topk = (color_topk and not detailed_output
+                and not random_color_direction
+                and color_topk < d_mid.shape[-1])
+    if use_topk:
         # radiance only at the color_topk highest-visibility midpoints,
         # the selected mass renormalised to the ray's total
-        order = torch.sort(-w, dim=-1, stable=True).indices[..., :color_topk]
+        order = torch.sort(-w.detach(), dim=-1,
+                           stable=True).indices[..., :color_topk]
         d_sel = torch.gather(d_mid, -1, order)
         w_sel = torch.gather(w, -1, order)
         pts = at(d_sel)
-        _, rad = model.forward(pts, rays_d[:, None, :].expand_as(pts))
+        sdf_mid, rad = model.forward(pts, _dirs(view_dirs, pts))
         renorm = (torch.sum(w, -1, keepdim=True)
                   / (torch.sum(w_sel, -1, keepdim=True) + 1e-10))
         rgb = torch.sum(w_sel[..., None] * rad, dim=-2) * renorm
+        dirs_mid = None
     else:
         pts = at(d_mid)
-        _, rad = model.forward(pts, rays_d[:, None, :].expand_as(pts))
+        if random_color_direction:
+            # the view-independence trick of texture painting
+            rnd = torch.rand(pts.shape, generator=generator, device=dev)
+            dirs_mid = rnd / torch.linalg.vector_norm(rnd, dim=-1,
+                                                      keepdim=True)
+        else:
+            dirs_mid = _dirs(view_dirs, pts)
+        sdf_mid, rad = model.forward(pts, dirs_mid)
         rgb = torch.sum(w[..., None] * rad, dim=-2)
     depth = torch.sum(w / (torch.sum(w, -1, keepdim=True) + 1e-10) * d_mid,
                       dim=-1)
@@ -273,7 +305,56 @@ def _render_core(model, rays_o, rays_d, near, far, *, calc_normal=False,
         n_pts = min(w.shape[-1], normals.shape[-2])
         ret["normals_volume"] = torch.sum(
             normals[..., :n_pts, :] * w[..., :n_pts, None], dim=-2)
+    if detailed_output:
+        if calc_normal:
+            ret["implicit_nablas"] = nablas
+        ret.update(implicit_surface=sdf, radiance=rad, alpha=alpha, cdf=cdf,
+                   visibility_weights=w, d_final=d_mid)
+        if samples_output:
+            # the per-sample buffers of distillation
+            ret.update(xyz=pts, density=sdf_mid[..., None], colors=rad)
+            if dirs_mid is not None:
+                ret["dirs"] = dirs_mid
     return ret
+
+
+def _dirs(view_dirs, pts):
+    return None if view_dirs is None else view_dirs[:, None, :].expand_as(pts)
+
+
+def _upsample(model, at, near, far, perturb, generator, N_samples,
+              N_importance, N_upsample_iters, phi_s_base):
+    """N_samples coarse depths and N_upsample_iters rounds of NeuS
+    hierarchical up-sampling -> (sorted depths, their densities)."""
+    dens_fn = getattr(model, "forward_density_only_nograd",
+                      model.forward_density_only)
+    _t = _linspace(N_samples, near.device)
+    d = near * (1 - _t) + far * _t
+    sdf = dens_fn(at(d))
+    n_per = N_importance // N_upsample_iters
+    for i in range(N_upsample_iters):
+        prev_sdf, next_sdf = sdf[..., :-1], sdf[..., 1:]
+        prev_z, next_z = d[..., :-1], d[..., 1:]
+        mid_sdf = (prev_sdf + next_sdf) * 0.5
+        dot_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
+        prev_dot = torch.cat([torch.zeros_like(dot_val[..., :1]),
+                              dot_val[..., :-1]], dim=-1)
+        dot_val = torch.clamp(torch.minimum(prev_dot, dot_val), -10.0, 0.0)
+        dist = next_z - prev_z
+        prev_esti = mid_sdf - dot_val * dist * 0.5
+        next_esti = mid_sdf + dot_val * dist * 0.5
+        s_i = phi_s_base * (2 ** i)
+        prev_cdf = cdf_Phi_s(prev_esti, s_i)
+        next_cdf = cdf_Phi_s(next_esti, s_i)
+        alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+        d_fine = sample_pdf(d, alpha_to_w(alpha), n_per, det=not perturb,
+                            generator=generator)
+        sdf_fine = dens_fn(at(d_fine))
+        d = torch.cat([d, d_fine], dim=-1)
+        sdf = torch.cat([sdf, sdf_fine], dim=-1)
+        d, order = torch.sort(d, dim=-1, stable=True)
+        sdf = torch.gather(sdf, -1, order)
+    return d, sdf
 
 
 @torch.no_grad()
@@ -328,8 +409,10 @@ def render_image(model, c2w, K, H: int, W: int, *, block=(8, 16),
 
 class SingleRenderer:
     """The volume render as a callable on one model (the render CLI's
-    render_fn): (rays_o, rays_d, **render kwargs) -> (rgb, depth,
-    extras). The builders' training-only kwargs are dropped."""
+    render_fn and the trainer's validation): (rays_o, rays_d, **render
+    kwargs) -> (rgb, depth, extras). The builders' training-only kwargs
+    are dropped; detailed_output defaults to False here (a serving call:
+    color_topk applies, no per-sample outputs)."""
 
     _TRAINING_ONLY = ("batched", "N_nograd_samples")
 
@@ -339,5 +422,6 @@ class SingleRenderer:
     def __call__(self, rays_o, rays_d, **kwargs):
         for k in self._TRAINING_ONLY:
             kwargs.pop(k, None)
+        kwargs.setdefault("detailed_output", False)
         return volume_render(self.model, rays_o, rays_d,
                              device=self.model.device, **kwargs)

@@ -1,0 +1,172 @@
+"""Trainer: ray sampling, rendering and losses (counterpart of
+neumesh_tpu/train/trainer.py).
+
+Trainer.render_and_loss samples N_rays pixels of each view, renders them
+with every detailed output the losses read, and returns compute_loss's
+{"losses", "extras"}: the total is a differentiable scalar for
+backward(). The distillation teacher runs under torch.no_grad, so its
+targets carry no gradient. The painting objective of the editing CLIs is
+not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..ops import rays as rays_ops
+from ..ops.metrics import psnr
+from ..render.volume import volume_render_rays
+
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float16": torch.float16, "float32": None, "f32": None}
+
+
+def density_distill_loss(density_pred, density_gt, density_clip=None):
+    """SDF distillation L1. density_clip=None: the plain mean the reference
+    ships; a float: the L1 averaged over |teacher sdf| <= clip."""
+    l1 = torch.abs(density_gt - density_pred)
+    if density_clip is None:
+        return torch.mean(l1)
+    mask = torch.abs(density_gt) <= density_clip
+    return (torch.sum(torch.where(mask, l1, torch.zeros_like(l1)))
+            / torch.clamp(torch.sum(mask), min=1))
+
+
+def _take(x, inds):
+    """x (B, H*W, ...) at select_inds (B, N) -> (B, N, ...)."""
+    idx = inds.reshape(inds.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(inds.shape + x.shape[2:]))
+
+
+class Trainer:
+    def __init__(self, model, loss_weights: dict, teacher_model=None,
+                 distill_density_clip=None, teacher_dtype=None):
+        """distill_density_clip: see density_distill_loss. teacher_dtype:
+        the dtype of the teacher's no-grad evaluations (e.g. "bfloat16",
+        under autocast on the card); None keeps it in f32."""
+        self.model = model
+        self.loss_weights = loss_weights
+        self.teacher_model = teacher_model
+        self.distill_density_clip = distill_density_clip
+        if isinstance(teacher_dtype, str):
+            teacher_dtype = _DTYPES[teacher_dtype]
+        self.teacher_dtype = teacher_dtype
+
+    def render_and_loss(self, model_input: dict, ground_truth: dict,
+                        render_kwargs_train: dict, N_rays: int, H: int,
+                        W: int, generator=None, select_inds=None):
+        """model_input {"c2w" (B, 4, 4), "intrinsics" (B, 4, 4),
+        "object_mask" (B, H*W)}, ground_truth {"rgb" (B, H*W, 3)} as
+        tensors on the model's device. N_rays pixels a view are drawn from
+        `generator` (or select_inds is used); the same generator draws the
+        render's perturbations."""
+        rays_o, rays_d, select_inds = rays_ops.get_rays(
+            model_input["c2w"], model_input["intrinsics"], H, W,
+            N_rays=N_rays, generator=generator, select_inds=select_inds)
+        w = self.loss_weights
+        use_distill = w["distill_density"] > 0 or w["distill_color"] > 0
+        use_eikonal = w["eikonal"] > 0
+        extras = volume_render_rays(
+            self.model, rays_o, rays_d, detailed_output=True,
+            samples_output=use_distill,
+            calc_normal=use_eikonal or render_kwargs_train.get(
+                "calc_normal", False),
+            generator=generator,
+            **{k: v for k, v in render_kwargs_train.items()
+               if k not in ("calc_normal", "rayschunk", "batched")})
+        target_rgb = _take(ground_truth["rgb"], select_inds)
+        target_mask = None
+        if w["mask"] > 0:
+            target_mask = _take(model_input["object_mask"], select_inds)
+        mask_ignore = None
+        if "mask_ignore" in model_input:
+            mask_ignore = _take(model_input["mask_ignore"], select_inds)
+        ret = self.compute_loss(
+            extras["rgb"], target_rgb, extras, mask=target_mask,
+            mask_ignore=mask_ignore, use_distill_loss=use_distill,
+            use_eikonal_loss=use_eikonal,
+            use_indicator_reg=w["indicator_reg"] > 0)
+        ret["extras"]["select_inds"] = select_inds
+        return ret
+
+    def _teacher(self, xyz, dirs):
+        """Teacher (sdf, radiance) at the distillation samples, without
+        gradient, in f32."""
+        with torch.no_grad():
+            if self.teacher_dtype is None:
+                sdf, rad = self.teacher_model.forward(xyz, dirs)
+            else:
+                with torch.autocast(xyz.device.type,
+                                    dtype=self.teacher_dtype):
+                    sdf, rad = self.teacher_model.forward(xyz, dirs)
+        return sdf.float(), rad.float()
+
+    def compute_loss(self, rgb, target_rgb, extras: dict, mask=None,
+                     mask_ignore=None, use_eikonal_loss: bool = False,
+                     use_distill_loss: bool = False,
+                     use_indicator_reg: bool = False):
+        """Losses with the reference's epsilon and clamp placement:
+        {"losses": {"loss_img", ["loss_eikonal", "loss_density",
+        "loss_color", "loss_indicator_vector_reg", "loss_mask"], "total"},
+        "extras": {..., "psnr", "scalars"}}."""
+        w = self.loss_weights
+        losses = {}
+        out_extras = dict(extras)
+        if use_eikonal_loss:
+            nablas = extras["implicit_nablas"]
+            # safe norm: a zero vector gets gradient 0, not NaN
+            nablas_norm = torch.sqrt(torch.sum(nablas * nablas, dim=-1)
+                                     + 1e-12)
+        mask_volume = torch.clamp(extras["mask_volume"], 1e-3, 1 - 1e-3)
+        out_extras["mask_volume_clipped"] = mask_volume
+        loss_img = w["img"] * torch.abs(rgb - target_rgb)
+
+        if use_eikonal_loss:
+            losses["loss_eikonal"] = w["eikonal"] * torch.mean(
+                (nablas_norm - 1.0) ** 2)
+        if use_distill_loss:
+            if self.teacher_model is None:
+                raise ValueError("distillation losses need a teacher: set "
+                                 "training.teacher_config / teacher_ckpt")
+            gt_sdf, gt_rad = self._teacher(extras["xyz"], extras["dirs"])
+            losses["loss_density"] = w["distill_density"] * \
+                density_distill_loss(extras["density"], gt_sdf[..., None],
+                                     self.distill_density_clip)
+            losses["loss_color"] = w["distill_color"] * torch.mean(
+                (extras["colors"] - gt_rad) ** 2)
+        if use_indicator_reg:
+            losses["loss_indicator_vector_reg"] = w["indicator_reg"] * \
+                torch.mean((self.model.indicator_vector
+                            - self.model.mesh_grid.vertex_normals) ** 2)
+        if mask is not None:
+            tm = mask.to(torch.float32)
+            # BCE on the clamped accumulation
+            losses["loss_mask"] = w["mask"] * torch.mean(
+                -(tm * torch.log(mask_volume)
+                  + (1 - tm) * torch.log(1 - mask_volume)))
+            target_mask = mask if mask_ignore is None else (mask
+                                                            & mask_ignore)
+            tmf = target_mask.to(torch.float32)
+            losses["loss_img"] = (torch.sum(loss_img * tmf[..., None])
+                                  / (torch.sum(tmf) + 1e-10))
+            out_extras["psnr"] = psnr(rgb, target_rgb,
+                                      valid_mask=target_mask[..., None])
+        elif mask_ignore is not None:
+            mi = mask_ignore.to(torch.float32)
+            losses["loss_img"] = (torch.sum(loss_img * mi[..., None])
+                                  / (torch.sum(mi) + 1e-10))
+            out_extras["psnr"] = psnr(rgb, target_rgb,
+                                      valid_mask=mask_ignore[..., None])
+        else:
+            losses["loss_img"] = torch.mean(loss_img)
+            out_extras["psnr"] = psnr(rgb, target_rgb)
+
+        losses["total"] = sum(losses.values())
+        if use_eikonal_loss:
+            out_extras["implicit_nablas_norm"] = nablas_norm
+        scalars = {"1/s": 1.0 / self.model.forward_s().detach()}
+        if use_indicator_reg and getattr(self.model, "learn_indicator_weight",
+                                         False):
+            scalars["indicator_weight"] = \
+                self.model.forward_indicator_weight().detach()
+        out_extras["scalars"] = scalars
+        return {"losses": losses, "extras": out_extras}

@@ -893,3 +893,42 @@ def test_params_from_jax_fills_a_no_nablas_model():
                                   p["pts_linears"][1]["v"])
     with pytest.raises(RuntimeError):
         params_from_jax(tree(with_nablas), plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [64, 16])
+def test_field_fused_training_shapes_on_card(S):
+    """The training path's no-grad up-sampling density: 512 per-ray
+    contexts of C = 96 candidates at the flagship width, S = 64 (coarse)
+    and S = 16 (each up-sampling round), f32."""
+    _need_card()
+    inp = random_context(seed=21, **dict(WIDE, B=512, S=S, C=96))
+    mask = no_tie_mask(inp["xyz"], inp["geo"], k=8)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = [o.cpu().numpy() for o in
+               torch_field(inp, "density", 8, None, (), device="cuda")]
+        ref = [o.cpu().numpy() for o in
+               torch_field(inp, "density", 8, None, (), device="cuda",
+                           plain=True)]
+    assert kernels.LAUNCHES["field_fused"]["density"] == 1
+    assert_field_close(got, ref, mask, "density", None)
+
+
+@pytest.mark.cuda
+def test_kernel_wrappers_raise_on_inputs_that_require_grad():
+    """A kernel has no backward: under grad mode an input that requires
+    grad raises; under no_grad (or detached) the same call runs."""
+    _need_card()
+    inp = random_context(seed=22, B=2, S=16, C=64)
+    xyz = torch.as_tensor(inp["xyz"], device="cuda").requires_grad_(True)
+    geo = torch.as_tensor(inp["geo"], device="cuda")
+    feat = torch.as_tensor(inp["feat"], device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.field_fused(xyz, geo, feat, 0.1, want="distance")
+    with pytest.raises(RuntimeError, match="no backward"):
+        kernels.candidate_field_v3(xyz, geo, feat, 0.1)
+    with torch.no_grad():
+        out = kernels.field_fused(xyz, geo, feat, 0.1, want="distance")
+    assert torch.isfinite(out[0]).all()
+    kernels.field_fused(xyz.detach(), geo, feat, 0.1, want="distance")

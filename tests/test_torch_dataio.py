@@ -179,8 +179,9 @@ def test_scene_writer_matches_jax(tmp_path):
 
 
 def test_checkpoint_reader(tmp_path):
-    """sorted_ckpts' order; a reference .pt fills a model; a native
-    msgpack .ckpt raises naming the converter."""
+    """sorted_ckpts' order; a reference .pt fills a model; a file that is
+    neither a torch zip nor a msgpack tree raises (native .ckpt files are
+    read: tests/test_torch_checkpoints.py)."""
     from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
     from neumesh_tpu_torch.mesh.grid import MeshGrid
     from neumesh_tpu_torch.models.neumesh.model import NeuMesh
@@ -201,7 +202,7 @@ def test_checkpoint_reader(tmp_path):
     assert ckpt["global_step"] == 7
     assert all(torch.equal(a, b) for a, b in zip(src.parameters(),
                                                  dst.parameters()))
-    with pytest.raises(ValueError, match="save_torch_checkpoint"):
+    with pytest.raises(ValueError, match="not a checkpoint"):
         CheckpointIO(str(tmp_path)).load_file(str(tmp_path / "latest.ckpt"),
                                               dst)
     assert path.endswith("m.pt")

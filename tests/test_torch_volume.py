@@ -15,21 +15,23 @@ from test_torch_basics import block_rays, camera, small_scene
 TILE = 16
 # reference structure: 64 coarse + 4x16 up-sampling, colour at midpoints
 REF = dict(ray_tile=TILE, tile_max_candidates=128, N_samples=64,
-           N_importance=64, N_upsample_iters=4, reuse_upsample_sdf=True)
+           N_importance=64, N_upsample_iters=4, reuse_upsample_sdf=True,
+           detailed_output=False)
 # root-anchored serving structure at the serving knobs
 VOL_MODEL = dict(tile_kp_per_probe=12, tile_cell_budget=64, scan_knn_k=1)
 VOL = dict(root_anchored=True, root_n_fine=8, root_steps=16, root_secant=3,
            root_win_frac=0.25, color_topk=4, ray_tile=TILE,
            tile_max_candidates=64, N_samples=64, N_importance=64,
-           N_upsample_iters=4, reuse_upsample_sdf=True)
+           N_upsample_iters=4, reuse_upsample_sdf=True,
+           detailed_output=False)
 
 
 def _both(jax_kw, torch_kw, render_kw, H=16, W=16):
     jm, params, tm = small_scene(seed=1, jax_kw=jax_kw, torch_kw=torch_kw)
     o, d = block_rays(H, W, half_fov=0.25)
     want = jax_render(jm, params, jnp.asarray(o), jnp.asarray(d),
-                      jax.random.PRNGKey(0), detailed_output=False,
-                      perturb=False, bounded_near_far=True, **render_kw)
+                      jax.random.PRNGKey(0), perturb=False,
+                      bounded_near_far=True, **render_kw)
     kernels.reset_launch_counts()
     rgb, depth, _ = volume_render(tm, torch.from_numpy(o),
                                   torch.from_numpy(d), device="cpu",
