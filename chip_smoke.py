@@ -61,9 +61,35 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     them, a step's peak memory above the resident models, the device-time
     split of one NeuMesh step (CUDA events; idle share from the profiler),
     and the field_fused density time per call at 512 x 64 and 512 x 16.
+ 7. the pipeline after training: (a) on phase 6's latest.ckpt: the grid SDF
+    of the teacher and of the full-width student on the card against the
+    same model on the CPU on a 32^3 grid (f32 tolerances); the teacher
+    through the extraction CLI (neumesh_tpu_torch.cli.extract_mesh.main)
+    at N_grid 256 (grid, marching and colour ms, vertex and triangle
+    counts; a finite mesh whose every edge two triangles share, open edges
+    only on the grid box's faces); the student's 128^3 grid, timed (20
+    steps from random codes leave it no zero level set); after (b), the
+    gate's trained student through the CLI at 128^3 with the same mesh
+    checks. (b) the port's quality gate
+    (neumesh_tpu_torch.tools.quality_gate.run) on the sphere scene at
+    PIPE_ITERS iterations a model: NeuS -> 96^3 mesh ->
+    NeuMesh -> the four modes (volume_f32, volume_bf16, surface_f32,
+    surface_fast), each counted alone (its kernel modes asserted); ms/it,
+    rays/s, ms per view, every PSNR / SSIM and the gate JSON, all finite
+    (the gates need not hold at this length); TF32 off after its training.
+    (c) every kernel call of the four modes and of one distillation step
+    on the trained weights replayed against its plain version (the surface
+    modes' shading call on the hit rows; its rows at the missed rays'
+    placeholder point, which the render discards, reported beside it:
+    live_rows). (d) the
+    eval CLI on two views of the gate scene with --save_renders: the PNGs
+    equal the renders, the summary JSON its keys. (e) one LPIPS call of
+    two 128x128 images on the card with seeded synthetic VGG16 weights
+    against the same call on the CPU (LPIPS_REL).
 Prints the card line, one {"cli": {...}} line, one {"training": {...}}
-line, one {"kernels": [...]} line (each row with its design, "wgmma" or
-"simt"), and last {"ok": true, "device": {...}}.
+line, one {"pipeline": {...}} line, one {"kernels": [...]} line (each row
+with its design, "wgmma" or "simt", and the launches of the gate modes in
+launches_by_structure), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -643,18 +669,36 @@ def check_outputs(name, mode, key, got, want):
 
 
 def check_kernels(variants):
-    """Kernel vs plain on the card; returns {(kernel, mode): row}."""
+    """Kernel vs plain on the card; returns {(kernel, mode): row}. A
+    variant may carry a 7th element, a (B, S) mask of the rows held to
+    the tolerance (the rows its caller consumes); the others are
+    reported beside the check."""
     import torch
     from neumesh_tpu_torch.ops import kernels
     rows = {}
-    for name, mode, var, args, kw, key in variants:
+    for name, mode, var, args, kw, key, *live in variants:
         got = getattr(kernels, name)(*args, **kw)
         want = getattr(kernels, name + "_plain")(*args, **kw)
         torch.cuda.synchronize()
+        extra_rows = {}
+        if live:
+            live = live[0]
+            if not bool(live.any()):
+                raise AssertionError(f"{name}/{mode} {var}: no row to hold")
+            extra_rows = {"rows_held": int(live.sum()),
+                          "rows_reported": int((~live).sum())}
+            if bool((~live).any()):
+                e_out, s_out = compare([g[~live] for g in got],
+                                       [w[~live] for w in want], TOL[key])
+                extra_rows.update(reported_max_abs_err=e_out,
+                                  reported_frac_within_tol=s_out)
+            got, want = [g[live] for g in got], [w[live] for w in want]
         err, share, ok, extra = check_outputs(name, mode, key, got, want)
+        extra.update(extra_rows)
         log(f"[check] {name}/{mode} {var} ({key}): max|err| {err:.3e}, "
             f"within tol {share:.5f}"
-            + "".join(f", {k} {v:.5f}" for k, v in extra.items())
+            + "".join(f", {k} {v:.5f}" if isinstance(v, float)
+                      else f", {k} {v}" for k, v in extra.items())
             + f" ({'ok' if ok else 'FAIL'})")
         if not ok:
             raise AssertionError(f"{name}/{mode} {var} disagrees with its "
@@ -1331,6 +1375,365 @@ def run_training(tmp, card):
     return result, counts, variants, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7: mesh extraction, the quality-gate pipeline, eval, LPIPS
+# ---------------------------------------------------------------------------
+
+# extraction grids of phase 6's models (the teacher at the CLI default, the
+# 163,842-vertex student's per-sample kNN route cut to 128), the sub-grid
+# held against the CPU; the gate pipeline's iterations a model (cut from
+# 3000) and its log interval; the views the eval CLI renders; LPIPS images'
+# side and its card-vs-CPU agreement (relative)
+EXTRACT_GRID = {"neus": 256, "neumesh": 128}
+EXTRACT_SUBGRID = 32
+PIPE_ITERS, PIPE_LOG = 300, 50
+EVAL_VIEWS = "1,6"
+LPIPS_SIDE, LPIPS_REL = 128, 1e-4
+# the kernel modes each gate mode must launch
+GATE_MUST = {"volume_f32": {(FF, "density")},
+             "volume_bf16": {(FF, "distance"), (FF, "density"), (FF, "full"),
+                             (SR, "rebracket")},
+             "surface_f32": _SURF_MODES, "surface_fast": _SURF_MODES}
+
+
+def open_edges(mesh, lo, hi):
+    """(edges not shared by exactly two triangles, those of them with an
+    end off the grid box's faces): marching tetrahedra leaves edges open
+    only where the surface leaves the box."""
+    t = mesh.triangles
+    e = np.sort(np.concatenate([t[:, [0, 1]], t[:, [1, 2]], t[:, [2, 0]]]),
+                axis=1)
+    key, n = np.unique(e[:, 0] * mesh.n_vertices + e[:, 1],
+                       return_counts=True)
+    ends = np.stack([key[n != 2] // mesh.n_vertices,
+                     key[n != 2] % mesh.n_vertices], 1)
+    v = mesh.vertices[ends]                         # (open, 2, 3)
+    on_face = ((np.abs(v - lo) < 1e-9) | (np.abs(v - hi) < 1e-9)).any(-1)
+    return len(ends), int((~on_face.all(1)).sum())
+
+
+def extract_full_width(tmp):
+    """(a), on phase 6's checkpoints: the grid SDF of the NeuS teacher and
+    of the 163,842-vertex NeuMesh student on the card against the same
+    model on the CPU on a 32^3 grid (f32 tolerances); the teacher through
+    the extraction CLI at N_grid 256 (a non-empty finite mesh, every edge
+    shared by two triangles, open edges only on the grid box's faces);
+    the student's full-width grid at 128^3 through the CLI's
+    evaluate_grid_sdf, timed. The student, TRAIN_ITERS distillation steps
+    from random codes, has no zero level set yet: the mesh of a trained
+    student comes from the gate's (run_pipeline)."""
+    import torch
+    from neumesh_tpu_torch.cli import extract_mesh as cli
+    from neumesh_tpu_torch.config import load_yaml
+    rng = (-1.0, 1.0)
+    out = {}
+    for name, n in EXTRACT_GRID.items():
+        exp = os.path.join(tmp, "logs", f"train_{name}")
+        cfg_path = os.path.join(exp, "config.yaml")
+        ckpt = os.path.join(exp, "ckpts", "latest.ckpt")
+        sdf = {}
+        for dev in ("cpu", DEV):
+            cfg = load_yaml(cfg_path)
+            cfg.update(device=dev, ckpt_path=ckpt)
+            model, _ = cli.load_model(cfg)
+            sdf[dev] = cli.evaluate_grid_sdf(model, EXTRACT_SUBGRID, rng, rng,
+                                             rng, chunk=65536)
+        err, share = compare([torch.from_numpy(sdf[DEV])],
+                             [torch.from_numpy(sdf["cpu"])], TOL["f32"])
+        if share < TOL["f32"]["frac"]:
+            raise AssertionError(f"extract {name}: card vs CPU grid SDF "
+                                 f"{share:.4f} within tol")
+        row = {"N_grid": n, "chunk": 65536,
+               "subgrid_card_vs_cpu": {"N": EXTRACT_SUBGRID,
+                                       "max_abs_err": err,
+                                       "frac_within_tol": share,
+                                       **TOL["f32"]}}
+        if name == "neus":
+            del model
+            stats = {}
+            t0 = time.perf_counter()
+            mesh = cli.main(["--config", cfg_path, "--ckpt_path", ckpt,
+                             "--N_grid", str(n), "--chunk", "65536",
+                             "--output_dir", os.path.join(tmp, "mesh_neus"),
+                             "--device", DEV], stats=stats)
+            row["wall_s"] = time.perf_counter() - t0
+            if mesh.n_triangles == 0 or not np.isfinite(mesh.vertices).all() \
+                    or not np.isfinite(mesh.vertex_colors).all():
+                raise AssertionError("extract neus: non-finite mesh")
+            n_open, bad = open_edges(mesh, *rng)
+            if bad:
+                raise AssertionError(f"extract neus: {bad} edges inside the "
+                                     "box not shared by two triangles")
+            row.update({k[:-2] + "_ms": 1e3 * v for k, v in stats.items()},
+                       n_vertices=mesh.n_vertices,
+                       n_triangles=mesh.n_triangles,
+                       open_edges_on_box_faces=n_open)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid = cli.evaluate_grid_sdf(model, n, rng, rng, rng,
+                                         chunk=65536)
+            torch.cuda.synchronize()
+            row["grid_ms"] = 1e3 * (time.perf_counter() - t0)
+            row["sdf_range"] = [float(grid.min()), float(grid.max())]
+            del model, grid
+        torch.cuda.empty_cache()
+        out[name] = row
+        log(f"[extract] {name} N={n}: "
+            + ", ".join(f"{k} {v:.4g}" if isinstance(v, float) else
+                        f"{k} {v}" for k, v in row.items()
+                        if k != "subgrid_card_vs_cpu")
+            + f"; card vs CPU {EXTRACT_SUBGRID}^3 max|err| {err:.2e}, "
+            f"within tol {share:.5f}")
+    return out
+
+
+def gate_train_stats(lines):
+    """{expname: (median ms/it, median rays/s)} from the train loop's log
+    lines, the first line of each run (warm-up) left out."""
+    import re
+    import statistics
+    runs, cur = {}, None
+    for ln in lines:
+        m = re.search(r"=> Experiment: (\S+)", ln)
+        if m:
+            cur = m.group(1)
+        m = re.search(r"\(([\d.]+) ms/it, ([\d,]+) rays/s\)", ln)
+        if m and cur:
+            runs.setdefault(cur, []).append(
+                (float(m.group(1)), float(m.group(2).replace(",", ""))))
+    out = {}
+    for k, v in runs.items():
+        if len(v) < 2:
+            raise AssertionError(f"gate training {k}: {len(v)} log lines")
+        out[k] = {"ms_per_it": [x[0] for x in v],
+                  "ms_per_it_median": statistics.median(x[0] for x in v[1:]),
+                  "rays_s_median": statistics.median(x[1] for x in v[1:])}
+    return out
+
+
+def live_rows(tag, name, a):
+    """() or (mask,): the surface modes shade every ray with one field_fused
+    call and discard the missed rays' values, which they evaluate at the
+    placeholder point (1, 1, 1), outside the unit bounding sphere. On
+    trained weights that point sits far from every candidate, where the f32
+    nabla is ill-conditioned: kernel, plain version on the card and plain
+    version on the CPU disagree there by up to ~5e-4 alike. Those rows are
+    reported beside the check; the hit rows are held to the tolerance."""
+    if not tag.startswith("surface") or name != "field_fused":
+        return ()
+    return (~(a[0] == 1.0).all(-1),)
+
+
+def distill_calls(p):
+    """The kernel calls of one distillation step's forward on the gate's
+    trained student (its saved config and latest.ckpt), one view's rays."""
+    import torch
+    from neumesh_tpu_torch.config import load_yaml
+    from neumesh_tpu_torch.models import build_framework
+    from neumesh_tpu_torch.utils.checkpoints import CheckpointIO
+    cfg_path = os.path.join(p["nm_dir"], "config.yaml")
+    cfg = load_yaml(cfg_path)
+    model, trainer, rk, _, _ = build_framework(cfg, "NeuMesh", device=DEV)
+    CheckpointIO().load_file(os.path.join(p["nm_dir"], "ckpts",
+                                          "latest.ckpt"), model)
+    calls = []
+    with record_calls(calls):
+        loss_and_grad_norm(trainer, rk, train_batch(cfg_path))
+    torch.cuda.synchronize()
+    return calls
+
+
+def run_pipeline(tmp, card):
+    """Phase 7. Returns (the {"pipeline"} dict, {gate mode: launch
+    counts})."""
+    import torch
+    from neumesh_tpu_torch.cli import eval as eval_cli
+    from neumesh_tpu_torch.cli import extract_mesh as extract_cli
+    from neumesh_tpu_torch.ops import kernels
+    from neumesh_tpu_torch.ops.lpips import _CHANNELS, _VGG_CONVS, lpips
+    from neumesh_tpu_torch.tools import quality_gate as qg
+    from neumesh_tpu_torch.utils.image_io import read_png
+    t_phase = time.perf_counter()
+    result = {"card": card, "extract": extract_full_width(tmp)}
+
+    # (b) the gate at PIPE_ITERS; (c) every kernel call of its four modes
+    # recorded, each mode counted alone
+    args = qg.create_parser().parse_args([
+        "--iters", str(PIPE_ITERS), "--workdir", os.path.join(tmp, "qgate"),
+        "--log-every", str(PIPE_LOG), "--device", DEV])
+    counts, calls, first = {}, {}, []
+
+    @contextlib.contextmanager
+    def mode_context(tag):
+        torch.cuda.synchronize()
+        if not first:       # launches since the gate started: distillation
+            first.append({k: dict(v) for k, v in kernels.LAUNCHES.items()})
+        kernels.reset_launch_counts()
+        calls[tag] = []
+        with record_calls(calls[tag]):
+            yield
+        torch.cuda.synchronize()
+        counts[tag] = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
+
+    with contextlib.chdir(tmp), _Lines() as cap:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        gate = qg.run(args, mode_context)
+        gate_s = time.perf_counter() - t0
+    if torch.backends.cuda.matmul.allow_tf32 \
+            or torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 still on after the gate's training")
+    train = gate_train_stats(cap.lines)
+    for tag, must in GATE_MUST.items():
+        missed = [f"{k}/{md}" for k, md in sorted(must)
+                  if counts[tag][k][md] <= 0]
+        if missed:
+            raise AssertionError(f"gate {tag}: never launched {missed}")
+    if first[0]["field_fused"]["density"] <= 0:
+        raise AssertionError("the gate's distillation never launched "
+                             "field_fused/density")
+    json_keys = [k for k in gate if k not in ("train", "scores", "paths")]
+    for k in json_keys:
+        v = gate[k]
+        if isinstance(v, float) and not np.isfinite(v):
+            raise AssertionError(f"gate {k} = {v}")
+    for tag in qg.MODES:
+        for r in gate["scores"][tag]["renders"]:
+            if r.shape != (qg.SCENE["H"] * qg.SCENE["W"], 3) \
+                    or not np.isfinite(r).all():
+                raise AssertionError(f"gate {tag}: render {r.shape}")
+    modes = {tag: {"psnr": s["psnr"], "ssim": s["ssim"],
+                   "ms_per_view": [1e3 * x for x in s["view_s"]],
+                   "launches": {k: {m: v for m, v in md.items() if v}
+                                for k, md in counts[tag].items()}}
+             for tag, s in gate["scores"].items()}
+    result["gate"] = {
+        "iters": PIPE_ITERS, "wall_s": gate_s, "train": train,
+        "train_wall_s": gate["train"], "modes": modes,
+        "distillation_launches": {k: {m: v for m, v in md.items() if v}
+                                  for k, md in first[0].items()},
+        "json": {k: gate[k] for k in json_keys}}
+    for k, v in train.items():
+        log(f"[gate] {k}: {v['ms_per_it_median']:.1f} ms/it, "
+            f"{v['rays_s_median']:.0f} rays/s")
+    log(f"[gate] extraction {gate['train']['extract']}")
+    for tag, m in modes.items():
+        log(f"[gate] {tag}: ms/view {[round(x, 1) for x in m['ms_per_view']]}"
+            f", PSNR {[round(x, 2) for x in m['psnr']]}, SSIM "
+            f"{[round(x, 4) for x in m['ssim']]}; launches {m['launches']}")
+    log(f"[gate] {json.dumps(result['gate']['json'])}")
+
+    # the gate's trained student at the zero level, through the CLI (its
+    # last checkpoint by default), on the gate's extraction box
+    stats, box = {}, [str(x) for x in qg.EXTRACT_RANGE]
+    p = gate["paths"]
+    mesh = extract_cli.main([
+        "--config", os.path.join(p["nm_dir"], "config.yaml"),
+        "--N_grid", str(EXTRACT_GRID["neumesh"]), "--x_range", *box,
+        "--y_range", *box, "--z_range", *box, "--output_dir",
+        os.path.join(tmp, "mesh_gate_student"), "--device", DEV],
+        stats=stats)
+    n_open, bad = open_edges(mesh, *qg.EXTRACT_RANGE)
+    if bad or not np.isfinite(mesh.vertices).all():
+        raise AssertionError(f"gate student mesh: {bad} open edges inside "
+                             "the box")
+    result["extract"]["gate_student"] = {
+        "N_grid": EXTRACT_GRID["neumesh"], "sdf_th": 0.0,
+        **{k[:-2] + "_ms": 1e3 * v for k, v in stats.items()},
+        "n_vertices": mesh.n_vertices, "n_triangles": mesh.n_triangles,
+        "open_edges_on_box_faces": n_open}
+    log(f"[extract] the gate's student N={EXTRACT_GRID['neumesh']} level 0: "
+        f"{result['extract']['gate_student']}")
+
+    # replay: every recorded call of the modes and of one distillation
+    # step, against its plain version, on the trained weights
+    variants = [(name, mode, f"gate_{tag}", a, kw, tol_key(name, kw))
+                + live_rows(tag, name, a)
+                for tag, cs in calls.items() for name, mode, a, kw in cs]
+    variants += [(name, mode, "gate_distillation", a, kw, tol_key(name, kw))
+                 for name, mode, a, kw in distill_calls(gate["paths"])]
+    del calls
+    with torch.no_grad():
+        rows = check_kernels(variants)
+    result["gate"]["checks"] = {f"{k}/{m}": len(r["checks"])
+                                for (k, m), r in rows.items()}
+    result["gate"]["replays"] = len(variants)
+    del variants, rows
+    torch.cuda.empty_cache()
+
+    # (d) the eval CLI on two views of the gate scene, renders saved
+    renders, save = {}, os.path.join(tmp, "eval_renders")
+    with contextlib.chdir(tmp):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = eval_cli.main([
+            "--config", os.path.join(p["nm_dir"], "config.yaml"),
+            "--views", EVAL_VIEWS, "--save_renders", save, "--out_json",
+            os.path.join(tmp, "eval.json"), "--device", DEV],
+            renders=renders)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        eval_counts = {k: {m: v for m, v in md.items() if v}
+                       for k, md in kernels.LAUNCHES.items()}
+    views = [int(v) for v in EVAL_VIEWS.split(",")]
+    if set(summary) != {"views", "mean_psnr", "mean_ssim"} \
+            or [r["view"] for r in summary["views"]] != views \
+            or any(set(r) != {"view", "psnr", "ssim"}
+                   or not np.isfinite([r["psnr"], r["ssim"]]).all()
+                   for r in summary["views"]):
+        raise AssertionError(f"eval summary {summary}")
+    with open(os.path.join(tmp, "eval.json")) as f:
+        if json.load(f) != summary:
+            raise AssertionError("eval.json is not the returned summary")
+    names = sorted(os.listdir(os.path.join(p["scene"], "image")))
+    for vi in views:
+        png = read_png(os.path.join(save, names[vi]))
+        if not np.array_equal(png, (np.clip(renders[vi], 0, 1) * 255.0)
+                              .astype(np.uint8)):
+            raise AssertionError(f"eval: {names[vi]} is not the render")
+    if eval_counts.get("field_fused", {}).get("density", 0) <= 0:
+        raise AssertionError("eval never launched field_fused/density")
+    result["eval"] = {"summary": summary, "wall_s": eval_s,
+                      "launches": eval_counts}
+    log(f"[eval] {summary['mean_psnr']} dB, SSIM {summary['mean_ssim']} "
+        f"over views {views}, {eval_s:.1f} s; launches {eval_counts}")
+
+    # (e) one LPIPS call of two 128x128 images on the card, seeded
+    # synthetic VGG16 weights, against the same call on the CPU
+    rng = np.random.default_rng(0)
+    w_np, in_c = {"convs": [], "lins": [], "calibrated": False}, 3
+    for out_c, _ in _VGG_CONVS:
+        w_np["convs"].append({
+            "w": (rng.normal(size=(out_c, in_c, 3, 3))
+                  / np.sqrt(in_c * 9)).astype(np.float32),
+            "b": (rng.normal(size=out_c) * 0.01).astype(np.float32)})
+        in_c = out_c
+    w_np["lins"] = [np.abs(rng.normal(size=c)).astype(np.float32) / c
+                    for c in _CHANNELS]
+    w_card = {"convs": [{k: torch.as_tensor(v, device=DEV)
+                         for k, v in c.items()} for c in w_np["convs"]],
+              "lins": [torch.as_tensor(x, device=DEV)
+                       for x in w_np["lins"]]}
+    side = LPIPS_SIDE
+    a = renders[views[0]][:side, :side]
+    b = renders[views[1]][:side, :side]
+    got = float(lpips(w_card, torch.as_tensor(a, device=DEV),
+                      torch.as_tensor(b, device=DEV))[0])
+    want = float(lpips(w_np, a, b, device="cpu")[0])
+    rel = abs(got - want) / max(abs(want), 1e-12)
+    ms = cuda_ms(lambda: lpips(w_card, torch.as_tensor(a, device=DEV),
+                               torch.as_tensor(b, device=DEV)), reps=3)
+    result["lpips"] = {"side": side, "card": got, "cpu": want, "rel": rel,
+                       "limit": LPIPS_REL, "ms": ms}
+    log(f"[lpips] {side}x{side}: card {got:.6f}, CPU {want:.6f}, rel "
+        f"{rel:.2e}, {ms:.2f} ms")
+    if not (np.isfinite(got) and rel <= LPIPS_REL):
+        raise AssertionError(f"LPIPS card vs CPU: rel {rel:.2e}")
+    result["phase_s"] = time.perf_counter() - t_phase
+    return result, counts
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -1464,22 +1867,34 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
     train["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"training": train}))
 
+    # ---- extraction, the quality-gate pipeline, eval and LPIPS
+    pipe, gate_counts = run_pipeline(tmp, card)
+    pipe["total_s"] = time.perf_counter() - t_start
+    print(json.dumps({"pipeline": pipe}))
+
     on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
         src, rep = SOURCES[kname]
         by_st = {st: counts[st][kname][mode] for st in STRUCTURES}
         home = LAUNCHES_OF[kname]
+        all_st = sum(by_st.values())
+        by_st.update({f"gate_{tag}": c[kname][mode]
+                      for tag, c in gate_counts.items()})
         kernels_out.append({
             "name": f"{kname}/{mode}", "route": "cuda", "source": src,
             "replaces": rep, "launches": by_st[home] if home else 0,
             "launches_structure": home,
-            "launches_all_structures": sum(by_st.values()),
+            "launches_all_structures": all_st,
             "launches_by_structure": by_st,
             "launches_reference_structure": by_st["reference_f32"],
             "launches_by_cli_case": {c: cli_counts[c][kname][mode]
                                      for c in CLI_CASES},
             "launches_training_neumesh": train_counts[kname][mode],
+            "launches_gate_distillation": pipe["gate"][
+                "distillation_launches"].get(kname, {}).get(mode, 0),
+            "launches_eval": pipe["eval"]["launches"].get(kname, {}).get(
+                mode, 0),
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -1,5 +1,5 @@
-"""Host-side triangle mesh container and PLY IO (own copy of the parts of
-neumesh_tpu/mesh/triangle_mesh.py the port needs). Pure numpy."""
+"""Host-side triangle mesh container, hygiene helpers and PLY/OBJ IO (own
+copy of neumesh_tpu/mesh/triangle_mesh.py). Pure numpy."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -43,6 +43,52 @@ class TriangleMesh:
         normals = normals / np.maximum(norm, 1e-12)
         self.vertex_normals = normals
         return normals
+
+    def triangle_normals(self, normalized: bool = True) -> np.ndarray:
+        v = self.vertices
+        t = self.triangles
+        fn = np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
+        if normalized:
+            fn = fn / np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True),
+                                 1e-12)
+        return fn
+
+    # ------------------------------------------------------------------
+    # hygiene (reference utils/mesh_util.py)
+    def degenerate_triangle_mask(self, eps: float = 1e-12) -> np.ndarray:
+        """Triangles with ~zero area or a repeated vertex (reference
+        utils/mesh_util.py:5-19)."""
+        area2 = np.linalg.norm(self.triangle_normals(normalized=False),
+                               axis=-1)
+        t = self.triangles
+        dup_vert = ((t[:, 0] == t[:, 1]) | (t[:, 1] == t[:, 2])
+                    | (t[:, 0] == t[:, 2]))
+        return (area2 < eps) | dup_vert
+
+    def remove_duplicated_triangles(self) -> "TriangleMesh":
+        """Drop repeated triangles regardless of winding, keeping the
+        first of each (reference utils/mesh_util.py:22-36)."""
+        key = np.sort(self.triangles, axis=1)
+        _, keep = np.unique(key, axis=0, return_index=True)
+        self.triangles = self.triangles[np.sort(keep)]
+        return self
+
+    def isolated_vertex_mask(self) -> np.ndarray:
+        """True for vertices referenced by no triangle
+        (reference utils/mesh_util.py:39-45)."""
+        used = np.zeros(self.n_vertices, dtype=bool)
+        used[self.triangles.reshape(-1)] = True
+        return ~used
+
+    def transform(self, T: np.ndarray) -> "TriangleMesh":
+        """Apply a 4x4 homogeneous transform in place (normals by the
+        inverse transpose, renormalised)."""
+        self.vertices = self.vertices @ T[:3, :3].T + T[:3, 3]
+        if self.vertex_normals is not None:
+            n = self.vertex_normals @ np.linalg.inv(T[:3, :3])
+            self.vertex_normals = n / np.maximum(
+                np.linalg.norm(n, axis=-1, keepdims=True), 1e-12)
+        return self
 
 
 # ---------------------------------------------------------------------------

@@ -299,7 +299,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "neumesh_tpu_torch.utils.state, neumesh_tpu_torch.ops.kernels, "
         "neumesh_tpu_torch.ops._build, neumesh_tpu_torch.cli.render, "
         "neumesh_tpu_torch.models.neumesh, neumesh_tpu_torch.dataio.dtu, "
-        "neumesh_tpu_torch.utils.checkpoints\n"
+        "neumesh_tpu_torch.utils.checkpoints, "
+        "neumesh_tpu_torch.cli.extract_mesh, neumesh_tpu_torch.cli.eval, "
+        "neumesh_tpu_torch.ops.lpips, neumesh_tpu_torch.mesh.marching_cubes, "
+        "neumesh_tpu_torch.dataio.synthetic, "
+        "neumesh_tpu_torch.tools.parity_eval, "
+        "neumesh_tpu_torch.tools.quality_gate\n"
         "bad = [m for m in sys.modules if m.startswith('jax') or "
         "m == 'neumesh_tpu' or m.startswith('neumesh_tpu.') or "
         "m.split('.')[0] in ('yaml', 'PIL', 'cv2', 'msgpack', 'flax', "
