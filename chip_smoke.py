@@ -86,10 +86,36 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     equal the renders, the summary JSON its keys. (e) one LPIPS call of
     two 128x128 images on the card with seeded synthetic VGG16 weights
     against the same call on the CPU (LPIPS_REL).
+ 8. editing on phase 7's gate-trained sphere scene (the ~60k-vertex
+    extracted scaffold), through the editing CLIs
+    (neumesh_tpu_torch.cli.editing), each counted alone (its kernel modes
+    asserted) with every kernel call recorded (EDIT_CASES): texture
+    swapping of the +x cap by the -x cap of the same model (T_r_m from
+    EDIT_CORR pairs by Umeyama + ICP) on 2 views of 128x128 in the
+    shipped volume mode (f32, per-ray contexts, up-sampling on
+    field_fused), in the surface mode with use_pallas (128-ray tiles,
+    distance scan, fused secant) and with use_fused_locate, each beside
+    the same mode unedited, then with --use_arap; texture filling (uv
+    charts of two bands, step 2) and geometry editing (the wave-deformed
+    scaffold, its MeshGrid rebuilt on the card), one view each; painting
+    (paint rays cast on the card, PAINT_ITERS steps at 512 rays, the first
+    step's calls recorded); the editing gate on the swap, printed beside
+    the JAX package's GATES_r05/editing_gate_sphere.json (qualities, not
+    held). Checks: every recorded call against its plain version; a
+    64x64 crop of each edited render through the plain versions >= 55
+    dB; the surface swaps' depth and hit mask equal to the unedited
+    render's, their rgb within the f32 tolerance on the rays whose tile
+    candidates hold no edited vertex; after painting every parameter but
+    the painted rows of color_features bit-identical, those rows moved,
+    every loss finite. Reports ms per view edited and unedited, the
+    edit's host steps (load, ICP, kNN, ARAP, MeshGrid rebuild), the ray
+    cast, paint ms/it and the phase's peak memory.
 Prints the card line, one {"cli": {...}} line, one {"training": {...}}
-line, one {"pipeline": {...}} line, one {"kernels": [...]} line (each row
-with its design, "wgmma" or "simt", and the launches of the gate modes in
-launches_by_structure), and last {"ok": true, "device": {...}}.
+line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
+{"kernels": [...]} line (each row with its design, "wgmma" or "simt",
+the launches of the gate modes in launches_by_structure and of the
+editing cases in launches_by_editing_case), and last {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -1731,6 +1757,443 @@ def run_pipeline(tmp, card):
     if not (np.isfinite(got) and rel <= LPIPS_REL):
         raise AssertionError(f"LPIPS card vs CPU: rel {rel:.2e}")
     result["phase_s"] = time.perf_counter() - t_phase
+    return result, counts, p
+
+
+# ---------------------------------------------------------------------------
+# phase 8: editing
+# ---------------------------------------------------------------------------
+
+# the swap's views (the editing gate's), the crop side held against the
+# plain versions, the masks' cap fraction (the gate's), the correspondence
+# pairs of the swap's estimate, the wave of the geometry edit, the uv
+# bands of the fill, the painting iterations (the example paint config)
+EDIT_VIEWS, EDIT_CROP, EDIT_XFRAC, EDIT_CORR = "1,11", 64, 0.5, 5
+WAVE = dict(amp=0.08, freq=6.0)
+FILL_BANDS = ((0.15, 0.45), (-0.45, -0.15))
+PAINT_ITERS = 40
+SURF_FLAGS = ["--render_mode", "surface", "--surface_ray_tile", "128",
+              "--surface_scan", "distance"]
+# case: (CLI, flags, knobs set on the loaded models, views, the kernel
+# modes it must launch, rendered unedited too)
+EDIT_CASES = {
+    "swap_volume": ("swap", [], {}, EDIT_VIEWS, {(FF, "density")}, True),
+    "swap_surface": ("swap", SURF_FLAGS, dict(use_pallas=True), EDIT_VIEWS,
+                     {(FF, "distance"), (SR, "rebracket"),
+                      (FF, "density_nabla")}, True),
+    "swap_locate": ("swap", SURF_FLAGS,
+                    dict(use_pallas=True, use_fused_locate=True), EDIT_VIEWS,
+                    {("surface_locate", "f32"), (FF, "density_nabla")}, True),
+    "swap_arap": ("swap", ["--use_arap"], {}, "1", {(FF, "density")}, False),
+    "fill": ("fill", [], {}, "1", {(FF, "density")}, False),
+    "geometry": ("geometry", [], {}, "1", {(FF, "density")}, False),
+}
+PAINT_MUST = {(FF, "density")}
+
+
+def write_edit_inputs(tmp, p):
+    """Phase 7's gate scene made editable: the swap's cap masks (main +x,
+    reference -x of the same model) and EDIT_CORR pairs (the main cap's
+    pole and points around it, each with the reference-cap vertex
+    nearest its image under the 180-degree turn about y), the fill's uv charts of two
+    bands, the wave-deformed scaffold, a painted copy of the scene; the
+    editing JSONs pointing at them. Returns {case kind: JSON path}."""
+    from neumesh_tpu_torch.editing.align import umeyama
+    from neumesh_tpu_torch.mesh.triangle_mesh import load_mesh, save_ply
+    from neumesh_tpu_torch.tools import make_example_scene as mes
+    d = os.path.join(tmp, "edit")
+    os.makedirs(d, exist_ok=True)
+    mesh = load_mesh(p["mesh_path"])
+    v = mesh.vertices
+    main_cap = v[:, 0] > EDIT_XFRAC * v[:, 0].max()
+    ref_cap = v[:, 0] < EDIT_XFRAC * v[:, 0].min()
+    for name, m in (("mask_main", main_cap), ("mask_ref", ref_cap)):
+        colors = np.where(m[:, None], [1.0, 0.0, 0.0], [0.0, 0.0, 0.0])
+        save_ply(type(mesh)(v.copy(), mesh.triangles.copy(),
+                            vertex_colors=colors),
+                 os.path.join(d, name + ".ply"))
+    # the cap's pole and EDIT_CORR - 1 points 35 degrees around it
+    cap = np.where(main_cap)[0]
+    a = np.deg2rad(35.0)
+    phi = 2 * np.pi * np.arange(EDIT_CORR - 1) / (EDIT_CORR - 1)
+    dirs = np.concatenate([[[1.0, 0.0, 0.0]], np.stack(
+        [np.full_like(phi, np.cos(a)), np.sin(a) * np.cos(phi),
+         np.sin(a) * np.sin(phi)], -1)])
+    r = np.linalg.norm(v[cap], axis=-1).mean()
+    main_ids = cap[np.argmin(((r * dirs[:, None] - v[cap][None]) ** 2)
+                             .sum(-1), 1)]
+    ref_ids = np.where(ref_cap)[0]
+    tgt = v[main_ids] * [-1.0, 1.0, -1.0]
+    d2 = ((tgt[:, None] - v[ref_ids][None]) ** 2).sum(-1)
+    corr = np.stack([main_ids, ref_ids[np.argmin(d2, 1)]], 1)
+    T0 = umeyama(v[corr[:, 0]], v[corr[:, 1]])
+    T0 = T0[:3, :3] / np.cbrt(np.linalg.det(T0[:3, :3]))
+    _, top = mes.band_mask_mesh(mesh, *FILL_BANDS[0], (1.0, 0.0, 0.0))
+    _, bot = mes.band_mask_mesh(mesh, *FILL_BANDS[1], (1.0, 0.0, 0.0))
+    save_ply(mes.uv_chart_mesh(mesh, top), os.path.join(d, "uv_main.ply"))
+    save_ply(mes.uv_chart_mesh(mesh, bot), os.path.join(d, "uv_ref.ply"))
+    save_ply(mes.deformed_mesh(mesh, **WAVE), os.path.join(d, "wave.ply"))
+    mes.paint_dataset(p["scene"], os.path.join(tmp, "paint_scene"))
+    cfg = os.path.join(p["nm_dir"], "config.yaml")
+    ckpt = os.path.join(p["nm_dir"], "ckpts", "latest.ckpt")
+    jsons = {
+        "swap": {"main_config": cfg, "main_ckpt": ckpt,
+                 "main_mask_mesh": [os.path.join(d, "mask_main.ply")],
+                 "ref_config": [cfg], "ref_ckpt": [ckpt],
+                 "ref_mask_mesh": [os.path.join(d, "mask_ref.ply")],
+                 "corr": [corr.tolist()]},
+        "fill": {"main_config": cfg, "main_ckpt": ckpt,
+                 "main_mask_mesh": [os.path.join(d, "uv_main.ply")],
+                 "ref_config": [cfg], "ref_ckpt": [ckpt],
+                 "ref_mask_mesh": [os.path.join(d, "uv_ref.ply")],
+                 "step": [2]},
+        "geometry": {"main_config": cfg, "load_pt": ckpt,
+                     "deformed_mesh": os.path.join(d, "wave.ply")},
+        "paint": {"main_config": cfg, "paint_name": "chip",
+                  "paint_dir": os.path.join(tmp, "paint_scene"),
+                  "ckpt_path": ckpt, "num_iters": PAINT_ITERS, "i_val": -1,
+                  "lr": 0.01},
+    }
+    paths = {}
+    for k, j in jsons.items():
+        paths[k] = os.path.join(d, k + ".json")
+        with open(paths[k], "w") as f:
+            json.dump(j, f)
+    return paths, {"n_vertices": mesh.n_vertices,
+                   "n_triangles": mesh.n_triangles,
+                   "main_cap": int(main_cap.sum()),
+                   "ref_cap": int(ref_cap.sum()),
+                   "corr_umeyama_vs_y180": float(np.abs(
+                       T0 - np.diag([-1.0, 1.0, -1.0])).max())}
+
+
+@contextlib.contextmanager
+def edit_hooks(knobs, store, tile_flags):
+    """For the block: the knobs set on every model the editing CLIs load;
+    every render_function call kept in `store` (args, model, kwargs,
+    render_fn and each view's raw (rgb, depth, extras)); per tiled
+    binding of an editable, each ray's "its tile candidates hold an
+    edited vertex" flag appended to tile_flags."""
+    from neumesh_tpu_torch.cli import render as cli
+    from neumesh_tpu_torch.cli.editing import render_geometry_editing as geo
+    from neumesh_tpu_torch.editing import renderer_base as rb
+    from neumesh_tpu_torch.editing.texture_model import \
+        TextureEditableNeuMesh as TE
+    saved = (rb.load_neumesh_from_config, geo.load_neumesh_from_config,
+             cli.render_function, TE.bind_rays_tiled)
+
+    def load(*a, **kw):
+        out = saved[0](*a, **kw)
+        for k, v in knobs.items():
+            setattr(out[0], k, v)
+        return out
+
+    def render_function(args, model, kwargs, render_fn):
+        entry = {"args": args, "model": model, "kwargs": kwargs,
+                 "render_fn": render_fn, "views": [], "kw": None}
+
+        def fn(*a, **kw):
+            out = render_fn(*a, **kw)
+            entry["views"].append(out)
+            entry["kw"] = kw
+            return out
+        if hasattr(render_fn, "set_image_hw"):
+            fn.set_image_hw = render_fn.set_image_hw
+        entry["out"] = saved[2](args, model, kwargs, fn)
+        store.append(entry)
+        return entry["out"]
+
+    def bind_tiled(self, *a, **kw):
+        out = saved[3](self, *a, **kw)
+        if out is not None:
+            tile_flags.append(out[0]._masks[0].any(-1).repeat_interleave(
+                kw["tile"]))
+        return out
+
+    rb.load_neumesh_from_config = geo.load_neumesh_from_config = load
+    cli.render_function = render_function
+    TE.bind_rays_tiled = bind_tiled
+    try:
+        yield
+    finally:
+        (rb.load_neumesh_from_config, geo.load_neumesh_from_config,
+         cli.render_function, TE.bind_rays_tiled) = saved
+
+
+def crop_psnr(entry):
+    """PSNR of the central EDIT_CROP^2 crop of the case's first view
+    rendered by its render_fn through the kernels and through the plain
+    versions on the card."""
+    import torch
+    from neumesh_tpu_torch.dataio import get_data
+    from neumesh_tpu_torch.ops.rays import get_rays
+    args, fn = entry["args"], entry["render_fn"]
+    ds = get_data(args, downscale=1)
+    vi = int(str(args.camera_inds).split(",")[0])
+    K = np.array(ds.intrinsics_all[vi], np.float32)
+    K[0, 2] -= (ds.W - EDIT_CROP) / 2
+    K[1, 2] -= (ds.H - EDIT_CROP) / 2
+    ro, rd = get_rays(torch.as_tensor(ds.c2w_all[vi], device=DEV),
+                      torch.as_tensor(K, device=DEV), EDIT_CROP, EDIT_CROP)
+    if hasattr(fn, "set_image_hw"):
+        fn.set_image_hw(EDIT_CROP, EDIT_CROP)
+    a = fn(ro, rd, **entry["kw"])[0]
+    with plain_on_card():
+        b = fn(ro, rd, **entry["kw"])[0]
+    mse = float(((a - b) ** 2).mean())
+    return 10 * math.log10(1.0 / max(mse, 1e-20))
+
+
+def surface_checks(tag, edited, plain, flags, n_views):
+    """The surface swap against the same mode unedited: depth and hit mask
+    equal; on the rays whose tile candidates hold no edited vertex the rgb
+    within the f32 tolerance on >= 99% of them (the unedited render shades
+    with one `full` launch, the editable on the context math: a kNN
+    near-tie may resolve differently on the two routes, so the largest
+    difference is reported, not held); the edit engaged on the others."""
+    import torch
+    from neumesh_tpu_torch.ops.rays import block_order_indices
+    H, W = edited["out"]["H"], edited["out"]["W"]
+    _, inv = block_order_indices(H, W, 8, 16)
+    inv = torch.as_tensor(inv, device=DEV)
+    per = len(flags) // n_views
+    tol = TOL["f32"]
+    out = {"untouched_rays": 0, "touched_rays": 0,
+           "untouched_max_abs_diff": 0.0, "untouched_within_tol": 1.0,
+           "untouched_outside_tol": 0, "touched_max_abs_diff": 0.0}
+    for v in range(n_views):
+        (rgb_e, dep_e, ex_e), (rgb_p, dep_p, ex_p) = (
+            edited["views"][v], plain["views"][v])
+        if not (torch.equal(dep_e, dep_p)
+                and torch.equal(ex_e["mask_surface"], ex_p["mask_surface"])):
+            raise AssertionError(f"{tag}: depth or hit mask moved by the "
+                                 "texture edit")
+        touched = torch.cat(flags[v * per:(v + 1) * per])[:H * W][inv]
+        diff = (rgb_e - rgb_p).abs().amax(-1)
+        ok = diff <= tol["atol"] + tol["rtol"] * rgb_p.abs().amax(-1)
+        un = ~touched
+        out["untouched_rays"] += int(un.sum())
+        out["touched_rays"] += int(touched.sum())
+        if bool(un.any()):
+            out["untouched_max_abs_diff"] = max(
+                out["untouched_max_abs_diff"], float(diff[un].max()))
+            out["untouched_within_tol"] = min(
+                out["untouched_within_tol"], float(ok[un].float().mean()))
+            out["untouched_outside_tol"] += int((~ok[un]).sum())
+        if bool(touched.any()):
+            out["touched_max_abs_diff"] = max(out["touched_max_abs_diff"],
+                                              float(diff[touched].max()))
+    if out["untouched_rays"] == 0 or out["touched_rays"] == 0:
+        raise AssertionError(f"{tag}: no untouched or no touched rays {out}")
+    if out["untouched_within_tol"] < tol["frac"]:
+        raise AssertionError(f"{tag}: rgb moved outside the edit {out}")
+    if out["touched_max_abs_diff"] <= 1e-2:
+        raise AssertionError(f"{tag}: the edit never engaged {out}")
+    return out
+
+
+def run_editing(tmp, card, p):
+    """Phase 8. Returns (the {"editing"} dict, {case: launch counts})."""
+    import torch
+    from neumesh_tpu_torch.cli import render as cli
+    from neumesh_tpu_torch.cli.editing import paint as paint_cli
+    from neumesh_tpu_torch.cli.editing import render_geometry_editing as geo
+    from neumesh_tpu_torch.cli.editing import render_texture_filling as fill
+    from neumesh_tpu_torch.cli.editing import render_texture_swapping as swap
+    from neumesh_tpu_torch.editing import paint_train
+    from neumesh_tpu_torch.editing.renderer_base import \
+        load_neumesh_from_config
+    from neumesh_tpu_torch.ops import kernels
+    from neumesh_tpu_torch.render.volume import SingleRenderer
+    from neumesh_tpu_torch.tools import editing_gate
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    jsons, scene = write_edit_inputs(tmp, p)
+    mains = {"swap": swap.main, "fill": fill.main, "geometry": geo.main}
+    result = {"card": card, "scene": scene, "cases": {}}
+    counts, variants = {}, []
+
+    for tag, (kind, flags, knobs, views, must, unedited) in \
+            EDIT_CASES.items():
+        argv = ["--config", jsons[kind], "--camera_inds", views,
+                "--outbase", tag, "--device", DEV] + flags
+        store, tile_flags, calls = [], [], []
+        with contextlib.chdir(tmp), edit_hooks(knobs, store, tile_flags):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            with record_calls(calls):
+                res = mains[kind](argv)
+            torch.cuda.synchronize()
+            cnt = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
+            missed = [f"{k}/{md}" for k, md in sorted(must)
+                      if cnt[k][md] <= 0]
+            if missed:
+                raise AssertionError(f"edit {tag}: never launched {missed}")
+            counts[tag] = cnt
+            out = res["render"]
+            for rgb in out["rgb"]:
+                if rgb.shape != (out["H"], out["W"], 3) \
+                        or not np.isfinite(rgb).all():
+                    raise AssertionError(f"edit {tag}: frame {rgb.shape}")
+            row = {"flags": flags, "knobs": knobs, "views": views,
+                   "ms_per_view": [1e3 * s for s in out["view_s"]],
+                   "stats_ms": {k[:-2] + "_ms": 1e3 * v
+                                for k, v in res["stats"].items()},
+                   "launches": {k: {m: c for m, c in md.items() if c}
+                                for k, md in cnt.items()},
+                   "replays": len(calls)}
+            if res.get("T_r_m") is not None:
+                T = np.asarray(res["T_r_m"][0])
+                scale = np.cbrt(np.linalg.det(T[:3, :3]))
+                row["T_r_m"] = T.tolist()
+                row["T_r_m_vs_y180"] = float(np.abs(
+                    T[:3, :3] / scale - np.diag([-1.0, 1.0, -1.0])).max())
+                row["T_r_m_scale"] = float(scale)
+            e = store[-1]
+            if unedited:
+                # the same mode unedited: the CLI's render_function on the
+                # loaded main model, its views raw
+                model = e["model"].main_model
+                fn = (cli.make_surface_render_fn(e["args"], model)
+                      if "--render_mode" in flags else SingleRenderer(model))
+                args = e["args"].copy()
+                args.outbase = tag + "_unedited"
+                torch.cuda.synchronize()
+                store_u = []
+                with edit_hooks({}, store_u, []):
+                    out_u = cli.render_function(args, model, e["kwargs"], fn)
+                row["unedited_ms_per_view"] = [1e3 * s
+                                               for s in out_u["view_s"]]
+                if "--render_mode" in flags:
+                    row["surface"] = surface_checks(
+                        tag, e, store_u[-1], tile_flags,
+                        len(views.split(",")))
+            row["crop_psnr_db"] = crop_psnr(e)
+            if row["crop_psnr_db"] < CROP_PSNR["f32"]:
+                raise AssertionError(f"edit {tag}: crop kernel vs plain "
+                                     f"{row['crop_psnr_db']:.2f} dB")
+        del store, res, out, e
+        live = ("surface" if "--render_mode" in flags else tag)
+        variants += [(name, mode, f"edit_{tag}", a, kw, tol_key(name, kw))
+                     + live_rows(live, name, a) for name, mode, a, kw in calls]
+        del calls
+        result["cases"][tag] = row
+        log(f"[edit] {tag}: ms/view {[round(x, 1) for x in row['ms_per_view']]}"
+            + (f" (unedited {[round(x, 1) for x in row['unedited_ms_per_view']]})"
+               if unedited else "")
+            + f", crop {row['crop_psnr_db']:.1f} dB, steps "
+            + ", ".join(f"{k} {v:.1f}" for k, v in row["stats_ms"].items())
+            + f"; launches {row['launches']}"
+            + (f"; surface {row['surface']}" if "surface" in row else "")
+            + (f"; T_r_m vs the 180-degree turn {row['T_r_m_vs_y180']:.2e}"
+               if "T_r_m_vs_y180" in row else ""))
+        torch.cuda.empty_cache()
+
+    # (d) painting: PAINT_ITERS steps at the default batch; the first
+    # step's kernel calls recorded
+    first, build = [], paint_train.build_train_step
+
+    def build_recording(*a, **kw):
+        step = build(*a, **kw)
+
+        def first_recorded(*sa, **skw):
+            if first:
+                return step(*sa, **skw)
+            calls = []
+            with record_calls(calls):
+                r = step(*sa, **skw)
+            first.append(calls)
+            return r
+        return first_recorded
+    paint_train.build_train_step = build_recording
+    try:
+        with contextlib.chdir(tmp):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = paint_cli.main(["--config", jsons["paint"], "--device",
+                                  DEV])
+            torch.cuda.synchronize()
+            paint_s = time.perf_counter() - t0
+            cnt = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
+    finally:
+        paint_train.build_train_step = build
+    missed = [f"{k}/{md}" for k, md in sorted(PAINT_MUST) if cnt[k][md] <= 0]
+    if missed:
+        raise AssertionError(f"paint: never launched {missed}")
+    counts["paint"] = cnt
+    if res["it"] != PAINT_ITERS or not all(
+            np.isfinite(list(s.values())).all() for s in res["losses"]):
+        raise AssertionError("paint: a loss is not finite")
+    with open(jsons["paint"]) as f:
+        pj = json.load(f)
+    before, _, _ = load_neumesh_from_config(pj["main_config"],
+                                            pj["ckpt_path"], DEV)
+    idx = torch.as_tensor(res["optimized_indices"], device=DEV)
+    after = dict(res["model"].named_parameters())
+    for name, p0 in before.named_parameters():
+        p1 = after[name].detach()
+        if name == "color_features":
+            rest = torch.ones(p1.shape[0], dtype=torch.bool, device=DEV)
+            rest[idx] = False
+            if not torch.equal(p1[rest], p0[rest]) \
+                    or not bool((p1[idx] != p0[idx]).any(-1).all()):
+                raise AssertionError("paint: color_features rows moved "
+                                     "outside the painted vertices, or a "
+                                     "painted row did not move")
+        elif not torch.equal(p1, p0):
+            raise AssertionError(f"paint: {name} changed")
+    del before
+    variants += [(name, mode, "edit_paint_step", a, kw, tol_key(name, kw))
+                 for name, mode, a, kw in first[0]]
+    steps = res["step_s"]
+    result["paint"] = {
+        "iters": res["it"], "wall_s": paint_s,
+        "painted_vertices": int(len(res["optimized_indices"])),
+        "raycast_ms": 1e3 * res["raycast_s"],
+        "ms_per_it": [1e3 * s for s in steps],
+        "ms_per_it_median": 1e3 * float(np.median(steps[1:])),
+        "losses_first": res["losses"][0], "losses_last": res["losses"][-1],
+        "launches": {k: {m: c for m, c in md.items() if c}
+                     for k, md in cnt.items()}}
+    log(f"[edit] paint: {len(res['optimized_indices'])} painted vertices, "
+        f"ray cast {1e3 * res['raycast_s']:.1f} ms, "
+        f"{result['paint']['ms_per_it_median']:.1f} ms/it, losses "
+        f"{res['losses'][0]['total']:.4f} -> {res['losses'][-1]['total']:.4f}")
+    del res, first
+    torch.cuda.empty_cache()
+
+    # (e) the editing gate on the swap, beside the JAX package's record
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp):
+        gate = editing_gate.main([
+            "--config", os.path.join(p["nm_dir"], "config.yaml"),
+            "--out", os.path.join(tmp, "editing_gate.json"),
+            "--device", DEV])
+    ref_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "GATES_r05", "editing_gate_sphere.json")
+    with open(ref_path) as f:
+        jax_gate = json.load(f)
+    result["gate"] = {"port": gate, "wall_s": time.perf_counter() - t0,
+                      "jax_package_record": jax_gate}
+    log(f"[edit] gate (port, {PIPE_ITERS} iterations): {json.dumps(gate)}")
+    log(f"[edit] gate (JAX package, GATES_r05): {json.dumps(jax_gate)}")
+
+    # every recorded call against its plain version
+    with torch.no_grad():
+        rows = check_kernels(variants)
+    result["checks"] = {f"{k}/{m}": len(r["checks"])
+                        for (k, m), r in rows.items()}
+    result["replays"] = len(variants)
+    del variants, rows
+    torch.cuda.synchronize()
+    result["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    result["peak_above_start_bytes"] = result["peak_mem_bytes"] - base_mem
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"[edit] phase 8: {result['phase_s']:.1f} s, {result['replays']} "
+        f"replays, peak {result['peak_mem_bytes'] / 2**20:.0f} MB")
     return result, counts
 
 
@@ -1868,9 +2331,14 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
     print(json.dumps({"training": train}))
 
     # ---- extraction, the quality-gate pipeline, eval and LPIPS
-    pipe, gate_counts = run_pipeline(tmp, card)
+    pipe, gate_counts, gate_paths = run_pipeline(tmp, card)
     pipe["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"pipeline": pipe}))
+
+    # ---- editing on the gate's trained scene
+    edit, edit_counts = run_editing(tmp, card, gate_paths)
+    edit["total_s"] = time.perf_counter() - t_start
+    print(json.dumps({"editing": edit}))
 
     on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
@@ -1895,6 +2363,8 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
                 "distillation_launches"].get(kname, {}).get(mode, 0),
             "launches_eval": pipe["eval"]["launches"].get(kname, {}).get(
                 mode, 0),
+            "launches_by_editing_case": {c: cnt[kname][mode]
+                                         for c, cnt in edit_counts.items()},
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

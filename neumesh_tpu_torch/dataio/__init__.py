@@ -1,19 +1,16 @@
-"""Dataset factory (counterpart of neumesh_tpu/dataio/__init__.py; the
-DTU type only, the paint dataset waits for the editing slice)."""
+"""Dataset factory (counterpart of neumesh_tpu/dataio/__init__.py): the
+DTU type, wrapped in the paint dataset with data.paint_dataset."""
 from __future__ import annotations
 
 
 def get_data(args, return_val: bool = False, val_downscale: float = 4.0,
              **overwrite_cfgs):
-    """The dataset, or with return_val the (train, val) pair, which differ
-    only in their downscale."""
+    """The dataset (a PaintDataset over it with data.paint_dataset), or
+    with return_val the (train, val) pair, which differ only in their
+    downscale."""
     dataset_type = args.data.get("type", "DTU")
     if dataset_type != "DTU":
         raise NotImplementedError(f"unknown dataset type {dataset_type}")
-    if args.data.get("paint_dataset", False):
-        raise NotImplementedError(
-            "data.paint_dataset: the paint dataset waits for the editing "
-            "slice of the port")
     from .dtu import SceneDataset
     cfgs = {
         "scale_radius": args.data.get("scale_radius", -1),
@@ -29,4 +26,8 @@ def get_data(args, return_val: bool = False, val_downscale: float = 4.0,
     if return_val:
         return (SceneDataset(**cfgs),
                 SceneDataset(**dict(cfgs, downscale=val_downscale)))
-    return SceneDataset(**cfgs)
+    dataset = SceneDataset(**cfgs)
+    if not args.data.get("paint_dataset", False):
+        return dataset
+    from .paint import PaintDataset
+    return PaintDataset(dataset)

@@ -1,0 +1,247 @@
+"""TextureEditableNeuMesh: the editing model wrapper (counterpart of
+neumesh_tpu/editing/texture_model.py).
+
+It answers the renderers' model protocol, so the volume and surface
+renderers drive it unmodified. Geometry and SDF always come from the main
+model. The colour is a per-sample blend: the paint weight is the sum of
+the kNN weights whose vertex is edit-masked, the unpaint weight its
+complement; the edit region queries the REFERENCE model's colour MLP with
+the transferred edit_color_features, view directions and nablas rotated
+into the reference frame by T_r_m. The reference colour is computed for
+every sample and blended where the paint weight is positive.
+
+Kernel routes. The renderers find them by probing the model: the
+editable exposes the main model's use_pallas / use_fused_locate /
+secant_rebracket, and its bound view delegates fused_secant,
+fused_locate and forward_density_only_nograd (the up-sampling density on
+field_fused) to the main model's bound view. The bound view has NO
+forward_full on purpose: the surface renderer would shade with it and
+skip the blend.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+
+class TextureEditableNeuMesh(nn.Module):
+    def __init__(self, main_model, ref_models: List,
+                 main_editing_masks, T_r_m_list: Optional[list] = None,
+                 edit_color_features: Optional[list] = None):
+        """main_editing_masks (R, N_main) bool; T_r_m_list R 4x4
+        main -> reference transforms (None: no rotation);
+        edit_color_features R (N_main, F) arrays or tensors (None: zeros),
+        one buffer per reference."""
+        super().__init__()
+        self.main_model = main_model
+        self.ref_models = nn.ModuleList(ref_models)
+        dev = main_model.device
+        self.register_buffer("main_editing_masks", torch.as_tensor(
+            np.asarray(main_editing_masks, bool), device=dev))
+        if T_r_m_list is not None:
+            T = torch.as_tensor(np.asarray(T_r_m_list, np.float32),
+                                device=dev)
+            self.register_buffer("rot_s_m", T[:, :3, :3].contiguous())
+        else:
+            self.rot_s_m = None
+        for i in range(len(self.ref_models)):
+            f = (None if edit_color_features is None
+                 else edit_color_features[i])
+            if f is None:
+                f = torch.zeros_like(main_model.color_features).detach()
+            self.register_buffer(f"edit_color_features_{i}", torch.as_tensor(
+                f, dtype=torch.float32, device=dev).clone())
+
+    # ---- the main model's knobs, as the renderers probe them ---------------
+    @property
+    def device(self):
+        return self.main_model.device
+
+    @property
+    def use_pallas(self):
+        return self.main_model.use_pallas
+
+    @property
+    def use_fused_locate(self):
+        return self.main_model.use_fused_locate
+
+    @property
+    def secant_rebracket(self):
+        return self.main_model.secant_rebracket
+
+    def edit_features(self, i: int) -> torch.Tensor:
+        return getattr(self, f"edit_color_features_{i}")
+
+    def _ref_frame(self, i, view_dirs, nabla):
+        """View directions and nablas rotated into reference i's frame."""
+        if self.rot_s_m is None:
+            return view_dirs, nabla
+        R = self.rot_s_m[i]
+        return (view_dirs @ R.T,
+                None if nabla is None else nabla @ R.T)
+
+    # ---- protocol delegation ------------------------------------------------
+    def compute_distance(self, xyz, K: int = 8):
+        return self.main_model.compute_distance(xyz, K)
+
+    def forward_s(self):
+        return self.main_model.forward_s()
+
+    def forward_density_only(self, xyz):
+        return self.main_model.forward_density_only(xyz)
+
+    def forward_with_nablas(self, xyz):
+        return self.main_model.forward_with_nablas(xyz)
+
+    # ---- blended colour, per sample ----------------------------------------
+    def forward(self, xyz, view_dirs):
+        """(sdf (...), rgb (..., 3)) with the kNN through the mesh grid."""
+        main = self.main_model
+        ds, indices, weights = main.compute_distance(xyz)
+        if main.enable_nablas_input:
+            sdf, nabla, d_emb = main._density_and_nabla(xyz, indices,
+                                                        weights)
+        else:
+            sdf, d_emb = main._density_from_parts(ds, indices, weights)
+            nabla = None
+        sdf = sdf[..., 0]
+        blend = main._color_from_parts(d_emb, view_dirs, indices, weights,
+                                       nabla)
+        for i, ref_model in enumerate(self.ref_models):
+            m_at = self.main_editing_masks[i][indices].to(weights.dtype)
+            paint_w = torch.sum(weights * m_at, dim=-1)
+            unpaint_w = torch.sum(weights * (1.0 - m_at), dim=-1)
+            paint_region = paint_w > 0
+            sum_w = paint_w + unpaint_w
+            paint_w = paint_w / sum_w
+            unpaint_w = unpaint_w / sum_w
+            ref_weights = weights * m_at
+            ref_weights = ref_weights / (
+                torch.sum(ref_weights, dim=-1, keepdim=True) + 1e-8)
+            ref_dir, ref_nabla = self._ref_frame(i, view_dirs, nabla)
+            ref_color = ref_model.forward_color(
+                ds, ref_dir, self.edit_features(i), indices, ref_weights,
+                nabla=ref_nabla)
+            mixed = (blend * unpaint_w[..., None]
+                     + ref_color * paint_w[..., None])
+            blend = torch.where(paint_region[..., None], mixed, blend)
+        return sdf, blend
+
+    # ---- candidate contexts -------------------------------------------------
+    def make_ray_context(self, rays_o, rays_d, near, far, **kw):
+        """The main model's contexts (the renderers' near/far pre-pass)."""
+        return self.main_model.make_ray_context(rays_o, rays_d, near, far,
+                                                **kw)
+
+    def bind_rays(self, rays_o, rays_d, near, far, n_probes: int = 8):
+        """Per-ray binding: geometry and base colour from the main model's
+        candidate cache; the edit masks and transferred features are
+        gathered into the same per-ray cache, so the blend runs as batched
+        products. None without a candidate grid."""
+        bound = self.main_model.bind_rays(rays_o, rays_d, near, far,
+                                          n_probes)
+        if bound is None:
+            return None
+        return RayBoundTextureEditable(self, bound)
+
+    def bind_rays_tiled(self, rays_o, rays_d, near, far, tile: int,
+                        max_candidates=None):
+        """Tile-shared binding: the main model's tile contexts drive the
+        scan and secant (texture edits never move the surface), the edit
+        caches ride the same tile ids. Returns (bound, near, far) or
+        None."""
+        tb = self.main_model.bind_rays_tiled(rays_o, rays_d, near, far,
+                                             tile=tile,
+                                             max_candidates=max_candidates)
+        if tb is None:
+            return None
+        bound, near_b, far_b = tb
+        return RayBoundTextureEditable(self, bound), near_b, far_b
+
+
+class RayBoundTextureEditable(nn.Module):
+    """The editable bound to the main model's per-ray or tile contexts."""
+
+    def __init__(self, editable: TextureEditableNeuMesh, bound):
+        super().__init__()
+        self.editable = editable
+        self.bound = bound               # RayBoundNeuMesh / TileBoundNeuMesh
+        # the surface renderer reads the main model's knobs here
+        self.model = bound.model
+        ids = bound.ctx["ids"]           # (B, C); sentinel id = N_main
+        self._masks, self._efeat = [], []
+        for i in range(len(editable.ref_models)):
+            mask = editable.main_editing_masks[i].to(torch.float32)
+            mask_ext = torch.cat([mask, mask.new_zeros(1)], 0)
+            self._masks.append(mask_ext[ids])                  # (B, C)
+            ef = editable.edit_features(i)
+            ef_ext = torch.cat([ef, ef.new_zeros((1, ef.shape[-1]))], 0)
+            self._efeat.append(ef_ext[ids])                    # (B, C, F)
+
+    # ---- geometry: the main model's bound view, kernels included
+    def forward_s(self):
+        return self.bound.forward_s()
+
+    def compute_distance(self, xyz, K: int = 8):
+        return self.bound.compute_distance(xyz, K)
+
+    def forward_density_only(self, xyz):
+        return self.bound.forward_density_only(xyz)
+
+    def forward_density_only_nograd(self, xyz):
+        return self.bound.forward_density_only_nograd(xyz)
+
+    def forward_with_nablas(self, xyz):
+        return self.bound.forward_with_nablas(xyz)
+
+    def fused_secant(self, *args, **kwargs):
+        return self.bound.fused_secant(*args, **kwargs)
+
+    def fused_locate(self, *args, **kwargs):
+        return self.bound.fused_locate(*args, **kwargs)
+
+    # ---- blended colour on the context math
+    def forward(self, xyz, view_dirs):
+        """(sdf (R, S), rgb (R, S, 3)): density, nablas and base colour by
+        the main model's context math, the reference colours from the
+        cached edit features."""
+        ed = self.editable
+        main = ed.main_model
+        b = self.bound
+        x, v = b._flat(xyz), b._flat(view_dirs)
+        if main.enable_nablas_input:
+            density, nabla, d_emb, W, ft = main._ctx_density_and_nabla(
+                b.ctx, x, with_ft=True)
+        else:
+            ds, W = main._ctx_distance_parts(b.ctx, x)
+            feats = main._ctx_interp_feats(b.ctx, W)
+            density, d_emb = main._density_from_interp(
+                ds, feats[..., :main.geometry_dim])
+            ft = feats[..., main.geometry_dim:]
+            nabla = None
+        sdf = density[..., 0]
+        blend = main._color_from_interp(d_emb, v, ft, nabla)
+        for i, ref_model in enumerate(ed.ref_models):
+            Wm = W * self._masks[i][:, None, :]                # (B, S, C)
+            paint_w = torch.sum(Wm, dim=-1)
+            paint_region = paint_w > 0
+            # the weights sum to 1: the unpaint share is the complement
+            W_ref = Wm / (torch.sum(Wm, dim=-1, keepdim=True) + 1e-8)
+            ref_dir, ref_nabla = ed._ref_frame(i, v, nabla)
+            dt = ref_model.compute_dtype
+            ef = self._efeat[i]
+            if dt is None:
+                ft_ref = torch.matmul(W_ref, ef)
+            else:
+                # operands rounded to the compute dtype, f32 accumulation
+                ft_ref = torch.matmul(W_ref.to(dt).to(torch.float32),
+                                      ef.to(dt).to(torch.float32))
+            ref_color = ref_model._color_from_interp(d_emb, ref_dir, ft_ref,
+                                                     ref_nabla)
+            mixed = (blend * (1.0 - paint_w)[..., None]
+                     + ref_color * paint_w[..., None])
+            blend = torch.where(paint_region[..., None], mixed, blend)
+        return b._unflat(sdf), b._unflat(blend)

@@ -71,3 +71,10 @@ class MeshGrid:
         distance = interp.interpolated_distance(
             xyz, self.vertices, indices, weights, ind_vec, indicator_weight)
         return distance, indices, weights
+
+    def cast_ray(self, rays_o, rays_d):
+        """Nearest triangle hit of each (N, 3) ray, cast on the grid's
+        device: (t_hit (N,), primitive_ids (N,)) numpy, inf / -1 on a
+        miss."""
+        from .raycast import cast_rays
+        return cast_rays(self.mesh, rays_o, rays_d, device=self.device)

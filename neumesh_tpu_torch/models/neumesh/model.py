@@ -256,6 +256,15 @@ class NeuMesh(nn.Module):
         ds, indices, weights = self.compute_distance(xyz)
         return self._density_from_parts(ds, indices, weights)[0][..., 0]
 
+    def forward_color(self, ds, view_dirs, color_features, indices, weights,
+                      nabla=None):
+        """Colour from externally supplied per-vertex colour features (the
+        editing hook): the colour MLP on [nabla, embedded ds, view, the
+        kNN blend of color_features], every layer in f32."""
+        ft = interp.interpolate_features(color_features, indices, weights)
+        return self._color_mlp(self.embed_fn_d(ds), view_dirs, ft, nabla,
+                               None)
+
     def forward_with_nablas(self, xyz):
         weights, indices = self._knn(xyz)
         density, nabla, _ = self._density_and_nabla(xyz, indices, weights)

@@ -48,22 +48,39 @@ def _set_matmul_precision(precision: str, device) -> None:
 
 
 def build_train_step(trainer, opt, render_kwargs_train, N_rays, H, W,
-                     matmul_precision: str = "default"):
+                     matmul_precision: str = "default",
+                     painting: bool = False, grad_mask=None):
     """train_step(model_input, ground_truth, generator, select_inds=None)
     -> (total loss, scalars), both detached: zero_grad -> loss ->
-    backward -> global grad norm -> Adam step. Turns on the gradients of
-    every parameter of the trained model (its teacher stays frozen)."""
+    backward -> gradient mask -> global grad norm -> Adam step. Turns on
+    the gradients of every parameter of the trained model (its teacher
+    stays frozen). painting: the texture-painting objective
+    (Trainer.render_and_loss_painting; N_rays, H, W unused). grad_mask
+    {parameter name: tensor}: each gradient is multiplied by its mask
+    (broadcast) after backward; a parameter the dict does not name keeps
+    its gradient."""
     trainer.model.requires_grad_(True)
     device = trainer.model.device
+    params = dict(trainer.model.named_parameters())
 
     def train_step(model_input, ground_truth, generator, select_inds=None):
         _set_matmul_precision(matmul_precision, device)
         opt.zero_grad()
-        ret = trainer.render_and_loss(
-            model_input, ground_truth, render_kwargs_train, N_rays, H, W,
-            generator=generator, select_inds=select_inds)
+        if painting:
+            ret = trainer.render_and_loss_painting(
+                model_input, ground_truth, render_kwargs_train,
+                generator=generator)
+        else:
+            ret = trainer.render_and_loss(
+                model_input, ground_truth, render_kwargs_train, N_rays, H,
+                W, generator=generator, select_inds=select_inds)
         total = ret["losses"]["total"]
         total.backward()
+        if grad_mask is not None:
+            with torch.no_grad():
+                for name, m in grad_mask.items():
+                    if params[name].grad is not None:
+                        params[name].grad.mul_(m)
         scalars = {k: v.detach() for k, v in ret["losses"].items()}
         scalars["psnr"] = ret["extras"]["psnr"].detach()
         scalars.update(ret["extras"].get("scalars", {}))

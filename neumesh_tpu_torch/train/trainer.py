@@ -5,8 +5,9 @@ Trainer.render_and_loss samples N_rays pixels of each view, renders them
 with every detailed output the losses read, and returns compute_loss's
 {"losses", "extras"}: the total is a differentiable scalar for
 backward(). The distillation teacher runs under torch.no_grad, so its
-targets carry no gradient. The painting objective of the editing CLIs is
-not ported yet.
+targets carry no gradient. Trainer.render_and_loss_painting is the
+texture-painting objective of the editing CLI: paint rays rendered with
+random colour directions, background rays with distillation.
 """
 from __future__ import annotations
 
@@ -87,6 +88,41 @@ class Trainer:
             use_indicator_reg=w["indicator_reg"] > 0)
         ret["extras"]["select_inds"] = select_inds
         return ret
+
+    def render_and_loss_painting(self, model_input: dict, ground_truth: dict,
+                                 render_kwargs_train: dict, generator=None):
+        """The texture-painting objective: the paint rays rendered with
+        random colour directions (view independence), the background rays
+        with the distillation samples; the losses over both groups
+        concatenated, distillation on. model_input {"rays_o_paint",
+        "rays_d_paint", "mask_paint", "rays_o_bg", "rays_d_bg", "mask_bg"}
+        and ground_truth {"rgb_paint", "rgb_bg"} as (B, ...) tensors;
+        `generator` draws the paint group's directions and both groups'
+        perturbations, paint first."""
+        kw = {k: v for k, v in render_kwargs_train.items()
+              if k not in ("calc_normal", "rayschunk", "batched")}
+
+        def render_group(suffix, samples_output, random_direction):
+            extras = volume_render_rays(
+                self.model, model_input["rays_o_" + suffix][:, None, :],
+                model_input["rays_d_" + suffix][:, None, :],
+                detailed_output=True, samples_output=samples_output,
+                random_color_direction=random_direction,
+                generator=generator, **kw)
+            return (extras["rgb"], ground_truth["rgb_" + suffix][:, None, :],
+                    model_input["mask_" + suffix][:, None], extras)
+
+        rgb_p, tgt_p, mask_p, extras_p = render_group("paint", False, True)
+        rgb_b, tgt_b, mask_b, extras_b = render_group("bg", True, False)
+        extras = dict(extras_b)
+        # background first, as the JAX package orders it (the mask targets
+        # are all ones, so the order does not change the loss)
+        extras["mask_volume"] = torch.cat(
+            [extras_b["mask_volume"], extras_p["mask_volume"]], 0)
+        return self.compute_loss(
+            torch.cat([rgb_p, rgb_b], 0), torch.cat([tgt_p, tgt_b], 0),
+            extras, mask=torch.cat([mask_p, mask_b], 0),
+            use_distill_loss=True)
 
     def _teacher(self, xyz, dirs):
         """Teacher (sdf, radiance) at the distillation samples, without

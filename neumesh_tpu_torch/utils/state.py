@@ -193,3 +193,15 @@ def params_tree(model) -> dict:
                 views_linears=[lin(m) for m in model.views_linears],
                 color_linear=lin(model.color_linear))
     return tree
+
+
+def editable_from_jax(params_np: dict, editable) -> None:
+    """Fill a TextureEditableNeuMesh from the JAX package's editable params
+    ({"main", "refs", "edit_color_features"}, make_editable_params's
+    layout) given as numpy arrays: the main and reference models through
+    params_from_jax, one edit_color_features buffer per reference."""
+    params_from_jax(params_np["main"], editable.main_model)
+    for ref, p in zip(editable.ref_models, params_np["refs"]):
+        params_from_jax(p, ref)
+    for i, f in enumerate(params_np["edit_color_features"]):
+        _put(editable.edit_features(i), f)
