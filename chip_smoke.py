@@ -110,12 +110,34 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     every loss finite. Reports ms per view edited and unedited, the
     edit's host steps (load, ICP, kNN, ARAP, MeshGrid rebuild), the ray
     cast, paint ms/it and the phase's peak memory.
+ 9. multi-GPU (neumesh_tpu_torch.parallel) on the one card: (a) right
+    after phase 4, the serving_bf16, surface_fast and surface_locate
+    frames (256x256) through sharded_volume_render /
+    sharded_surface_render over [cuda:0] with force_shard_map, over
+    [cuda:0, cuda:0] (a replica on the same card: the split, the padding
+    and the gather at n = 2) and a ragged ray count edge-padded to a
+    multiple of 2 x 128; rgb and depth held against the direct render
+    within the bf16 tolerance (max |diff| printed; equal bits expected),
+    hit masks equal, every kernel mode of the structure counted; ms a
+    frame direct and sharded. (b) after phase 8, two CLI cases again
+    with --volume_devices 0 --surface_devices 0 (every local card): the
+    frames equal phase 5's. (c) data-parallel training through the train
+    loop in worker processes (PAR_*/DP_* settings), one update of 512
+    rays a view on phase 6's scene, teacher and NeuMesh config: one rank
+    in an nccl group against no group (first step's loss and grad norm);
+    two gloo ranks on the card at batch 2 x data 1 and at batch 1 x data
+    2 (LOCAL_WORLD_SIZE 2) against one process on the concatenated batch
+    (parameters and Adam moments, rtol 2e-5, atol 2e-6); each worker's
+    field_fused launches > 0. (d) with a second card also [cuda:0,
+    cuda:1] serving and the 2 x 1 update over nccl across two cards;
+    otherwise one line says they were not exercised.
 Prints the card line, one {"cli": {...}} line, one {"training": {...}}
 line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
-{"kernels": [...]} line (each row with its design, "wgmma" or "simt",
-the launches of the gate modes in launches_by_structure and of the
-editing cases in launches_by_editing_case), and last {"ok": true,
-"device": {...}}.
+{"parallel": {...}} line, one {"kernels": [...]} line (each row with its
+design, "wgmma" or "simt", the launches of the gate modes in
+launches_by_structure, of the editing cases in launches_by_editing_case,
+of phase 9's sharded renders in launches_by_parallel_case), and last
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -525,8 +547,8 @@ def shared_memory_probe(smem):
     from neumesh_tpu_torch.ops import _build
     launch = _build.launch
 
-    def probed(name, args):
-        launch(name, args)
+    def probed(name, args, operand):
+        launch(name, args, operand)
         src, entry = _build.ENTRY[name]
         fn = getattr(_build._lib(src), entry + "_smem")
         smem[name] = max(smem.get(name, 0), fn(ctypes.addressof(args)))
@@ -984,12 +1006,12 @@ def check_cli_frames(tag, out):
 def run_cli(tmp):
     """Phase 5: every CLI case once counted, once recorded; returns
     ({case: stats}, {case: counts}, [variants to check], {(kernel, mode, n,
-    case): timed call})."""
+    case): timed call}, {case: [(rgb, normals) of each view]})."""
     import torch
     from neumesh_tpu_torch.cli import render as cli
     from neumesh_tpu_torch.ops import kernels
     cfg = write_cli_inputs(tmp)
-    stats, counts, variants, timed = {}, {}, [], {}
+    stats, counts, variants, timed, frames = {}, {}, [], {}, {}
     for tag, (flags, nablas, must) in CLI_CASES.items():
         argv = ["--config", cfg, "--load_pt",
                 os.path.join(tmp, f"neumesh_{int(nablas)}.pt"),
@@ -1007,6 +1029,7 @@ def run_cli(tmp):
             if missed:
                 raise AssertionError(f"{tag}: never launched {missed}")
             check_cli_frames(tag, out)
+            frames[tag] = list(zip(out["rgb"], out["normals"]))
             calls = []
             with record_calls(calls):
                 cli.main(argv + ["--num_views", "1", "--outbase",
@@ -1038,7 +1061,7 @@ def run_cli(tmp):
             + ", ".join(f"{k[0]}/{k[1]} x{v['calls']} at {k[2]} rows "
                         f"(live {v['live_share']:.3f})"
                         for k, v in sorted(per_call.items())))
-    return stats, counts, variants, timed
+    return stats, counts, variants, timed, frames
 
 
 def time_cli_calls(timed, stats):
@@ -2197,6 +2220,476 @@ def run_editing(tmp, card, p):
     return result, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 9: multi-GPU (ray-sharded serving, the render CLI's device flags,
+# data-parallel training)
+# ---------------------------------------------------------------------------
+
+# the serving structures rendered through sharded_*_render, at 256x256
+PAR_STRUCTURES = ("serving_bf16", "surface_fast", "surface_locate")
+# the ragged case: a frame's rays less this many, edge-padded to a
+# multiple of (devices x tile)
+PAR_RAGGED_CUT = 1000
+# CLI cases rendered again with --volume_devices 0 --surface_devices 0
+PAR_CLI_CASES = ("cli_defaults", "cli_surface")
+# the DP runs: one update of N_rays 512 a view at the shipped widths and
+# schedule (the warm-up's first update has learning rate 0, as in the
+# JAX package's DP test: the parameters stay, Adam's moments carry the
+# averaged gradient), exact f32 matmuls, so the comparison is not of TF32
+# roundings; the JAX test's limits. With no warm-up, Adam's first step
+# u = g / (|g| + 1e-8) turns the summation noise of a near-zero gradient
+# into up to 2 lr of a parameter (one value of 34 M off by 3.3e-6 while
+# its gradient matched, in a run of this phase on the H100)
+DP_OVERRIDES = dict(matmul_precision="highest", i_val=-1, i_backup=-1,
+                    i_log=1, i_save=100000, monitoring="none")
+DP_RTOL, DP_ATOL, DP_TIMEOUT_S = 2e-5, 2e-6, 300
+# after its checked update each worker times this many warm steps (two
+# more before them), one job on the card at a time
+DP_TIME_STEPS = 5
+
+_DP_WORKER = r"""
+import json, os, sys, time
+sys.path.insert(0, os.environ["NM_REPO"])
+import torch
+from neumesh_tpu_torch.config import load_yaml
+from neumesh_tpu_torch.ops import kernels
+from neumesh_tpu_torch.parallel import dist
+from neumesh_tpu_torch.train.loop import main_function
+from neumesh_tpu_torch.utils.print_fn import init_log
+
+init_log()
+cfg = load_yaml(os.environ["NM_CFG"])
+cfg.expname = os.environ["NM_EXP"]
+cfg.device = os.environ["NM_DEVICE"]
+cfg.data.batch_size = int(os.environ["NM_BATCH"])
+cfg.training.update(num_iters=int(os.environ["NM_ITERS"]),
+                    log_root_dir=os.environ["NM_LOGS"],
+                    **json.loads(os.environ["NM_OVERRIDES"]))
+rank = int(os.environ.get("RANK", 0))
+if os.environ.get("NM_BACKEND"):
+    dist.init_env(cfg, backend=os.environ["NM_BACKEND"])
+kernels.reset_launch_counts()
+t0 = time.perf_counter()
+out = main_function(cfg)
+sync = torch.cuda.synchronize if torch.cuda.is_available() else (
+    lambda: None)
+sync()
+wall = time.perf_counter() - t0
+line = {"rank": rank, "wall_s": wall, "it": out["it"],
+        "device": str(out["model"].device),
+        "field_fused": dict(kernels.LAUNCHES["field_fused"])}
+if rank == 0:
+    import pickle
+    with open(os.path.join(out["exp_dir"], "stats.p_0"), "rb") as f:
+        stats = pickle.load(f)
+    line["total"] = stats["losses"]["total"][0][1]
+    line["grad_norm"] = stats["extras"]["grad_norm"][0][1]
+    opt = out["optimizer"]
+    torch.save({"count": opt.count,
+                "p": {n: p.detach().cpu()
+                      for n, p in out["model"].named_parameters()},
+                "mu": {n: v.cpu() for n, v in opt.mu.items()},
+                "nu": {n: v.cpu() for n, v in opt.nu.items()}},
+               os.environ["NM_OUT"])
+steps = int(os.environ.get("NM_TIME_STEPS", 0))
+if steps:
+    # warm steps of the same train step (the group of a gloo job is still
+    # up), one job on the card at a time: rank 0 holds a file lock
+    import fcntl
+    from neumesh_tpu_torch.dataio import get_data
+    from neumesh_tpu_torch.parallel import (ShardedGenerator,
+                                            get_global_mesh,
+                                            make_global_batch)
+    from neumesh_tpu_torch.train.loop import build_train_step, to_device
+    grid = get_global_mesh()
+    ds = get_data(cfg)
+    dev = out["model"].device
+    _, mi, gt = ds.batch(list(range(cfg.data.batch_size * grid.batch)))
+    mi = to_device(make_global_batch(grid, mi), dev)
+    gt = to_device(make_global_batch(grid, gt), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    if dist.is_initialized():
+        gen = ShardedGenerator(gen, grid, cfg.data.batch_size)
+    step = build_train_step(out["trainer"], out["optimizer"],
+                            out["render_kwargs_train"], cfg.data.N_rays,
+                            ds.H, ds.W, matmul_precision="highest")
+    with open(os.environ["NM_LOCK"], "a") as lock:
+        if rank == 0:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        for i in range(2 + steps):
+            if i == 2:
+                sync()
+                t1 = time.perf_counter()
+            step(mi, gt, gen)
+        sync()
+        line["step_ms"] = (time.perf_counter() - t1) * 1e3 / steps
+dist.shutdown()
+print("DP_RESULT " + json.dumps(line), flush=True)
+"""
+
+
+def frame_rays(H):
+    """A HxH frame's rays (phase 2's camera) in 8x16 pixel blocks, the
+    order both frame entries render at 128-ray tiles."""
+    import torch
+    from neumesh_tpu_torch.ops.rays import block_order_indices, get_rays
+    c2w, K, h, w = camera(H, H)
+    ro, rd = get_rays(torch.as_tensor(c2w, device=DEV),
+                      torch.as_tensor(K, device=DEV), h, w)
+    perm, _ = block_order_indices(h, w, 8, 16)
+    perm = torch.as_tensor(perm, device=DEV)
+    return ro[perm].contiguous(), rd[perm].contiguous()
+
+
+def direct_and_sharded(model, kind, kw):
+    """(direct render fn, sharded render fn) over (R, 3) rays, each ->
+    (rgb, depth, surface hit mask or None)."""
+    import torch
+    from neumesh_tpu_torch.parallel import (sharded_surface_render,
+                                            sharded_volume_render)
+    from neumesh_tpu_torch.render.ray_casting import surface_render
+    from neumesh_tpu_torch.render.volume import volume_render_rays
+    if kind == "volume":
+        @torch.no_grad()
+        def direct(ro, rd):
+            r = volume_render_rays(model, ro, rd, **kw)
+            return r["rgb"], r["depth_volume"], None
+
+        @torch.no_grad()
+        def sharded(reps, devs, ro, rd, force=False):
+            r = sharded_volume_render(reps, ro, rd, devs,
+                                      force_shard_map=force, **kw)
+            return r["rgb"], r["depth_volume"], None
+    else:
+        skw = dict(calc_normal=True, ray_tile=kw["ray_tile"],
+                   scan_mode=kw["scan_mode"],
+                   tile_max_candidates=kw["tile_max_candidates"],
+                   ray_casting_cfgs={"N_steps": kw["N_steps"],
+                                     "N_secant_steps": kw["N_secant_steps"],
+                                     "fill_inf": False})
+
+        @torch.no_grad()
+        def direct(ro, rd):
+            rgb, depth, ex = surface_render(model, ro, rd, device=DEV,
+                                            **skw)
+            return rgb, depth, ex["mask_surface"]
+
+        @torch.no_grad()
+        def sharded(reps, devs, ro, rd, force=False):
+            rgb, depth, ex = sharded_surface_render(
+                reps, ro, rd, devs, force_shard_map=force, **skw)
+            return rgb, depth, ex["mask_surface"]
+    return direct, sharded
+
+
+def hold_shards(tag, got, want):
+    """rgb and depth within the bf16 tolerance (§2 of PERF.md), the hit
+    masks equal; returns the max |diff| of rgb and depth."""
+    import torch
+    tol = TOL["bf16"]
+    out = {}
+    for what, g, w in (("rgb", got[0], want[0]), ("depth", got[1],
+                                                    want[1])):
+        if tuple(g.shape) != tuple(w.shape):
+            raise AssertionError(f"{tag} {what}: {tuple(g.shape)} vs "
+                                 f"{tuple(w.shape)}")
+        err, share = compare([g], [w], tol)
+        out[what] = err
+        if share < tol["frac"]:
+            raise AssertionError(f"{tag} {what}: {share:.4f} within "
+                                 f"{tol['atol']} (max |diff| {err})")
+    if got[2] is not None and not torch.equal(got[2], want[2]):
+        raise AssertionError(f"{tag}: hit masks differ")
+    return out
+
+
+def run_sharded_serving(models):
+    """Phase 9 (a): each PAR_STRUCTURES structure's 256x256 frame through
+    sharded_*_render over [cuda:0] (force_shard_map), [cuda:0, cuda:0]
+    (two replicas on one card) and a ragged ray count, held against the
+    direct render, its kernel modes counted; with a second card also over
+    [cuda:0, cuda:1]. Returns ({structure: stats}, {structure: counts})."""
+    import torch
+    from neumesh_tpu_torch.ops import kernels
+    from neumesh_tpu_torch.parallel import replicate
+    t_phase = time.perf_counter()
+    c0 = torch.device("cuda:0" if DEV == "cuda" else DEV)
+    layouts = {"one_forced": [c0], "two_on_one_card": [c0, c0]}
+    if torch.cuda.device_count() >= 2:
+        layouts["two_cards"] = [c0, torch.device("cuda", 1)]
+    else:
+        log("[parallel] one CUDA device: the cross-device runs "
+            "([cuda:0, cuda:1] serving, nccl training across two cards) "
+            "were not exercised")
+    stats, counts = {}, {}
+    for st in PAR_STRUCTURES:
+        mkey, kind, H, kw, must, _ = STRUCTURES[st]
+        model = models[mkey]
+        ro, rd = frame_rays(H)
+        direct, sharded = direct_and_sharded(model, kind, kw)
+        want = direct(ro, rd)
+        row = {"rays": int(ro.shape[0]), "max_abs_diff": {}, "ms": {}}
+        counts[st] = {}
+        for name, devs in layouts.items():
+            reps = [model] + [replicate(model, d) for d in devs[1:]]
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = sharded(reps, devs, ro, rd, force=True)
+            torch.cuda.synchronize()
+            cnt = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
+            missed = [f"{k}/{md}" for k, md in sorted(must)
+                      if cnt[k][md] <= 0]
+            if missed:
+                raise AssertionError(f"{st} over {name}: never launched "
+                                     f"{missed}")
+            counts[st][name] = cnt
+            row["max_abs_diff"][name] = hold_shards(f"{st} {name}", got,
+                                                    want)
+            row["ms"][name] = cuda_ms(
+                lambda: sharded(reps, devs, ro, rd, force=True), reps=3)
+            if name == "two_on_one_card":
+                # ragged: edge-pad to a multiple of devices x tile
+                n = ro.shape[0] - PAR_RAGGED_CUT
+                q = len(devs) * kw["ray_tile"]
+                pad = (-n) % q
+                rop = torch.cat([ro[:n], ro[n - 1:n].expand(pad, 3)], 0)
+                rdp = torch.cat([rd[:n], rd[n - 1:n].expand(pad, 3)], 0)
+                g = sharded(reps, devs, rop, rdp)
+                w = direct(rop, rdp)
+                row["max_abs_diff"]["ragged"] = hold_shards(
+                    f"{st} ragged", [x[:n] if x is not None else None
+                                     for x in g],
+                    [x[:n] if x is not None else None for x in w])
+                row["ragged"] = {"rays": int(n), "padded_to": int(n + pad)}
+            del reps
+        row["ms"]["direct"] = cuda_ms(lambda: direct(ro, rd), reps=3)
+        stats[st] = row
+        log(f"[parallel] {st}: direct {row['ms']['direct']:.2f} ms/frame; "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in row["ms"].items()
+                        if k != "direct")
+            + "; max |diff| " + ", ".join(
+                f"{k} rgb {v['rgb']:.3g} depth {v['depth']:.3g}"
+                for k, v in row["max_abs_diff"].items()))
+    return {"structures": stats, "layouts": list(layouts),
+            "seconds": time.perf_counter() - t_phase}, counts
+
+
+def run_cli_devices(tmp, cli_frames):
+    """Phase 9 (b): PAR_CLI_CASES again with --volume_devices 0
+    --surface_devices 0 (every local card), counted as phase 5 counts
+    them: the frames equal phase 5's."""
+    import torch
+    from neumesh_tpu_torch.cli import render as cli
+    from neumesh_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    cfg = os.path.join(tmp, "cli.yaml")
+    out = {}
+    for tag in PAR_CLI_CASES:
+        flags, nablas, must = CLI_CASES[tag]
+        with contextlib.chdir(tmp):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            res = cli.main(["--config", cfg, "--load_pt",
+                            os.path.join(tmp, f"neumesh_{int(nablas)}.pt"),
+                            "--outbase", tag + "_devices0",
+                            "--num_views", str(CLI_VIEWS),
+                            "--volume_devices", "0",
+                            "--surface_devices", "0"] + flags)
+            torch.cuda.synchronize()
+        missed = [f"{k}/{md}" for k, md in sorted(must)
+                  if kernels.LAUNCHES[k][md] <= 0]
+        if missed:
+            raise AssertionError(f"{tag} with devices 0: never launched "
+                                 f"{missed}")
+        for i, (rgb, nrm) in enumerate(zip(res["rgb"], res["normals"])):
+            want_rgb, want_nrm = cli_frames[tag][i]
+            if not (np.array_equal(rgb, want_rgb)
+                    and np.array_equal(nrm, want_nrm)):
+                raise AssertionError(f"{tag} with devices 0: view {i} "
+                                     "differs from phase 5's")
+        out[tag] = {"views": len(res["rgb"]), "equal": True,
+                    "view_s": res["view_s"]}
+        log(f"[parallel] CLI {tag} --*_devices 0: {len(res['rgb'])} views "
+            "equal to phase 5's")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _dp_env(run, rank=None, world=1, local=1, port=None):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                        "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                        "SLURM_PROCID", "SLURM_NODELIST")}
+    env.update(run)
+    if rank is not None:
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(rank % local),
+                   LOCAL_WORLD_SIZE=str(local))
+    return env
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_load(path):
+    import torch
+    return torch.load(path, weights_only=True)
+
+
+def _dp_match(tag, got, want):
+    """Parameters and Adam moments after one update: rtol 2e-5, atol 2e-6
+    (the JAX DP test's limits). Returns (max |diff|, elements, parameters
+    whose update moved them)."""
+    import torch
+    if got["count"] != 1 or want["count"] != 1:
+        raise AssertionError(f"{tag}: {got['count']} / {want['count']} "
+                             "updates, not one")
+    err, n, moved = 0.0, 0, 0
+    for part in ("p", "mu", "nu"):
+        for name, w in want[part].items():
+            g = got[part][name]
+            d = (g - w).abs()
+            bad = d > DP_ATOL + DP_RTOL * w.abs()
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"{tag}: {part}:{name} off at {int(bad.sum())} of "
+                    f"{w.numel()} (max |diff| {float(d.max()):.3g})")
+            err = max(err, float(d.max()))
+            n += w.numel()
+            if part == "mu":
+                moved += int(bool((w != 0).any()))
+    if moved < 10:
+        raise AssertionError(f"{tag}: the update moved {moved} parameters")
+    return err, n, moved
+
+
+def run_dp_training(tmp):
+    """Phase 9 (c): workers (subprocesses, DP_TIMEOUT_S each) through the
+    port's main_function on phase 6's scene, teacher and NeuMesh config,
+    one update of 512 rays a view each: (i) one rank in an nccl group
+    against no group (first step's total loss and grad norm); (ii) two
+    gloo ranks on the one card, batch 2 x data 1, against one process on
+    the concatenated batch of 2; (iii) two gloo ranks, batch 1 x data 2
+    (LOCAL_WORLD_SIZE 2: one image's rays split), against one process at
+    batch 1. (d) with a second card, (ii) again with nccl across cuda:0
+    and cuda:1. All runs start together."""
+    import re
+    import subprocess
+    import torch
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = {"NM_REPO": root, "NM_CFG": os.path.join(tmp,
+                                                    "train_neumesh.yaml"),
+            "NM_LOGS": os.path.join(tmp, "logs_dp"),
+            "NM_OVERRIDES": json.dumps(DP_OVERRIDES), "OMP_NUM_THREADS": "2",
+            "NM_LOCK": os.path.join(tmp, "dp_timing.lock")}
+
+    def run(name, batch, iters, device=None, backend=None, timed=True):
+        device = device or ("cuda:0" if DEV == "cuda" else DEV)
+        return dict(base, NM_EXP=f"dp_{name}", NM_BATCH=str(batch),
+                    NM_ITERS=str(iters), NM_DEVICE=device,
+                    NM_OUT=os.path.join(tmp, f"dp_{name}.pt"),
+                    NM_TIME_STEPS=str(DP_TIME_STEPS if timed else 0),
+                    **({"NM_BACKEND": backend} if backend else {}))
+
+    jobs = {"single_b1": [_dp_env(run("single_b1", 1, 1))],
+            "single_b2": [_dp_env(run("single_b2", 2, 1))]}
+    port = _free_port()
+    # its group ends with its main_function: not timed
+    jobs["nccl_one_rank"] = [_dp_env(run("nccl_one_rank", 1, 1,
+                                         timed=False), 0, 1, 1, port)]
+    for name, local in (("gloo_2x1", 1), ("gloo_1x2", 2)):
+        port = _free_port()
+        hosts = 2 // local
+        jobs[name] = [_dp_env(run(name, 1, hosts, backend="gloo"), r, 2,
+                              local, port) for r in range(2)]
+    if torch.cuda.device_count() >= 2:
+        port = _free_port()
+        jobs["nccl_2x1_two_cards"] = [
+            _dp_env(run("nccl_2x1_two_cards", 1, 2, device=f"cuda:{r}"), r,
+                    2, 1, port) for r in range(2)]
+    procs = {name: [subprocess.Popen(
+        [sys.executable, "-c", _DP_WORKER], env=env, cwd=tmp,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for env in envs]
+        for name, envs in jobs.items()}
+    lines, failed = {}, []
+    deadline = time.time() + DP_TIMEOUT_S
+    try:
+        for name, ps in procs.items():
+            for r, p in enumerate(ps):
+                try:
+                    out, _ = p.communicate(
+                        timeout=max(deadline - time.time(), 1))
+                except subprocess.TimeoutExpired:
+                    failed.append(f"{name} rank {r}: timed out")
+                    continue
+                res = [json.loads(x.split(" ", 1)[1])
+                       for x in out.splitlines()
+                       if x.startswith("DP_RESULT ")]
+                if p.returncode != 0 or not res:
+                    failed.append(f"{name} rank {r}: exit {p.returncode}\n"
+                                  + out[-3000:])
+                    continue
+                # init_env logs the group it joins
+                res[0]["group"] = "process group: rank" in out
+                lines.setdefault(name, []).append(res[0])
+                # the loop's log line of its one update: the first step
+                # of a fresh process, one-time costs included
+                logged = re.findall(r"\(([\d.]+) ms/it", out)
+                if logged:
+                    res[0]["first_update_ms_logged"] = float(logged[0])
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    if failed:
+        raise AssertionError("DP workers failed:\n" + "\n".join(failed))
+    for name, ls in lines.items():
+        for ln in ls:
+            if ln["field_fused"]["density"] <= 0:
+                raise AssertionError(f"{name} rank {ln['rank']}: "
+                                     "field_fused/density never launched")
+    result = {"runs": lines}
+    a, b = lines["single_b1"][0], lines["nccl_one_rank"][0]
+    if not b["group"] or a["group"]:
+        raise AssertionError("(i): group membership wrong")
+    rel = max(abs(a["total"] - b["total"]) / abs(a["total"]),
+              abs(a["grad_norm"] - b["grad_norm"]) / a["grad_norm"])
+    result["one_rank_vs_no_group"] = {
+        "total": [a["total"], b["total"]],
+        "grad_norm": [a["grad_norm"], b["grad_norm"]], "max_rel": rel}
+    log(f"[parallel] (i) nccl one rank vs no group: total {b['total']:.7f} "
+        f"/ {a['total']:.7f}, grad norm {b['grad_norm']:.7f} / "
+        f"{a['grad_norm']:.7f}, rel {rel:.2e}")
+    if rel > TRAIN_REL:
+        raise AssertionError(f"(i) differs by {rel:.2e}")
+    pairs = {"gloo_2x1": "single_b2", "gloo_1x2": "single_b1"}
+    if "nccl_2x1_two_cards" in lines:
+        pairs["nccl_2x1_two_cards"] = "single_b2"
+    for name, ref in pairs.items():
+        err, n, moved = _dp_match(
+            name, _dp_load(os.path.join(tmp, f"dp_{name}.pt")),
+            _dp_load(os.path.join(tmp, f"dp_{ref}.pt")))
+        result[name] = {"against": ref, "max_abs_diff": err,
+                        "elements": n, "parameters_moved": moved}
+        log(f"[parallel] {name} vs {ref}: {n} values within rtol {DP_RTOL}"
+            f" atol {DP_ATOL}, max |diff| {err:.3g}, {moved} parameters "
+            "moved")
+    log("[parallel] warm step ms (rank 0, one job at a time): " + ", ".join(
+        f"{name} {ls[0]['step_ms']:.1f}" for name, ls in lines.items()
+        if "step_ms" in ls[0]))
+    result["seconds"] = time.perf_counter() - t0
+    return result
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -2306,11 +2799,14 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))
 
+    # ---- phase 9 (a): ray-sharded serving on the phase-2 models
+    par_serve, par_counts = run_sharded_serving(models)
+
     # ---- the render CLI: the counted cases, then every recorded call
     # against its plain version, and the per-call times
     del models
     torch.cuda.empty_cache()
-    cli_stats, cli_counts, cli_variants, cli_timed = run_cli(tmp)
+    cli_stats, cli_counts, cli_variants, cli_timed, cli_frames = run_cli(tmp)
     cli_rows = check_kernels(cli_variants)
     del cli_variants
     time_cli_calls(cli_timed, cli_stats)
@@ -2340,6 +2836,19 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
     edit["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"editing": edit}))
 
+    # ---- phase 9 (b), (c): the CLI's device flags, data-parallel training
+    torch.cuda.empty_cache()
+    par = {"serving": par_serve, "cli": run_cli_devices(tmp, cli_frames),
+           "training": run_dp_training(tmp), "card": card,
+           "device_count": torch.cuda.device_count()}
+    par["phase_s"] = sum(par[k]["seconds"] for k in ("serving", "cli",
+                                                     "training"))
+    par["total_s"] = time.perf_counter() - t_start
+    log(f"[parallel] phase 9: {par['phase_s']:.1f} s (serving "
+        f"{par_serve['seconds']:.1f}, CLI {par['cli']['seconds']:.1f}, "
+        f"training {par['training']['seconds']:.1f})")
+    print(json.dumps({"parallel": par}))
+
     on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
@@ -2365,6 +2874,9 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
                 mode, 0),
             "launches_by_editing_case": {c: cnt[kname][mode]
                                          for c, cnt in edit_counts.items()},
+            "launches_by_parallel_case": {
+                f"{st}/{lay}": c[kname][mode]
+                for st, by in par_counts.items() for lay, c in by.items()},
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

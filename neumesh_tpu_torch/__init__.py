@@ -6,9 +6,10 @@ every TPU kernel on the ported path is a hand-written CUDA C++ kernel
 for Hopper (`csrc/`, built with nvcc at first use, bound with ctypes).
 
 Device rule: every entry point takes `device=` (the render CLI
-`--device`), default "cuda". Without a card the default raises; only an
-explicit `device="cpu"` runs on the CPU, where each kernel wrapper uses
-its plain PyTorch version.
+`--device`), default "cuda" (under a process group, each rank's
+cuda:LOCAL_RANK). Without a card the default raises; only an explicit
+`device="cpu"` runs on the CPU, where each kernel wrapper uses its plain
+PyTorch version.
 """
 from __future__ import annotations
 
@@ -27,10 +28,15 @@ def require_cuda() -> None:
 
 def resolve_device(device="cuda") -> torch.device:
     """torch.device for an entry point's `device=` argument. A CUDA device
-    requires a card; nothing falls back to the CPU."""
+    requires a card; nothing falls back to the CPU. An index-less "cuda"
+    is parallel.dist.default_device(): this rank's cuda:LOCAL_RANK under a
+    process group, the current device without one."""
     dev = torch.device(device)
     if dev.type == "cuda":
         require_cuda()
+        if dev.index is None:
+            from .parallel.dist import default_device
+            dev = default_device()
     return dev
 
 

@@ -9,8 +9,11 @@ Prints the throughput in Mrays/s.
         [render.py's flags] [--section:key value ...] [--device cpu]
 
 Runs on the card unless --device cpu is given; without a card and without
-that flag it raises. Output goes to out/<outbase or expname>/ under the
-working directory, as render.py writes it.
+that flag it raises. --volume_devices / --surface_devices shard each
+chunk's rays over local cards (0, the default: all of them; 1: the
+single-device path), a replica of the model on each. Output goes to
+out/<outbase or expname>/ under the working directory, as render.py
+writes it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from ..dataio import get_data
 from ..models import build_framework
 from ..ops.cameras import c2w_track_spiral, normalize, poses_avg
 from ..ops.rays import block_order_indices, get_rays
+from ..parallel import (get_device_mesh, replicate, sharded_surface_render,
+                        sharded_volume_render)
+from ..render.volume import SingleRenderer
 from ..utils.checkpoints import CheckpointIO, sorted_ckpts
 from ..utils.image_io import write_png
 
@@ -38,14 +44,36 @@ def _integerify(img):
     return (np.clip(img, 0, 1) * 255.0).astype(np.uint8)
 
 
-def _single_device(args, key: str) -> None:
-    """--volume_devices / --surface_devices: the port renders on one
-    device; more wait for the multi-GPU slice."""
+def _render_devices(args, key: str, model) -> list:
+    """The devices of --volume_devices / --surface_devices: 0 means every
+    local card (the CPU counts as one device), 1 the model's device alone;
+    n > 1 the first n cards, or n CPU replicas with --device cpu."""
     n = args.get(key, 0) or 0
-    if n > 1:
-        raise NotImplementedError(
-            f"--{key} {n}: rendering over several GPUs waits for the "
-            "multi-GPU slice of the port")
+    dev = model.device
+    if dev.type != "cuda":
+        return [dev] * max(n, 1)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cards = get_device_mesh()
+    if n > len(cards):
+        raise ValueError(f"--{key} {n}: {len(cards)} CUDA devices visible")
+    # the model's own card first
+    return ([dev] + [d for d in cards if d != dev])[:n or len(cards)]
+
+
+def _replicas(model, devices) -> list:
+    """The model on devices[0] (model itself there) and a copy of it on
+    each further device."""
+    return [model] + [replicate(model, d) for d in devices[1:]]
+
+
+def _pad_to(ro, rd, chunk):
+    """Edge-pad (n, 3) rays to a multiple of chunk."""
+    pad = (-ro.shape[0]) % chunk
+    if pad:
+        ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
+        rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
+    return ro, rd
 
 
 def render_function(args, model, render_kwargs_test, render_fn):
@@ -226,21 +254,62 @@ def main_function(args):
     if args.get("render_mode", "volume") == "surface":
         render_fn = make_surface_render_fn(args, model)
     else:
-        _single_device(args, "volume_devices")
+        devices = _render_devices(args, "volume_devices", model)
+        if len(devices) > 1:
+            render_fn = make_volume_render_fn(args, model, devices)
     return render_function(args, model, render_kwargs_test, render_fn)
+
+
+def make_volume_render_fn(args, model, devices):
+    """Multi-device volume-render callable with SingleRenderer's interface
+    (rays_o, rays_d, **kw) -> (rgb, depth, extras): chunks of a multiple
+    of len(devices) x max(ray_tile, 1) rays (the last edge-padded), each
+    split over the devices' replicas (parallel.sharded_volume_render) and
+    gathered on the first."""
+    from .. import set_fp32_precision
+
+    replicas = _replicas(model, devices)
+    log.info(f"=> Volume mode on {len(devices)} devices: "
+             + ", ".join(map(str, devices)))
+
+    @torch.no_grad()
+    def render_fn(rays_o, rays_d, **kw):
+        for k in SingleRenderer._TRAINING_ONLY:
+            kw.pop(k, None)
+        rayschunk = kw.pop("rayschunk", 0)
+        kw.setdefault("detailed_output", False)
+        if model.device.type == "cuda":
+            set_fp32_precision()
+        ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+        n = ro.shape[0]
+        # chunks split evenly over the devices, each shard into tiles
+        quantum = len(devices) * max(int(kw.get("ray_tile", 0) or 0), 1)
+        chunk = -(-(rayschunk or n) // quantum) * quantum
+        ro, rd = _pad_to(ro, rd, chunk)
+        outs = [sharded_volume_render(replicas, ro[i:i + chunk],
+                                      rd[i:i + chunk], devices, **kw)
+                for i in range(0, ro.shape[0], chunk)]
+        ret = {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
+        return ret["rgb"], ret["depth_volume"], ret
+
+    return render_fn
 
 
 def make_surface_render_fn(args, model):
     """Chunked surface-render callable with the volume renderer's
     interface (rays_o, rays_d, **kw) -> (rgb, depth, extras): one
-    secant-refined surface hit and one colour query per ray. With
+    secant-refined surface hit and one colour query per ray, each chunk
+    split over the --surface_devices replicas
+    (parallel.sharded_surface_render; one device renders directly). With
     --surface_ray_tile > 1 a full frame's rays are permuted into pixel
     blocks of that many rays (block height int(sqrt(tile // 2)), halved
     until a block divides the frame; tiling is disabled, with a warning,
     when none does or the batch is not a full frame)."""
-    from ..render.ray_casting import surface_render
-
-    _single_device(args, "surface_devices")
+    devices = _render_devices(args, "surface_devices", model)
+    replicas = _replicas(model, devices)
+    if len(devices) > 1:
+        log.info(f"=> Surface mode on {len(devices)} devices: "
+                 + ", ".join(map(str, devices)))
     cfgs = {"N_steps": args.get("surface_steps", 128) or 128,
             "N_secant_steps": args.get("surface_secant_steps", 8) or 8,
             "fill_inf": False}
@@ -280,20 +349,16 @@ def make_surface_render_fn(args, model):
                         "image (H*W != n); disabling ray tiling for this "
                         "render")
             tile_eff = 0
-        quantum = max(tile_eff, 1)
-        chunk = args.rayschunk or n
-        chunk = -(-chunk // quantum) * quantum
-        pad = (-n) % chunk
-        if pad:
-            ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
-            rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
-        outs = [surface_render(model, ro[i:i + chunk], rd[i:i + chunk],
-                               calc_normal=True, ray_tile=tile_eff,
-                               scan_mode=scan_mode,
-                               tile_max_candidates=max_cand,
-                               ray_casting_cfgs=dict(cfgs),
-                               device=model.device, **shade_kw)
-                for i in range(0, n + pad, chunk)]
+        # chunks split evenly over the devices, each shard into tiles
+        quantum = len(devices) * max(tile_eff, 1)
+        chunk = -(-(args.rayschunk or n) // quantum) * quantum
+        ro, rd = _pad_to(ro, rd, chunk)
+        outs = [sharded_surface_render(
+                    replicas, ro[i:i + chunk], rd[i:i + chunk], devices,
+                    calc_normal=True, ray_tile=tile_eff, scan_mode=scan_mode,
+                    tile_max_candidates=max_cand,
+                    ray_casting_cfgs=dict(cfgs), **shade_kw)
+                for i in range(0, ro.shape[0], chunk)]
 
         def cat(parts):
             v = torch.cat(parts, 0)[:n]
@@ -351,12 +416,12 @@ def create_render_args(parser):
              "rays of a pixel block")
     parser.add_argument(
         "--surface_devices", type=int, default=0,
-        help="surface mode: devices to render over (0 or 1: one; more "
-             "wait for the multi-GPU slice)")
+        help="surface mode: shard each chunk's rays over this many local "
+             "devices (0 = all, 1 = the single-device path)")
     parser.add_argument(
         "--volume_devices", type=int, default=0,
-        help="volume mode: devices to render over (0 or 1: one; more "
-             "wait for the multi-GPU slice)")
+        help="volume mode: shard each chunk's rays over this many local "
+             "devices (0 = all, 1 = the single-device path)")
     parser.add_argument(
         "--surface_scan", type=str, default="density",
         choices=["density", "distance"],

@@ -3,6 +3,7 @@ interpolated signed distance of the per-sample protocol (counterpart of
 neumesh_tpu/mesh/grid.py)."""
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -43,6 +44,18 @@ class MeshGrid:
             self.grid = None
         else:
             raise NotImplementedError(distance_method)
+
+    def to(self, device) -> "MeshGrid":
+        """A copy whose tables (vertices, vertex normals, the candidate
+        grid) are on `device`; the host mesh is shared."""
+        dev = torch.device(device)
+        out = copy.copy(self)
+        out.device = dev
+        out.vertices = self.vertices.to(dev, copy=True)
+        out.vertex_normals = self.vertex_normals.to(dev, copy=True)
+        if self.grid is not None:
+            out.grid = self.grid.to(dev)
+        return out
 
     def get_number_of_vertices(self) -> int:
         return int(self.vertices.shape[0])

@@ -178,12 +178,17 @@ def _lib(name: str):
         return lib
 
 
-def launch(name: str, args) -> None:
-    """Launch kernel `name` on PyTorch's current stream."""
+def launch(name: str, args, operand: torch.Tensor) -> None:
+    """Launch kernel `name` on the device of `operand` (its first tensor
+    operand), on PyTorch's current stream of that device, whatever device
+    is current."""
     src, entry = ENTRY[name]
     lib = _lib(src)
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, entry)(ctypes.addressof(args), ctypes.c_void_p(stream))
+    dev = operand.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, entry)(ctypes.addressof(args),
+                                 ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cuda error {rc} "
                            f"({lib.nm_error_string(rc).decode()})")

@@ -336,7 +336,7 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
         args.dens = dens_d
     if col_d is not None:
         args.col = col_d
-    _build.launch("field_fused", args)
+    _build.launch("field_fused", args, xyz)
     LAUNCHES["field_fused"][want] += 1
     return list(out)
 
@@ -503,7 +503,7 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
         f_low=_ptr(vec[2], keep), f_high=_ptr(vec[3], keep),
         d_low_w=_ptr(wvec[0], keep), d_high_w=_ptr(wvec[1], keep),
         n_iters=n_iters, rebracket=int(rebracket), frozen=int(frozen_knn))
-    _build.launch("secant_refine", args)
+    _build.launch("secant_refine", args, rays_o)
     LAUNCHES["secant_refine"][secant_mode(rebracket, frozen_knn)] += 1
     return out
 
@@ -640,7 +640,7 @@ def surface_locate(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, *,
         return out[0], *(out[1:] > 0.5)
     args, _keep = _locate_args(rays_o, rays_d, near, far, geo, feat, w1,
                                dens_ws, out, **kw)
-    _build.launch("surface_locate", args)
+    _build.launch("surface_locate", args, rays_o)
     LAUNCHES["surface_locate"]["f32" if dtype is None else "bf16"] += 1
     return out[0], out[1] > 0.5, out[2] > 0.5, out[3] > 0.5
 
@@ -722,7 +722,7 @@ def candidate_field_v3(xyz, geo, feat, w1, *, k: int = 8,
             feat=_ptr(feat, keep), out_d=packed.data_ptr(),
             out_feat=_ptr(feats, keep), B=B, S=S, C=C, F=F, k=k,
             want_dh=int(want_dh), want_feat=int(want_feat), w1=float(w1))
-        _build.launch("candidate_field_v3", args)
+        _build.launch("candidate_field_v3", args, xyz)
         LAUNCHES["candidate_field_v3"][candidate_mode(want_dh,
                                                       want_feat)] += 1
     return (packed[..., 0:1], packed[..., 1:4] if want_dh else None, feats)
@@ -780,7 +780,7 @@ def candidate_field(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
             out_d=ds.data_ptr(), out_dh=_ptr(dh, keep),
             out_feat=_ptr(feats, keep), B=R, S=S, C=C, F=F, k=k,
             want_dh=int(want_dh), want_feat=int(want_feat), w1=float(w1))
-        _build.launch("candidate_field", args)
+        _build.launch("candidate_field", args, xyz)
         LAUNCHES["candidate_field"][candidate_mode(want_dh, want_feat)] += 1
     return ds, dh, feats
 

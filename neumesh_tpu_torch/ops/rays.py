@@ -26,16 +26,24 @@ def get_rays(c2w, intrinsics, H: int, W: int, N_rays: int = -1,
     Without N_rays or select_inds: all H*W pixels in row-major order,
     returned as (rays_o, rays_d). With N_rays > 0: min(N_rays, H*W)
     pixels by independently uniform row and column indices drawn from
-    `generator` (shared by the cameras of a batch), or the given
-    select_inds (N,); returned as (rays_o, rays_d, select_inds (..., N))."""
+    `generator` (shared by the cameras of a batch; a
+    parallel.ShardedGenerator draws them all and keeps this rank's slice),
+    or the given select_inds (N,); returned as (rays_o, rays_d,
+    select_inds (..., N))."""
     prefix = c2w.shape[:-2]
     dev = c2w.device
     sampled = N_rays > 0 or select_inds is not None
     if select_inds is None:
         if N_rays > 0:
             n = min(N_rays, H * W)
-            hs = torch.randint(0, H, (n,), generator=generator, device=dev)
-            ws = torch.randint(0, W, (n,), generator=generator, device=dev)
+            if isinstance(generator, torch.Generator) or generator is None:
+                hs = torch.randint(0, H, (n,), generator=generator,
+                                   device=dev)
+                ws = torch.randint(0, W, (n,), generator=generator,
+                                   device=dev)
+            else:
+                hs = generator.rays(H, n, dev)
+                ws = generator.rays(W, n, dev)
             select_inds = hs * W + ws
         else:
             select_inds = torch.arange(H * W, device=dev)
@@ -51,6 +59,15 @@ def get_rays(c2w, intrinsics, H: int, W: int, N_rays: int = -1,
     if sampled:
         return rays_o, rays_d, select_inds
     return rays_o, rays_d
+
+
+def rand(shape, generator, device) -> torch.Tensor:
+    """torch.rand(shape) from `generator`; a parallel.ShardedGenerator
+    draws the global (image x ray) rows and keeps this rank's (shape[0]
+    flattens its images' rays)."""
+    if isinstance(generator, torch.Generator) or generator is None:
+        return torch.rand(shape, generator=generator, device=device)
+    return generator.rand(shape, device)
 
 
 def near_far_from_sphere(rays_o, rays_d, r: float = 1.0,
@@ -75,8 +92,7 @@ def sample_pdf(bins, weights, N_importance: int, det: bool = False,
             u = torch.linspace(0.0, 1.0, N_importance,
                                device=cdf.device).expand(shape)
         else:
-            u = torch.rand(shape, generator=generator,
-                           device=cdf.device)
+            u = rand(shape, generator, cdf.device)
     # inds = #{i : cdf[i] < u}, the rank count of the reference
     inds = torch.sum((cdf[..., None, :] < u[..., :, None]).to(torch.int64),
                      dim=-1)

@@ -23,7 +23,7 @@ from .. import resolve_device, set_fp32_precision
 from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.alpha import alpha_to_w, cdf_Phi_s, sdf_to_alpha
 from ..ops.rays import (block_order_indices, get_rays, near_far_from_sphere,
-                        sample_pdf)
+                        rand, sample_pdf)
 from .ray_casting import root_finding_surface_points
 
 
@@ -285,7 +285,7 @@ def _render_core(model, rays_o, rays_d, near, far, *, calc_normal=False,
         pts = at(d_mid)
         if random_color_direction:
             # the view-independence trick of texture painting
-            rnd = torch.rand(pts.shape, generator=generator, device=dev)
+            rnd = rand(pts.shape, generator, dev)
             dirs_mid = rnd / torch.linalg.vector_norm(rnd, dim=-1,
                                                       keepdim=True)
         else:

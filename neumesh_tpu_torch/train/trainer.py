@@ -8,6 +8,10 @@ backward(). The distillation teacher runs under torch.no_grad, so its
 targets carry no gradient. Trainer.render_and_loss_painting is the
 texture-painting objective of the editing CLI: paint rays rendered with
 random colour directions, background rays with distillation.
+
+Under a process group (data parallel, parallel/mesh.py) every loss that
+divides by a data-dependent count divides by the group's count, and the
+psnr is the group's; plain means over equal per-rank counts need nothing.
 """
 from __future__ import annotations
 
@@ -15,21 +19,51 @@ import torch
 
 from ..ops import rays as rays_ops
 from ..ops.metrics import psnr
+from ..parallel import dist, global_sum
 from ..render.volume import volume_render_rays
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "float32": None, "f32": None}
 
 
+def _masked_mean(total, count, eps=0.0, clamp=None):
+    """total / (count + eps), or total / max(count, clamp). Under a
+    process group the count is the group's (global_sum) and the quotient
+    is scaled by the world size: all_reduce_grads averages the ranks, so
+    the gradient is that of the global batch's masked mean."""
+    world = 1
+    if dist.is_initialized():
+        world, count = dist.process_count(), global_sum(count)
+    den = count + eps if clamp is None else torch.clamp(count, min=clamp)
+    return total / den if world == 1 else world * total / den
+
+
 def density_distill_loss(density_pred, density_gt, density_clip=None):
     """SDF distillation L1. density_clip=None: the plain mean the reference
-    ships; a float: the L1 averaged over |teacher sdf| <= clip."""
+    ships; a float: the L1 averaged over |teacher sdf| <= clip (over the
+    group's samples under a process group, see _masked_mean)."""
     l1 = torch.abs(density_gt - density_pred)
     if density_clip is None:
         return torch.mean(l1)
     mask = torch.abs(density_gt) <= density_clip
-    return (torch.sum(torch.where(mask, l1, torch.zeros_like(l1)))
-            / torch.clamp(torch.sum(mask), min=1))
+    return _masked_mean(torch.sum(torch.where(mask, l1, torch.zeros_like(l1))),
+                        torch.sum(mask), clamp=1)
+
+
+def _psnr(rgb, target_rgb, valid_mask=None):
+    """metrics.psnr; under a process group, of the group's rays (the
+    squared error and its count summed over the ranks)."""
+    if not dist.is_initialized():
+        return psnr(rgb, target_rgb, valid_mask=valid_mask)
+    err = ((rgb - target_rgb) ** 2).detach()
+    if valid_mask is None:
+        n = torch.tensor(float(err.numel()), device=err.device)
+    else:
+        err = torch.where(valid_mask, err, torch.zeros_like(err))
+        n = torch.sum(valid_mask).float() * (err.numel()
+                                             // valid_mask.numel())
+    sums = global_sum(torch.stack([torch.sum(err), n]))
+    return -10.0 * torch.log10(sums[0] / torch.clamp(sums[1], min=1))
 
 
 def _take(x, inds):
@@ -59,7 +93,9 @@ class Trainer:
         "object_mask" (B, H*W)}, ground_truth {"rgb" (B, H*W, 3)} as
         tensors on the model's device. N_rays pixels a view are drawn from
         `generator` (or select_inds is used); the same generator draws the
-        render's perturbations."""
+        render's perturbations. A parallel.ShardedGenerator draws them at
+        the global batch's shape and keeps this rank's rays (N_rays is
+        then the global count a view)."""
         rays_o, rays_d, select_inds = rays_ops.get_rays(
             model_input["c2w"], model_input["intrinsics"], H, W,
             N_rays=N_rays, generator=generator, select_inds=select_inds)
@@ -182,19 +218,21 @@ class Trainer:
             target_mask = mask if mask_ignore is None else (mask
                                                             & mask_ignore)
             tmf = target_mask.to(torch.float32)
-            losses["loss_img"] = (torch.sum(loss_img * tmf[..., None])
-                                  / (torch.sum(tmf) + 1e-10))
-            out_extras["psnr"] = psnr(rgb, target_rgb,
-                                      valid_mask=target_mask[..., None])
+            losses["loss_img"] = _masked_mean(
+                torch.sum(loss_img * tmf[..., None]), torch.sum(tmf),
+                eps=1e-10)
+            out_extras["psnr"] = _psnr(rgb, target_rgb,
+                                       valid_mask=target_mask[..., None])
         elif mask_ignore is not None:
             mi = mask_ignore.to(torch.float32)
-            losses["loss_img"] = (torch.sum(loss_img * mi[..., None])
-                                  / (torch.sum(mi) + 1e-10))
-            out_extras["psnr"] = psnr(rgb, target_rgb,
-                                      valid_mask=mask_ignore[..., None])
+            losses["loss_img"] = _masked_mean(
+                torch.sum(loss_img * mi[..., None]), torch.sum(mi),
+                eps=1e-10)
+            out_extras["psnr"] = _psnr(rgb, target_rgb,
+                                       valid_mask=mask_ignore[..., None])
         else:
             losses["loss_img"] = torch.mean(loss_img)
-            out_extras["psnr"] = psnr(rgb, target_rgb)
+            out_extras["psnr"] = _psnr(rgb, target_rgb)
 
         losses["total"] = sum(losses.values())
         if use_eikonal_loss:

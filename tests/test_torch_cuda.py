@@ -932,3 +932,34 @@ def test_kernel_wrappers_raise_on_inputs_that_require_grad():
         out = kernels.field_fused(xyz, geo, feat, 0.1, want="distance")
     assert torch.isfinite(out[0]).all()
     kernels.field_fused(xyz.detach(), geo, feat, 0.1, want="distance")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want,dtype", [("density", None), ("full", "bf16")])
+def test_field_fused_launches_on_its_operands_device_and_stream(want,
+                                                                dtype):
+    """The launch takes the device of its first operand and that device's
+    current stream: inside torch.cuda.stream(s) the kernel runs on s (the
+    result is read after s alone is synchronised), and, with a second
+    card, on tensors on cuda:1 while cuda:0 is current. Each equals its
+    plain version."""
+    _need_card()
+    inp = random_context(seed=8, B=8, S=300, C=128)
+    mask = no_tie_mask(inp["xyz"], inp["geo"])
+    dt = None if dtype is None else "bf16"
+    ref = [o.cpu().numpy() for o in
+           torch_field(inp, want, 8, dt, (), device="cuda", plain=True)]
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        outs = torch_field(inp, want, 8, dt, (), device="cuda")
+    s.synchronize()
+    assert_field_close([o.cpu().numpy() for o in outs], ref, mask, want, dt)
+    if torch.cuda.device_count() < 2:
+        return
+    with torch.cuda.device(0):
+        kernels.reset_launch_counts()
+        got = [o.cpu().numpy() for o in
+               torch_field(inp, want, 8, dt, (), device="cuda:1")]
+        assert torch.cuda.current_device() == 0
+    assert kernels.LAUNCHES["field_fused"][want] == 1
+    assert_field_close(got, ref, mask, want, dt)

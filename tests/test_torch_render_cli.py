@@ -125,11 +125,40 @@ def test_cli_raises_without_a_card_and_for_several_devices(cli_scene,
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             trender.main(base)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trender.main(base + ["--device", "cpu", "--volume_devices", "2"])
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        trender.main(base + ["--device", "cpu", "--render_mode", "surface",
-                             "--surface_devices", "4"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trender.main(base + ["--volume_devices", "2"])
+    # several devices no longer raise: with --device cpu they are CPU
+    # replicas (their frames against one device: the test below)
+    for flags in (["--volume_devices", "2"],
+                  ["--render_mode", "surface", "--surface_devices", "4"]):
+        out = trender.main(base + ["--device", "cpu", "--outbase", "n"]
+                           + flags)
+        assert np.isfinite(out["rgb"][0]).all()
     out = trender.main(base + ["--device", "cpu", "--disable_rgb"])
     assert out["files"] == [] and os.path.isdir(os.path.join("out", "cli",
                                                              "normal"))
+
+
+@pytest.mark.parametrize("mode,flags", [
+    ("volume", ["--volume_devices"]),
+    ("surface", ["--surface_scan", "distance", "--surface_devices"])])
+def test_cli_on_two_devices_matches_one_device(cli_scene, tmp_path,
+                                               monkeypatch, mode, flags):
+    """--volume_devices 2 / --surface_devices 2 on the CPU, dataset view
+    0: each chunk's rays split over two CPU replicas of the model (the
+    last chunk edge-padded to an even count), the frames those of
+    --*_devices 1 (f32 rounding: the plain versions' matmuls see other
+    row counts)."""
+    from neumesh_tpu_torch.cli import render as trender
+    cfg, pt = cli_scene
+    monkeypatch.chdir(tmp_path)
+    base = ["--config", cfg, "--load_pt", pt, "--camera_path", "dataset",
+            "--camera_inds", "0", "--render_mode", mode,
+            "--surface_steps", "32", "--rayschunk", "250",
+            "--device", "cpu"] + flags
+    one = trender.main(base + ["1", "--outbase", "one"])
+    two = trender.main(base + ["2", "--outbase", "two"])
+    for key in ("rgb", "normals", "depth"):
+        np.testing.assert_allclose(two[key][0], one[key][0], rtol=1e-4,
+                                   atol=1e-5, err_msg=key)
+        assert float(np.std(one[key][0])) > 1e-3, key
