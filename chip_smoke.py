@@ -5,7 +5,9 @@
 
 Phases (any failure exits non-zero; nothing falls back to the CPU):
  1. device: CUDA required; card name and power limit; build every kernel
-    from neumesh_tpu_torch/csrc (nvcc, all sources in parallel), timed;
+    from neumesh_tpu_torch/csrc (nvcc, all sources in parallel) and the
+    host-geometry library from neumesh_tpu_torch/cpp (g++, beside them),
+    timed;
     the [build] lines give each kernel function's registers and spills
     (ptxas), its HGMMA (wgmma) instructions (cuobjdump), and, after the
     main paths, each kernel's dynamic shared memory per block.
@@ -41,8 +43,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     counters set to 0 just before and read just after (its kernel modes
     asserted; ms/view, Mrays/s, frame peak memory), then one view again
     with every kernel call recorded: each call replayed against its plain
-    version, each (kernel, mode, samples a context) timed with its bound
-    and the share of live rows in its blocks; the written PNGs decoded by
+    version, each (kernel, mode, samples a context) timed with its plain
+    version's time, its bound and the share of live rows in its blocks; the written PNGs decoded by
     the port's reader equal the returned frames.
  6. training (neumesh_tpu_torch.cli.train.main) on the same scene, at
     the flagship widths of the shipped configs: the NeuS teacher from
@@ -64,7 +66,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
  7. the pipeline after training: (a) on phase 6's latest.ckpt: the grid SDF
     of the teacher and of the full-width student on the card against the
     same model on the CPU on a 32^3 grid (f32 tolerances); the teacher
-    through the extraction CLI (neumesh_tpu_torch.cli.extract_mesh.main)
+    through the extraction CLI (neumesh_tpu_torch.cli.extract_mesh.main;
+    the C++ marching by default)
     at N_grid 256 (grid, marching and colour ms, vertex and triangle
     counts; a finite mesh whose every edge two triangles share, open edges
     only on the grid box's faces); the student's 128^3 grid, timed (20
@@ -98,16 +101,16 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     the same mode unedited, then with --use_arap; texture filling (uv
     charts of two bands, step 2) and geometry editing (the wave-deformed
     scaffold, its MeshGrid rebuilt on the card), one view each; painting
-    (paint rays cast on the card, PAINT_ITERS steps at 512 rays, the first
-    step's calls recorded); the editing gate on the swap, printed beside
-    the JAX package's GATES_r05/editing_gate_sphere.json (qualities, not
-    held). Checks: every recorded call against its plain version; a
-    64x64 crop of each edited render through the plain versions >= 55
-    dB; the surface swaps' depth and hit mask equal to the unedited
-    render's, their rgb within the f32 tolerance on the rays whose tile
-    candidates hold no edited vertex; after painting every parameter but
-    the painted rows of color_features bit-identical, those rows moved,
-    every loss finite. Reports ms per view edited and unedited, the
+    (paint rays cast through the host BVH, PAINT_ITERS steps at 512 rays,
+    the first step's calls recorded); the editing gate on the swap,
+    printed beside the JAX package's GATES_r05/editing_gate_sphere.json
+    (qualities, not held). Checks: every recorded call against its plain
+    version; a 64x64 crop of each edited render through the plain
+    versions >= 55 dB; the surface swaps' depth and hit mask equal to the
+    unedited render's, their rgb within the f32 tolerance on the rays
+    whose tile candidates hold no edited vertex; after painting every
+    parameter but the painted rows of color_features bit-identical, those
+    rows moved, every loss finite. Reports ms per view edited and unedited, the
     edit's host steps (load, ICP, kNN, ARAP, MeshGrid rebuild), the ray
     cast, paint ms/it and the phase's peak memory.
  9. multi-GPU (neumesh_tpu_torch.parallel) on the one card: (a) right
@@ -131,13 +134,27 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     field_fused launches > 0. (d) with a second card also [cuda:0,
     cuda:1] serving and the 2 x 1 update over nccl across two cards;
     otherwise one line says they were not exercised.
+10. the host-geometry library (neumesh_tpu_torch/cpp, the JAX package's
+    default path): the phase-2 icosphere's candidate grid built by the
+    C++ KD-tree and by scipy (ms each, cell_row equal, rows equal
+    counted); serving_bf16 and surface_fast at
+    256x256 from each grid, the native-built frames counted (their kernel
+    modes asserted) and every kernel call recorded and replayed against
+    its plain version, the pixels the scipy grid's ties move counted;
+    phase 7's 256^3 teacher field through the C++ and the numpy marching
+    tetrahedra and cubes (the same vertex set, ms each); phase 8's ARAP
+    warp native vs numpy (s each, max |diff| and ARAP energies reported,
+    the constraints pinned by both); phase 8's
+    paint rays through the BVH and the card's float64 caster (the same
+    hits and t, primitives differing only at ties, ms each).
 Prints the card line, one {"cli": {...}} line, one {"training": {...}}
 line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
-{"parallel": {...}} line, one {"kernels": [...]} line (each row with its
-design, "wgmma" or "simt", the launches of the gate modes in
-launches_by_structure, of the editing cases in launches_by_editing_case,
-of phase 9's sharded renders in launches_by_parallel_case), and last
-{"ok": true, "device": {...}}.
+{"parallel": {...}} line, one {"host_geometry": {...}} line, one
+{"kernels": [...]} line (each row with its design, "wgmma" or "simt",
+the launches of the gate modes in launches_by_structure, of the editing
+cases in launches_by_editing_case, of phase 9's sharded renders in
+launches_by_parallel_case, of phase 10's renders in
+launches_host_geometry), and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -518,13 +535,27 @@ def hgmma_counts(lib_path):
 
 
 def build_kernels():
-    """Build every library; per library the [build] line gives ptxas's
-    registers and spills of each kernel function and the HGMMA (wgmma)
-    instructions in each function's SASS."""
+    """Build every library, the host-geometry library (g++) beside the
+    kernels' (nvcc, all at once); per kernel library the [build] line
+    gives ptxas's registers and spills of each kernel function and the
+    HGMMA (wgmma) instructions in each function's SASS. Returns (seconds
+    of the whole build, seconds of the host library's)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from neumesh_tpu_torch.ops import _build
+
+    def host():
+        t = time.perf_counter()
+        path = _build.build_host()
+        return path, time.perf_counter() - t
     t0 = time.perf_counter()
-    _build.build_all()
+    with ThreadPoolExecutor(1) as ex:
+        host_job = ex.submit(host)
+        _build.build_all()
+        host_path, host_s = host_job.result()
     secs = time.perf_counter() - t0
+    log(f"[build] host library (g++): {host_s:.1f} s, "
+        f"{os.path.basename(host_path)}")
     for name, info in _build.BUILD_LOG.items():
         lines = [ln.replace("ptxas info    : ", "").strip()
                  for ln in info["ptxas"].splitlines()
@@ -535,7 +566,7 @@ def build_kernels():
               "HGMMA " + ", ".join(f"{fn}: {n}" for fn, n in counts.items()))
         log(f"[build] {name}: {info['seconds']:.1f} s; " + " | ".join(lines)
             + f"; {hg}")
-    return secs
+    return secs, host_s
 
 
 @contextlib.contextmanager
@@ -1065,20 +1096,48 @@ def run_cli(tmp):
 
 
 def time_cli_calls(timed, stats):
-    """Kernel ms and bound of the first call of each (kernel, mode, rows a
-    context) of each case, into the case's per_frame_calls."""
+    """Kernel ms, plain ms and bound of the first call of each (kernel,
+    mode, rows a context) of each case, into the case's
+    per_frame_calls."""
     from neumesh_tpu_torch.ops import kernels
     for (name, mode, n, tag), (a, kw) in timed.items():
         fn = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
         ms = cuda_ms(lambda: fn(*a, **kw))
+        plain_ms = cuda_ms(lambda: plain(*a, **kw), reps=2)
         bound, by = kernel_bound(name, a, kw)
         for row in stats[tag]["per_frame_calls"]:
             if (row["kernel"], row["mode"], row["rows_per_context"]) == \
                     (name, mode, n):
-                row.update(ms=ms, bound_ms=bound, bound_by=by,
-                           shapes=_shape_note(name, a))
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, shapes=_shape_note(name, a))
         log(f"[cli] {tag}: {name}/{mode} at {n} rows a context: {ms:.3f} ms "
-            f"(bound {bound:.4f}, {by})")
+            f"(plain {plain_ms:.3f}, bound {bound:.4f}, {by})")
+
+
+# ---------------------------------------------------------------------------
+# inputs that phases 7-8 hand to phase 10 (host geometry)
+# ---------------------------------------------------------------------------
+
+# "march": the teacher's 256^3 extraction, "arap": the ARAP swap's warp,
+# "cast": the paint rays; each a list of (args, kwargs) of the calls
+HOST_INPUTS = {}
+
+
+@contextlib.contextmanager
+def keep_args(module, name, key):
+    """For the block, every call of module.<name> also keeps its arguments
+    in HOST_INPUTS[key], for phase 10's replays."""
+    fn = getattr(module, name)
+
+    def kept(*a, **kw):
+        HOST_INPUTS.setdefault(key, []).append((a, kw))
+        return fn(*a, **kw)
+    setattr(module, name, kept)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
 
 
 # ---------------------------------------------------------------------------
@@ -1501,10 +1560,12 @@ def extract_full_width(tmp):
             del model
             stats = {}
             t0 = time.perf_counter()
-            mesh = cli.main(["--config", cfg_path, "--ckpt_path", ckpt,
-                             "--N_grid", str(n), "--chunk", "65536",
-                             "--output_dir", os.path.join(tmp, "mesh_neus"),
-                             "--device", DEV], stats=stats)
+            with keep_args(cli, "extract_isosurface", "march"):
+                mesh = cli.main(["--config", cfg_path, "--ckpt_path", ckpt,
+                                 "--N_grid", str(n), "--chunk", "65536",
+                                 "--output_dir",
+                                 os.path.join(tmp, "mesh_neus"),
+                                 "--device", DEV], stats=stats)
             row["wall_s"] = time.perf_counter() - t0
             if mesh.n_triangles == 0 or not np.isfinite(mesh.vertices).all() \
                     or not np.isfinite(mesh.vertex_colors).all():
@@ -2024,8 +2085,10 @@ def run_editing(tmp, card, p):
     from neumesh_tpu_torch.cli.editing import render_texture_filling as fill
     from neumesh_tpu_torch.cli.editing import render_texture_swapping as swap
     from neumesh_tpu_torch.editing import paint_train
+    from neumesh_tpu_torch.editing import swap as edit_swap
     from neumesh_tpu_torch.editing.renderer_base import \
         load_neumesh_from_config
+    from neumesh_tpu_torch.mesh import raycast
     from neumesh_tpu_torch.ops import kernels
     from neumesh_tpu_torch.render.volume import SingleRenderer
     from neumesh_tpu_torch.tools import editing_gate
@@ -2043,10 +2106,12 @@ def run_editing(tmp, card, p):
         argv = ["--config", jsons[kind], "--camera_inds", views,
                 "--outbase", tag, "--device", DEV] + flags
         store, tile_flags, calls = [], [], []
+        keep = (keep_args(edit_swap, "arap", "arap") if tag == "swap_arap"
+                else contextlib.nullcontext())
         with contextlib.chdir(tmp), edit_hooks(knobs, store, tile_flags):
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
-            with record_calls(calls):
+            with record_calls(calls), keep:
                 res = mains[kind](argv)
             torch.cuda.synchronize()
             cnt = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
@@ -2132,7 +2197,7 @@ def run_editing(tmp, card, p):
         return first_recorded
     paint_train.build_train_step = build_recording
     try:
-        with contextlib.chdir(tmp):
+        with contextlib.chdir(tmp), keep_args(raycast, "cast_rays", "cast"):
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
             t0 = time.perf_counter()
@@ -2690,6 +2755,251 @@ def run_dp_training(tmp):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the host-geometry library (neumesh_tpu_torch/cpp)
+# ---------------------------------------------------------------------------
+
+# the structures rendered from the native-built and the scipy-built grid
+HOST_STRUCTURES = ("serving_bf16", "surface_fast")
+# ARAP native vs numpy on phase 8's warp: both pin the constraints
+# exactly; their results differ where a vertex's one-ring covariance is
+# (nearly) rank-deficient, which the marching meshes have: the native
+# rotation fit (eigenvectors of S^T S, a coordinate axis for a vanishing
+# singular value) is not numpy's SVD there. Reported beside the ARAP
+# energy of each, not held to each other.
+
+
+def _sorted_rows(v):
+    return v[np.lexsort(v.T[::-1])]
+
+
+def host_grid_renders(tmp):
+    """(a) the candidate grid of the phase-2 icosphere built by the C++
+    KD-tree and by scipy's (ms each, cell_row equal, rows equal counted);
+    (b) HOST_STRUCTURES
+    rendered from each grid, the native-built render counted and its
+    kernel calls recorded. Returns (row, {structure: counts},
+    [variants])."""
+    import torch
+    from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
+    from neumesh_tpu_torch.mesh.grid import MeshGrid
+    from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+    from neumesh_tpu_torch.ops.knn import build_candidate_grid
+    from neumesh_tpu_torch.utils.state import load_reference_pt
+    mesh = icosphere_mesh(0.5, subdivisions=7)
+    grids, row = {}, {"n_vertices": mesh.n_vertices}
+    for backend in ("native", "scipy"):
+        t0 = time.perf_counter()
+        grids[backend] = build_candidate_grid(mesh.vertices, use_cache=False,
+                                              backend=backend)
+        row[f"grid_{backend}_ms"] = 1e3 * (time.perf_counter() - t0)
+    gn, gs = grids["native"], grids["scipy"]
+    if gn.dims != gs.dims or not torch.equal(gn.cell_row, gs.cell_row):
+        raise AssertionError("host grid: native and scipy cell_row differ")
+    # the two differ in the ties only: rows equal, or the same candidates
+    # in another order, or another of equidistant vertices at the row's end
+    a, b = gn.cand_idx.numpy(), gs.cand_idx.numpy()
+    row.update(dims=list(gn.dims), Kp=gn.Kp, rows=int(a.shape[0]),
+               rows_equal=int((a == b).all(1).sum()),
+               rows_same_set=int((np.sort(a, 1) == np.sort(b, 1)).all(1)
+                                 .sum()))
+    log(f"[host] candidate grid of {mesh.n_vertices} vertices: native "
+        f"{row['grid_native_ms']:.0f} ms, scipy {row['grid_scipy_ms']:.0f} "
+        f"ms; rows equal {row['rows_equal']} / {row['rows']} (same set "
+        f"{row['rows_same_set']})")
+    counts, variants, frames = {}, [], {}
+    for backend, g in grids.items():
+        mg = MeshGrid(mesh, device=DEV, grid=g)
+        for st in HOST_STRUCTURES:
+            mkey, kind, H, kw, must, _ = STRUCTURES[st]
+            serving, bf16, extra = MODELS[mkey]
+            m = NeuMesh(mg, device=DEV,
+                        compute_dtype=torch.bfloat16 if bf16 else None,
+                        **dict(FLAGSHIP, use_pallas=True, **serving,
+                               **extra))
+            load_reference_pt(os.path.join(tmp, "neumesh_1.pt"), m)
+            if backend == "native":
+                render(m, kind, H, **kw)            # warm-up
+                rgb, depth, _, cnt = counted(m, kind, H, **kw)
+                check_image(f"host {st}", rgb, depth, H, H)
+                missed = [f"{k}/{md}" for k, md in sorted(must)
+                          if cnt[k][md] <= 0]
+                if missed:
+                    raise AssertionError(f"host {st}: never launched "
+                                         f"{missed}")
+                counts[st] = cnt
+                calls = []
+                with record_calls(calls):
+                    render(m, kind, H, **kw)
+                firsts = {}
+                for name, mode, ca, ckw in calls:
+                    firsts.setdefault((name, mode), (ca, ckw))
+                variants += [(name, mode, f"host_{st}", ca, ckw,
+                              tol_key(name, ckw))
+                             for (name, mode), (ca, ckw) in firsts.items()]
+                del calls
+            else:
+                rgb, depth, _ = render(m, kind, H, **kw)
+            frames[(backend, st)] = rgb
+            del m
+        del mg
+        torch.cuda.empty_cache()
+    for st in HOST_STRUCTURES:
+        diff = (frames[("native", st)] - frames[("scipy", st)]).abs()
+        row[f"{st}_pixels_differing"] = int((diff.amax(-1) > 1 / 255).sum())
+        row[f"{st}_max_abs_diff"] = float(diff.max())
+        row[f"{st}_launches"] = {k: {md: c for md, c in v.items() if c}
+                                 for k, v in counts[st].items()
+                                 if any(v.values())}
+        log(f"[host] {st} from the native grid: launches "
+            f"{row[f'{st}_launches']}; pixels off by > 1/255 from the "
+            f"scipy grid's frame {row[f'{st}_pixels_differing']}")
+    return row, counts, variants
+
+
+def host_marching():
+    """Marching tetrahedra and cubes of phase 7's 256^3 teacher field,
+    the C++ library against the numpy code: the same vertex set (equal
+    after a lexicographic sort) and triangle count, ms each."""
+    from neumesh_tpu_torch.cpp import native
+    from neumesh_tpu_torch.mesh import marching_cubes as mc
+    (field, iso, *_), _ = HOST_INPUTS["march"][0]
+    f32, f64 = np.ascontiguousarray(field, np.float32), np.asarray(
+        field, np.float64)
+    out = {"N": list(field.shape), "iso": float(iso)}
+    for method in ("marching_tetrahedra", "marching_cubes"):
+        t0 = time.perf_counter()
+        vn, tn = getattr(native, method)(f32, float(iso))
+        t1 = time.perf_counter()
+        vp, tp = getattr(mc, method)(f64, iso)
+        t2 = time.perf_counter()
+        if len(tn) != len(tp) or vn.shape != vp.shape \
+                or not np.array_equal(_sorted_rows(vn), _sorted_rows(vp)):
+            raise AssertionError(f"host {method}: native and numpy vertex "
+                                 "sets differ")
+        out[method] = {"native_ms": 1e3 * (t1 - t0),
+                       "numpy_ms": 1e3 * (t2 - t1),
+                       "n_vertices": int(len(vn)),
+                       "n_triangles": int(len(tn))}
+        log(f"[host] {method} {field.shape[0]}^3: native "
+            f"{1e3 * (t1 - t0):.0f} ms, numpy {1e3 * (t2 - t1):.0f} ms, "
+            f"{len(vn)} vertices (sets equal)")
+    return out
+
+
+def arap_energy(V, T, P):
+    """sum_ij w_ij |(P_i - P_j) - R_i (V_i - V_j)|^2 over directed edges,
+    each R_i the SVD-optimal rotation of P's one-ring."""
+    from neumesh_tpu_torch.mesh.arap import cotangent_edges, fit_rotations
+    a, b, w = cotangent_edges(V, T)
+    I, J, W = (np.concatenate([a, b]), np.concatenate([b, a]),
+               np.concatenate([w, w]))
+    e, ep = V[J] - V[I], P[J] - P[I]
+    S = np.zeros((len(V), 3, 3))
+    np.add.at(S, I, W[:, None, None] * ep[:, :, None] * e[:, None, :])
+    R = fit_rotations(S)
+    r = ep - np.einsum("eab,eb->ea", R[I], e)
+    return float(np.sum(W * np.sum(r * r, -1)))
+
+
+def host_arap():
+    """Phase 8's ARAP warp (the swap's reference cap) by the C++ library
+    and by the numpy backend: seconds of each, max |diff|, the ARAP
+    energy of each and of the start; each pins its constraints
+    exactly."""
+    from neumesh_tpu_torch.mesh.arap import arap
+    (V, T, cids, cpos), kw = HOST_INPUTS["arap"][0]
+    V = np.asarray(V, np.float64)
+    t0 = time.perf_counter()
+    got = arap(V, T, cids, cpos, **kw, backend="native")
+    t1 = time.perf_counter()
+    want = arap(V, T, cids, cpos, **kw, backend="numpy")
+    t2 = time.perf_counter()
+    start = V.copy()
+    start[cids] = cpos
+    out = {"n_vertices": int(len(V)), "n_constraints": int(len(cids)),
+           "max_iter": kw.get("max_iter", 20), "native_s": t1 - t0,
+           "numpy_s": t2 - t1,
+           "max_abs_diff": float(np.abs(got - want).max()),
+           "energy": {"start": arap_energy(V, T, start),
+                      "native": arap_energy(V, T, got),
+                      "numpy": arap_energy(V, T, want)},
+           "moved": float(np.abs(got - V).max())}
+    log(f"[host] ARAP of {out['n_vertices']} vertices "
+        f"({out['n_constraints']} pinned): native {out['native_s']:.2f} s, "
+        f"numpy {out['numpy_s']:.2f} s, max|diff| "
+        f"{out['max_abs_diff']:.2e}; energy {out['energy']}")
+    for tag, P in (("native", got), ("numpy", want)):
+        if not (np.isfinite(P).all() and np.array_equal(P[cids], start[cids])):
+            raise AssertionError(f"host ARAP {tag}: constraints not pinned "
+                                 "or non-finite vertices")
+    return out
+
+
+def host_cast():
+    """Phase 8's paint rays cast through the BVH (host) and through the
+    float64 caster on the card: the same hits; the same primitive where
+    the nearest hit is unique (a ray through a shared edge or vertex hits
+    its triangles at the same t, and either may be named); ms each."""
+    import torch
+    from neumesh_tpu_torch.mesh.raycast import cast_rays
+    calls = HOST_INPUTS["cast"]
+    mesh = calls[0][0][0]
+    o = np.concatenate([np.asarray(c[0][1]) for c in calls])
+    d = np.concatenate([np.asarray(c[0][2]) for c in calls])
+    t0 = time.perf_counter()
+    tn, pn = cast_rays(mesh, o, d)
+    t1 = time.perf_counter()
+    td, pd = cast_rays(mesh, o, d, backend="device", device=DEV)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    hit = np.isfinite(tn)
+    if not np.array_equal(hit, np.isfinite(td)):
+        raise AssertionError("host cast: BVH and card hits differ")
+    t_err = float(np.abs(tn[hit] - td[hit]).max()) if hit.any() else 0.0
+    other = hit & (pn != pd)
+    out = {"rays": int(len(o)), "n_triangles": int(mesh.n_triangles),
+           "hits": int(hit.sum()), "bvh_ms": 1e3 * (t1 - t0),
+           "device_ms": 1e3 * (t2 - t1), "max_t_diff": t_err,
+           "prims_differing": int(other.sum())}
+    log(f"[host] paint cast of {len(o)} rays on {mesh.n_triangles} "
+        f"triangles: BVH {out['bvh_ms']:.1f} ms, card "
+        f"{out['device_ms']:.1f} ms; {out['hits']} hits, primitive ids "
+        f"differing on {out['prims_differing']} (ties), max t diff "
+        f"{t_err:.2e}")
+    if t_err > 1e-9:
+        raise AssertionError(f"host cast: t differs by {t_err:.2e}")
+    if other.any():
+        # a tie: the card's primitive is hit at the BVH's t as well
+        from neumesh_tpu_torch.ops.geo import barycentric_coordinates
+        v = np.asarray(mesh.vertices, np.float64)
+        tri = np.asarray(mesh.triangles)[pd[other]]
+        bary = barycentric_coordinates(*(torch.from_numpy(x) for x in (
+            o[other] + tn[other, None] * d[other], v[tri[:, 0]],
+            v[tri[:, 1]], v[tri[:, 2]])))
+        if not bool((bary >= -1e-6).all()):
+            raise AssertionError("host cast: a primitive differs off a tie")
+    return out
+
+
+def run_host_geometry(tmp, card, host_build_s):
+    """Phase 10. Returns (the {"host_geometry"} dict, {structure: launch
+    counts})."""
+    import torch
+    t_phase = time.perf_counter()
+    grid, counts, variants = host_grid_renders(tmp)
+    with torch.no_grad():
+        rows = check_kernels(variants)
+    result = {"card": card, "build_s": host_build_s, "grid": grid,
+              "checks": {f"{k}/{m}": len(r["checks"])
+                         for (k, m), r in rows.items()},
+              "march": host_marching(), "arap": host_arap(),
+              "cast": host_cast()}
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"[host] phase 10: {result['phase_s']:.1f} s")
+    return result, counts
+
+
 def main() -> int:
     import torch
     t_start = time.perf_counter()
@@ -2703,14 +3013,14 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     card = card_line()
     log(f"[device] {name} | {card}")
-    build_s = build_kernels()
-    log(f"[build] all kernels {build_s:.1f} s")
+    build_s, host_build_s = build_kernels()
+    log(f"[build] all kernels and the host library {build_s:.1f} s")
 
     with tempfile.TemporaryDirectory() as tmp:
-        return run_all(tmp, name, card, build_s, t_start)
+        return run_all(tmp, name, card, build_s, host_build_s, t_start)
 
 
-def run_all(tmp, name, card, build_s, t_start) -> int:
+def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
     import torch
     models = build_scene(tmp, "cuda")
 
@@ -2849,6 +3159,11 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
         f"training {par['training']['seconds']:.1f})")
     print(json.dumps({"parallel": par}))
 
+    # ---- phase 10: the host-geometry library
+    host, host_counts = run_host_geometry(tmp, card, host_build_s)
+    host["total_s"] = time.perf_counter() - t_start
+    print(json.dumps({"host_geometry": host}))
+
     on_path = {km for st in STRUCTURES.values() for km in st[4]}
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
@@ -2877,6 +3192,8 @@ def run_all(tmp, name, card, build_s, t_start) -> int:
             "launches_by_parallel_case": {
                 f"{st}/{lay}": c[kname][mode]
                 for st, by in par_counts.items() for lay, c in by.items()},
+            "launches_host_geometry": {st: c[kname][mode]
+                                       for st, c in host_counts.items()},
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

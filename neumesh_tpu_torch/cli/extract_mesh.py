@@ -2,8 +2,9 @@
 
 The model's SDF on a dense N^3 grid, evaluated on the model's device in
 `chunk`-point batches without autograd (forward_density_only of a NeuS or
-a NeuMesh); the isosurface extracted on the host by the port's numpy
-marching tetrahedra (default) or marching cubes (--method mc); vertex
+a NeuMesh); the isosurface extracted on the host by the C++ marching
+tetrahedra (default) or marching cubes (--method mc) of the port's host
+library, in the JAX package's vertex order; vertex
 colours queried at the vertices with view direction = -vertex normal;
 written as extracted_<obj_id>.ply and bbox_<obj_id>.json.
 

@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 
 from ..ops.cameras import load_K_Rt_from_P
-from ..utils.image_io import read_png, resize_area, resize_nearest
+from ..utils.image_io import read_png, resize_area, resize_nearest, write_png
 
 
 def glob_imgs(d: str):
@@ -152,3 +152,67 @@ class SceneDataset:
             rng.shuffle(order)
         for i in range(0, len(order) - batch_size + 1, batch_size):
             yield self.batch(order[i:i + batch_size])
+
+    # accessors
+    def get_images(self):
+        return self.rgb_images
+
+    def get_masks(self):
+        return self.object_masks
+
+    def get_intrinsics(self):
+        return self.intrinsics_all
+
+    def get_c2ws(self):
+        return self.c2w_all
+
+    def get_image_size(self):
+        return self.H, self.W
+
+    def get_scale_mat(self):
+        return np.load(self.cam_file)["scale_mat_0"]
+
+    # selected-view export
+    def get_gt_pose(self, scaled: bool = True):
+        """(n, 4, 4) c2w poses from the camera file, through scale_mat_i
+        unless scaled=False; without the scale_radius normalisation."""
+        camera_dict = np.load(self.cam_file)
+        poses = []
+        for i in range(len(self)):
+            P = camera_dict[f"world_mat_{i}"].astype(np.float32)
+            if scaled:
+                P = P @ camera_dict[f"scale_mat_{i}"].astype(np.float32)
+            _, pose = load_K_Rt_from_P(P[:3, :4])
+            poses.append(pose)
+        return np.stack(poses)
+
+    def get_selected_pose_data(self, select_ids=None):
+        """The camera dict of a subset of views, renumbered from 0, with
+        the inverses of the scale and world matrices."""
+        camera_dict = np.load(self.cam_file)
+        if select_ids is None:
+            select_ids = range(len(self))
+        out = {}
+        for i, vid in enumerate(select_ids):
+            sm = camera_dict[f"scale_mat_{vid}"].astype(np.float32)
+            wm = camera_dict[f"world_mat_{vid}"].astype(np.float32)
+            out[f"scale_mat_{i}"] = sm
+            out[f"scale_mat_inv_{i}"] = np.linalg.inv(sm)
+            out[f"world_mat_{i}"] = wm
+            out[f"world_mat_inv_{i}"] = np.linalg.inv(wm)
+        return out
+
+    def save_selected_data(self, selected_ids, out_dir: str):
+        """Write a subset of views as a DTU-format dataset of its own:
+        image/ and mask/ PNGs (8-bit) and cameras_sphere.npz."""
+        os.makedirs(os.path.join(out_dir, "image"), exist_ok=True)
+        os.makedirs(os.path.join(out_dir, "mask"), exist_ok=True)
+        for i, vid in enumerate(selected_ids):
+            img = (np.clip(self.rgb_images[vid], 0, 1)
+                   .reshape(self.H, self.W, 3) * 255).astype(np.uint8)
+            msk = (self.object_masks[vid].reshape(self.H, self.W)
+                   * 255).astype(np.uint8)
+            write_png(os.path.join(out_dir, "image", f"{i:04d}.png"), img)
+            write_png(os.path.join(out_dir, "mask", f"{i:04d}.png"), msk)
+        np.savez(os.path.join(out_dir, "cameras_sphere.npz"),
+                 **self.get_selected_pose_data(selected_ids))

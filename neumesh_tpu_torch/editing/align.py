@@ -1,6 +1,7 @@
 """Mesh alignment on the host (counterpart of neumesh_tpu/editing/align.py):
 a similarity transform from index correspondences (Umeyama), refined by
-point-to-point ICP with scipy's cKDTree for the nearest neighbours.
+point-to-point ICP with the host library's KD-tree (cpp/native.py) for
+the nearest neighbours.
 
 umeyama() is Open3D's TransformationEstimationPointToPoint(with_scaling=
 True); icp_point_to_point() its registration_icp with a distance
@@ -9,7 +10,8 @@ threshold.
 from __future__ import annotations
 
 import numpy as np
-from scipy import spatial
+
+from ..cpp import native
 
 
 def umeyama(src: np.ndarray, dst: np.ndarray,
@@ -49,11 +51,12 @@ def icp_point_to_point(source: np.ndarray, target: np.ndarray,
     T = np.eye(4) if init is None else np.asarray(init, np.float64).copy()
     src = np.asarray(source, np.float64)
     tgt = np.asarray(target)
-    tree = spatial.cKDTree(tgt)
+    tree = native.KDTree(tgt)
     prev_err = np.inf
     for _ in range(max_iter):
         moved = src @ T[:3, :3].T + T[:3, 3]
-        dist, idx = tree.query(moved, k=1, workers=-1)
+        dist, idx = tree.query(moved, k=1)
+        dist, idx = dist[:, 0], idx[:, 0]
         inlier = dist < threshold
         if inlier.sum() < 3:
             break

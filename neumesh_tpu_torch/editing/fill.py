@@ -1,24 +1,33 @@
 """Texture filling (counterpart of neumesh_tpu/editing/fill.py): tile a
 reference uv pattern over the main mesh's uv chart and transfer colour
-codes by a Kc-NN search in uv space (scipy cKDTree)."""
+codes by a Kc-NN search in uv space (the host library's KD-tree,
+cpp/native.py, on the uv points at z = 0)."""
 from __future__ import annotations
 
 import time
 
 import numpy as np
-from scipy import spatial
 
+from ..cpp import native
 from ..mesh.triangle_mesh import load_mesh
 from ..utils.print_fn import log
 from .editable import EditingParams
 from .renderer_base import TextureEditableRenderer
-from .swap import knn, write_transfer
+from .swap import write_transfer
+
+
+def _knn(query, points, k):
+    """kNN in the uv plane: the 3-D KD-tree over (u, v, 0)."""
+    q3 = np.concatenate([query, np.zeros((len(query), 1))], -1)
+    p3 = np.concatenate([points, np.zeros((len(points), 1))], -1)
+    return native.KDTree(p3).query(q3, k=k)
 
 
 def _exact_nn(v1: np.ndarray, v2: np.ndarray, EPS=1e-6):
     """The nearest vertex of v2 for each vertex of v1; asserts that the
     two meshes are aligned."""
-    d, nbr = spatial.cKDTree(v2).query(v1, k=1, workers=-1)
+    d, nbr = native.KDTree(v2).query(v1, k=1)
+    d, nbr = d[:, 0], nbr[:, 0]
     assert np.all(d < EPS), (
         f"[Error] Misalignment between meshes (max {d.max()}, mean "
         f"{d.mean()}): the mask mesh must match the model mesh")
@@ -80,8 +89,8 @@ class TextureFillingRender(TextureEditableRenderer):
         coord = main_params.get_uv() / kernel_size
         coord_in_kernel = ((coord - np.int32(coord)) * kernel_size) \
             / ref_scale
-        distance, nbr = knn(coord_in_kernel,
-                            ref_params.get_uv().reshape(-1, 2), Kc)
+        distance, nbr = _knn(coord_in_kernel,
+                             ref_params.get_uv().reshape(-1, 2), Kc)
         w = 1.0 / (distance + 1e-8)
         w = w / np.sum(w, axis=-1, keepdims=True)
         return (w.astype(np.float32),

@@ -5,8 +5,9 @@ mesh; the alignment comes from correspondences in the config (Umeyama +
 ICP, align.py) or a given T_r_m; optionally the reference mesh is warped
 onto the main one by ARAP (mesh/arap.py). The transfer maps the main
 masked vertices by T_r_m, finds their Kc nearest reference masked
-vertices (scipy cKDTree) and writes the inverse-distance weighted average
-of the reference colour codes into edit_color_features.
+vertices (the host library's KD-tree, cpp/native.py) and writes the
+inverse-distance weighted average of the reference colour codes into
+edit_color_features.
 """
 from __future__ import annotations
 
@@ -14,8 +15,8 @@ import time
 
 import numpy as np
 import torch
-from scipy import spatial
 
+from ..cpp import native
 from ..mesh.arap import arap
 from ..mesh.triangle_mesh import TriangleMesh, load_mesh
 from ..utils.print_fn import log
@@ -26,8 +27,7 @@ from .renderer_base import TextureEditableRenderer
 
 def knn(query, points, k):
     """(distance (Q, k), index (Q, k)) of each query's k nearest points."""
-    return spatial.cKDTree(points).query(query, k=list(range(1, k + 1)),
-                                         workers=-1)
+    return native.KDTree(points).query(query, k=k)
 
 
 def deform_ref_mesh_arap(main_pts_in_ref, corr_ref_ids,

@@ -1,6 +1,8 @@
-"""As-rigid-as-possible mesh deformation on the host (the algorithm of
-neumesh_tpu/cpp/src/host_lib.cpp:arap_deform, vectorised in numpy and
-scipy.sparse).
+"""As-rigid-as-possible mesh deformation on the host. By default
+(backend="native") the C++ ARAP of the host library (cpp/native.py, the
+port's copy of neumesh_tpu/cpp), as the JAX package takes it;
+backend="numpy" runs the same algorithm vectorised in numpy and
+scipy.sparse, equal to it to ~1e-8 (the sums run in another order).
 
 Cotangent weights 0.5 cot summed per edge and clamped at 1e-8; max_iter
 local/global rounds: the local step fits each vertex's rotation to the
@@ -56,9 +58,18 @@ def fit_rotations(S: np.ndarray) -> np.ndarray:
 
 def arap(vertices: np.ndarray, triangles: np.ndarray,
          constraint_ids: np.ndarray, constraint_pos: np.ndarray,
-         max_iter: int = 20) -> np.ndarray:
+         max_iter: int = 20, backend: str = "native") -> np.ndarray:
     """Deformed (N, 3) float64 vertices with constraint_ids pinned at
-    constraint_pos (a repeated id takes its last position)."""
+    constraint_pos (a repeated id takes its last position). backend:
+    "native" (the C++ library) or "numpy"."""
+    if backend == "native":
+        from ..cpp import native
+
+        return native.arap(vertices, triangles, constraint_ids,
+                           constraint_pos, max_iter=max_iter)
+    if backend != "numpy":
+        raise ValueError(f"unknown ARAP backend {backend!r}: 'native' or "
+                         "'numpy'")
     V = np.asarray(vertices, np.float64)
     nv = len(V)
     cids = np.asarray(constraint_ids, np.int64).reshape(-1)

@@ -86,8 +86,7 @@ class MeshGrid:
         return distance, indices, weights
 
     def cast_ray(self, rays_o, rays_d):
-        """Nearest triangle hit of each (N, 3) ray, cast on the grid's
-        device: (t_hit (N,), primitive_ids (N,)) numpy, inf / -1 on a
-        miss."""
+        """Nearest triangle hit of each (N, 3) ray through the host BVH:
+        (t_hit (N,), primitive_ids (N,)) numpy, inf / -1 on a miss."""
         from .raycast import cast_rays
-        return cast_rays(self.mesh, rays_o, rays_d, device=self.device)
+        return cast_rays(self.mesh, rays_o, rays_d)

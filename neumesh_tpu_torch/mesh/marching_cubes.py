@@ -7,10 +7,13 @@ positive SDF, outward for a signed distance field); ~2x the triangles of
 classic marching cubes on the same grid. Marching CUBES: one vertex per
 crossed grid edge, the vertex set PyMCubes produces on the same field.
 
-One path only: this numpy code, which returns arrays equal to the JAX
-package's numpy path on the same field (the same float64 arithmetic, the
-same np.unique and ordering steps). The JAX package's C++ host library has
-no counterpart here: backend="native" raises.
+Two paths, as in the JAX package: by default (backend "auto" or
+"native") the C++ marching of the host library (cpp/native.py, the port's
+copy of the JAX package's), whose arrays equal the JAX package's default
+extraction; backend="numpy" runs the numpy code below, whose arrays equal
+the JAX package's numpy path (the same float64 arithmetic, the same
+np.unique and ordering steps). Both give the same vertex set, in another
+order.
 """
 from __future__ import annotations
 
@@ -398,20 +401,21 @@ def extract_isosurface(field: np.ndarray, iso: float = 0.0,
 
     method: "mt" (marching tetrahedra, the default: watertight, ~2x
     triangles) or "mc" (classic marching cubes: the PyMCubes-comparable
-    vertex set, reference extract_mesh.py:139). backend: "auto" and "numpy"
-    both run the numpy code above in float64; "native" (the JAX package's
-    C++ host library) raises, as nothing falls back in its place."""
+    vertex set, reference extract_mesh.py:139). backend: "auto" and
+    "native" run the C++ host library on the float32 field (a failed build
+    raises), "numpy" the numpy code above in float64."""
     if method not in ("mt", "mc"):
         raise ValueError(f"unknown isosurface method: {method!r}")
-    if backend == "native":
-        raise NotImplementedError(
-            "backend='native': the C++ host library (marching, BVH, "
-            "KD-tree, ARAP) has no counterpart in the port yet; it waits "
-            "for the editing slice (ROADMAP queue 1 item 6). Use "
-            "backend='numpy'")
-    if backend not in ("auto", "numpy"):
+    if backend in ("auto", "native"):
+        from ..cpp import native
+
+        fn = (native.marching_cubes if method == "mc"
+              else native.marching_tetrahedra)
+        v, t = fn(np.ascontiguousarray(field, np.float32), float(iso))
+    elif backend == "numpy":
+        fn = marching_cubes if method == "mc" else marching_tetrahedra
+        v, t = fn(np.asarray(field, np.float64), iso)
+    else:
         raise ValueError(f"unknown isosurface backend: {backend!r}")
-    fn = marching_cubes if method == "mc" else marching_tetrahedra
-    v, t = fn(np.asarray(field, np.float64), iso)
     v = v * np.asarray(spacing) + np.asarray(origin)
     return TriangleMesh(v, t)

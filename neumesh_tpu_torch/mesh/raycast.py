@@ -1,8 +1,11 @@
-"""Mesh ray casting on the mesh's device (counterpart of
-neumesh_tpu/mesh/raycast.py, which runs a C++ BVH on the host): a chunked
-Moller-Trumbore test of every ray against every triangle in float64, with
-the epsilons of the JAX package's numpy caster, keeping the nearest hit.
-Used to find the vertices that paint rays touch.
+"""Mesh ray casting (counterpart of neumesh_tpu/mesh/raycast.py). Used to
+find the vertices that paint rays touch.
+
+backend="native" (the default, as in the JAX package): the C++ BVH of the
+host library (cpp/native.py). backend="device": a chunked Moller-Trumbore
+test of every ray against every triangle in float64 on a torch device,
+with the epsilons of the JAX package's numpy caster, keeping the nearest
+hit. Both return the same (t_hit, prim) on rays without ties.
 """
 from __future__ import annotations
 
@@ -14,12 +17,20 @@ from .triangle_mesh import TriangleMesh
 INVALID_ID = -1
 
 
-def cast_rays(mesh: TriangleMesh, rays_o, rays_d, device="cuda",
-              pairs_per_chunk: int = 1 << 24):
+def cast_rays(mesh: TriangleMesh, rays_o, rays_d, backend: str = "native",
+              device="cuda", pairs_per_chunk: int = 1 << 24):
     """(t_hit (N,), primitive_ids (N,)) as float64 / int64 numpy arrays;
-    inf / -1 on a miss. A ray's nearest hit; at equal t the lower
-    triangle id. Each chunk tests about pairs_per_chunk ray-triangle
-    pairs."""
+    inf / -1 on a miss: a ray's nearest hit. backend "native" (the BVH on
+    the host) or "device" (on `device`; at equal t the lower triangle id,
+    each chunk testing about pairs_per_chunk ray-triangle pairs)."""
+    if backend == "native":
+        from ..cpp import native
+
+        return native.BVH(mesh.vertices, mesh.triangles).cast(
+            np.asarray(rays_o), np.asarray(rays_d))
+    if backend != "device":
+        raise ValueError(f"unknown ray-cast backend {backend!r}: 'native' "
+                         "or 'device'")
     dev = torch.device(device)
     f64 = dict(dtype=torch.float64, device=dev)
     v = torch.as_tensor(np.asarray(mesh.vertices, np.float64), **f64)

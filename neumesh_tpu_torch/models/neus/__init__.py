@@ -22,13 +22,12 @@ def get_model(args, device="cuda", seed: int = 42):
     from ...train.trainer import Trainer
 
     loss_weights = loss_weights_of(args)
-    if loss_weights["mask"] == 0:
-        # the JAX builder asks for model:N_outside here and adds a NeRF++
-        # background net; its renderer composes no outside model either
-        raise NotImplementedError(
-            "NeuS with loss_weights.mask = 0 trains an outside NeRF++ "
-            "background model (model:N_outside), which waits for the "
-            "multi-model slice of the port; set a positive mask weight")
+    if loss_weights["mask"] == 0 and not args.model.get("N_outside", 0) > 0:
+        # without a mask loss the model carries a NeRF++ background net
+        # (nerf_outside, filled by params_from_jax); the renderer composes
+        # no outside model, as the JAX package's does not
+        raise ValueError("Please specify a positive model:N_outside for "
+                         "neus with nerf++")
 
     model_config = {
         "obj_bounding_radius": args.model.obj_bounding_radius,

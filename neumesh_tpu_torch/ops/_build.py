@@ -1,4 +1,5 @@
-"""Build and bind the CUDA kernels of csrc/.
+"""Build and bind the CUDA kernels of csrc/, and build the host-geometry
+library of cpp/.
 
 Each kernel source is compiled by nvcc for sm_90a into its own shared
 library with a plain C interface (no PyTorch headers: seconds, not
@@ -7,7 +8,8 @@ use. All sources are compiled in parallel, one nvcc process each. The
 library name carries a hash of the sources, so an edit rebuilds. Calls
 go through ctypes: every pointer and the stream is a c_void_p; each C
 entry returns cudaGetLastError() after its launch and a nonzero code
-raises here.
+raises here. The host library (cpp/src/host_lib.cpp, plain C++ for the
+CPU) is compiled by g++ the same way, beside them, by build_host.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ ENTRY = {"field_fused": ("field_fused", "nm_field_fused"),
          "surface_locate": ("surface_locate", "nm_surface_locate"),
          "candidate_field_v3": ("candidate_field", "nm_candidate_field_v3"),
          "candidate_field": ("candidate_field", "nm_candidate_field")}
+HOST_SRC = os.path.join(_PKG, "cpp", "src", "host_lib.cpp")
+GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -192,3 +196,47 @@ def launch(name: str, args, operand: torch.Tensor) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cuda error {rc} "
                            f"({lib.nm_error_string(rc).decode()})")
+
+
+def _gxx() -> str:
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("neumesh_tpu_torch: g++ not found (needed to "
+                           "build the host library cpp/src/host_lib.cpp)")
+    return gxx
+
+
+def host_lib_path(src: str = HOST_SRC, build_dir: str = BUILD_DIR) -> str:
+    """Where build_host puts the library of `src`: named by a hash of the
+    source, the g++ flags and the target options -march=native resolves
+    to on this machine (a build directory shared with another CPU model
+    then gets a library of its own)."""
+    target = subprocess.run([_gxx(), "-march=native", "-Q", "--help=target"],
+                            capture_output=True, text=True).stdout
+    h = hashlib.sha1()
+    with open(src, "rb") as fh:
+        h.update(fh.read())
+    h.update(" ".join(GXX_FLAGS).encode() + target.encode())
+    return os.path.join(build_dir, f"libneumesh_host_{h.hexdigest()[:12]}.so")
+
+
+def build_host(src: str = HOST_SRC, build_dir: str = BUILD_DIR) -> str:
+    """The path of the host library built from `src`, compiled with g++
+    first if it is missing (into a temporary name, then renamed, so
+    processes building at once never load half a file). Raises
+    RuntimeError with the compiler's output when g++ is missing or
+    fails."""
+    if not os.path.exists(src):
+        raise RuntimeError(f"neumesh_tpu_torch: host library source {src} "
+                           "not found")
+    path = host_lib_path(src, build_dir)
+    if os.path.exists(path):
+        return path
+    os.makedirs(build_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    proc = subprocess.run([_gxx(), *GXX_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed for {src}:\n{proc.stderr}")
+    os.replace(tmp, path)
+    return path

@@ -23,3 +23,9 @@ def alpha_to_w(alpha):
     shifted = torch.cat(
         [torch.ones_like(alpha[..., :1]), 1.0 - alpha + 1e-10], dim=-1)
     return alpha * torch.cumprod(shifted, dim=-1)[..., :-1]
+
+
+def sdf_to_w(sdf, s):
+    """(cdf, alpha, w) in one call."""
+    cdf, alpha = sdf_to_alpha(sdf, s)
+    return cdf, alpha, alpha_to_w(alpha)

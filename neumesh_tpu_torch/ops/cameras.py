@@ -60,6 +60,38 @@ def look_at(cam_location, point, up=np.array([0.0, -1.0, 0.0])):
     return view_matrix(normalize(point - cam_location), up, cam_location)
 
 
+def rot_to_quat(R: np.ndarray) -> np.ndarray:
+    """(..., 3, 3) rotations -> (..., 4) wxyz quaternions."""
+    R = np.asarray(R)
+    q = np.ones(R.shape[:-2] + (4,), dtype=R.dtype)
+    qw = np.sqrt(np.maximum(
+        1.0 + R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2], 0)) / 2
+    q[..., 0] = qw
+    q[..., 1] = (R[..., 2, 1] - R[..., 1, 2]) / (4 * qw)
+    q[..., 2] = (R[..., 0, 2] - R[..., 2, 0]) / (4 * qw)
+    q[..., 3] = (R[..., 1, 0] - R[..., 0, 1]) / (4 * qw)
+    return q
+
+
+def quat_to_rot(q: np.ndarray) -> np.ndarray:
+    """(..., 4) wxyz quaternions (normalised here) -> (..., 3, 3) float64
+    rotations."""
+    q = np.asarray(q, dtype=np.float64)
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    qr, qi, qj, qk = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    R = np.empty(q.shape[:-1] + (3, 3), dtype=np.float64)
+    R[..., 0, 0] = 1 - 2 * (qj ** 2 + qk ** 2)
+    R[..., 0, 1] = 2 * (qj * qi - qk * qr)
+    R[..., 0, 2] = 2 * (qi * qk + qr * qj)
+    R[..., 1, 0] = 2 * (qj * qi + qk * qr)
+    R[..., 1, 1] = 1 - 2 * (qi ** 2 + qk ** 2)
+    R[..., 1, 2] = 2 * (qj * qk - qi * qr)
+    R[..., 2, 0] = 2 * (qk * qi - qj * qr)
+    R[..., 2, 1] = 2 * (qj * qk + qi * qr)
+    R[..., 2, 2] = 1 - 2 * (qi ** 2 + qj ** 2)
+    return R
+
+
 def poses_avg(poses: np.ndarray) -> np.ndarray:
     """Average c2w pose of (N, 4, 4) poses."""
     center = poses[:, :3, 3].mean(0)

@@ -7,11 +7,14 @@ A dense grid over the query domain maps every cell to a candidate ROW
 centre and exist only for near-surface cells, far cells pointing at the
 row of their nearest near-surface cell (EDT feature transform).
 
-The build runs on the host in numpy with scipy's cKDTree (exact kNN in
-float64) where the JAX package uses its C++ KD-tree: the same tables
-except for ties. Same validation (kNN distances against exact search,
-Kp doubled while the mean relative error exceeds 5e-3) and the same
-`.npz` cache format, in its own directory.
+The build runs on the host in numpy. Its exact kNN (float64) is by
+default the port's copy of the JAX package's C++ KD-tree (cpp/native.py),
+which keeps the first of equal distances it visits: the tables then equal
+the JAX package's default build, ties and the order within a row
+included. backend="scipy" takes scipy's cKDTree, whose ties differ. Same
+validation (kNN distances against exact search, Kp doubled while the
+mean relative error exceeds 5e-3) and the same `.npz` cache format, in
+its own directory, keyed by the backend too.
 """
 from __future__ import annotations
 
@@ -135,8 +138,18 @@ def knn_brute(query: torch.Tensor, points: torch.Tensor, k: int,
     return torch.cat(sqs, 0), torch.cat(idxs, 0)
 
 
-def _host_knn(points: np.ndarray, queries: np.ndarray, kp: int):
+KNN_BACKENDS = ("native", "scipy")
+
+
+def _host_knn(points: np.ndarray, queries: np.ndarray, kp: int,
+              backend: str = "native"):
     """Exact kp-NN in float64: (dist (Q, kp), idx (Q, kp) int32)."""
+    if backend == "native":
+        from ..cpp import native
+
+        d, idx = native.KDTree(points.astype(np.float64)).query(
+            queries.astype(np.float64), k=kp)
+        return d, idx.astype(np.int32)
     from scipy.spatial import cKDTree
 
     tree = cKDTree(np.asarray(points, np.float64))
@@ -147,10 +160,10 @@ def _host_knn(points: np.ndarray, queries: np.ndarray, kp: int):
 
 
 def _grid_cache_path(points: np.ndarray, kp: int, cell_size,
-                     domain_margin) -> str:
+                     domain_margin, backend: str) -> str:
     h = hashlib.sha1()
     h.update(np.ascontiguousarray(points, np.float32).tobytes())
-    h.update(f"{kp}|{cell_size}|{domain_margin}|v5".encode())
+    h.update(f"{kp}|{cell_size}|{domain_margin}|{backend}|v5".encode())
     cache_dir = os.environ.get(
         "NEUMESH_TORCH_GRID_CACHE",
         os.path.join(os.path.expanduser("~"), ".cache", "neumesh_tpu_torch"))
@@ -160,18 +173,24 @@ def _grid_cache_path(points: np.ndarray, kp: int, cell_size,
 
 def build_candidate_grid(points, kp: int = 24, cell_size=None,
                          domain_margin=None, max_cells: int = 2 << 20,
-                         validate: bool = True,
-                         use_cache: bool = True) -> CandidateGrid:
+                         validate: bool = True, use_cache: bool = True,
+                         backend: str = "native") -> CandidateGrid:
     """Build the two-level candidate grid on the host (CPU tensors; move
     with `.to(device)`). cell_size defaults to the 90th-percentile 8th-NN
-    distance; the domain is the vertex bbox grown by 3 cells."""
+    distance; the domain is the vertex bbox grown by 3 cells. backend:
+    the exact kNN, "native" (the C++ KD-tree, as the JAX package) or
+    "scipy"."""
+    if backend not in KNN_BACKENDS:
+        raise ValueError(f"unknown kNN backend {backend!r}: one of "
+                         f"{KNN_BACKENDS}")
     pts = np.asarray(points, dtype=np.float32)
     n = pts.shape[0]
     kp = min(kp, n)
 
     cache_path = None
     if use_cache and n > 5000:
-        cache_path = _grid_cache_path(pts, kp, cell_size, domain_margin)
+        cache_path = _grid_cache_path(pts, kp, cell_size, domain_margin,
+                                      backend)
         if os.path.exists(cache_path):
             z = np.load(cache_path)
             return CandidateGrid.from_arrays(
@@ -181,7 +200,7 @@ def build_candidate_grid(points, kp: int = 24, cell_size=None,
     if cell_size is None:
         sample = pts if n <= 20000 else pts[
             np.random.default_rng(0).choice(n, 20000, replace=False)]
-        d, _ = _host_knn(pts, sample, min(9, n))
+        d, _ = _host_knn(pts, sample, min(9, n), backend)
         cell_size = float(np.percentile(d[:, -1], 90) + 1e-6)
 
     def layout(cs):
@@ -205,7 +224,7 @@ def build_candidate_grid(points, kp: int = 24, cell_size=None,
     near_mask = ndimage.binary_dilation(occ, iterations=2)
     near_ijk = np.argwhere(near_mask)
     centers_near = (lo + (near_ijk + 0.5) * cell_size).astype(np.float32)
-    _, cand_near = _host_knn(pts, centers_near, kp)
+    _, cand_near = _host_knn(pts, centers_near, kp, backend)
 
     edt_idx = ndimage.distance_transform_edt(
         ~near_mask, return_distances=False, return_indices=True)
@@ -226,13 +245,13 @@ def build_candidate_grid(points, kp: int = 24, cell_size=None,
             * (0.25 * cell_size)
         sq_g, _ = grid.query_np(qv, k=min(8, n))
         d_g = np.sqrt(sq_g)
-        d_b, _ = _host_knn(pts, qv, min(8, n))
+        d_b, _ = _host_knn(pts, qv, min(8, n), backend)
         rel_err = float(np.mean(np.abs(d_g - d_b) / np.maximum(d_b, 1e-6)))
         if rel_err > 5e-3 and kp < 96:
             return build_candidate_grid(
                 points, kp=kp * 2, cell_size=cell_size,
                 domain_margin=domain_margin, max_cells=max_cells,
-                validate=validate, use_cache=use_cache)
+                validate=validate, use_cache=use_cache, backend=backend)
 
     if cache_path is not None:
         np.savez(cache_path, cell_row=grid.cell_row.numpy(),

@@ -17,6 +17,18 @@ def lift(x, y, z, intrinsics):
     return torch.stack((x_lift, y_lift, z, torch.ones_like(z)), dim=-1)
 
 
+def pixel_to_rays(i, j, c2w, intrinsics):
+    """Rays through pixel centres (i = x / column, j = y / row, (..., N)):
+    c2w (..., 4, 4), intrinsics (..., 3|4, 3|4) -> rays_o, rays_d
+    (..., N, 3); rays_d normalised in camera space, then rotated."""
+    cam = lift(i, j, torch.ones_like(i), intrinsics)
+    d = cam[..., :3]
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    rays_d = torch.matmul(d, c2w[..., :3, :3].transpose(-1, -2))
+    rays_o = c2w[..., None, :3, 3].expand_as(rays_d).contiguous()
+    return rays_o, rays_d
+
+
 def get_rays(c2w, intrinsics, H: int, W: int, N_rays: int = -1,
              generator=None, select_inds=None):
     """Pixel rays of a camera, or of a batch of cameras: c2w (..., 4, 4),
@@ -51,11 +63,7 @@ def get_rays(c2w, intrinsics, H: int, W: int, N_rays: int = -1,
         prefix + select_inds.shape[-1:])
     i = (select_inds % W).to(torch.float32)
     j = (select_inds // W).to(torch.float32)
-    cam = lift(i, j, torch.ones_like(i), intrinsics)
-    d = cam[..., :3]
-    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-    rays_d = torch.matmul(d, c2w[..., :3, :3].transpose(-1, -2))
-    rays_o = c2w[..., None, :3, 3].expand_as(rays_d).contiguous()
+    rays_o, rays_d = pixel_to_rays(i, j, c2w, intrinsics)
     if sampled:
         return rays_o, rays_d, select_inds
     return rays_o, rays_d
@@ -75,6 +83,21 @@ def near_far_from_sphere(rays_o, rays_d, r: float = 1.0,
     """near = max(mid - r, 0), far = max(mid + r, r), mid = -<o, d>."""
     mid = -torch.sum(rays_o * rays_d, dim=-1, keepdim=keepdim)
     return torch.clamp(mid - r, min=0.0), torch.clamp(mid + r, min=r)
+
+
+def get_sphere_intersection(rays_o, rays_d, r: float = 1.0):
+    """Exact ray-sphere intersection: (near, far, mask_intersect), near
+    and far (..., 1) clamped at 0 and 0 where the ray misses."""
+    rayso_norm_square = torch.sum(rays_o ** 2, dim=-1, keepdim=True)
+    ray_cam_dot = torch.sum(rays_o * rays_d, dim=-1, keepdim=True)
+    under_sqrt = ray_cam_dot ** 2 + r ** 2 - rayso_norm_square
+    mask_intersect = under_sqrt > 0
+    sqrt = torch.sqrt(torch.clamp(under_sqrt, min=0.0))
+    zero = torch.zeros_like(sqrt)
+    near = torch.where(mask_intersect, -sqrt - ray_cam_dot, zero)
+    far = torch.where(mask_intersect, sqrt - ray_cam_dot, zero)
+    return (torch.clamp(near, min=0.0), torch.clamp(far, min=0.0),
+            mask_intersect)
 
 
 def sample_pdf(bins, weights, N_importance: int, det: bool = False,
@@ -106,6 +129,48 @@ def sample_pdf(bins, weights, N_importance: int, det: bool = False,
     denom = torch.where(denom < eps, torch.ones_like(denom), denom)
     t = (u - cdf_below) / denom
     return bins_below + t * (bins_above - bins_below)
+
+
+def sample_cdf(bins, cdf, N_importance: int, det: bool = False,
+               eps: float = 1e-5, generator=None, u=None):
+    """Inverse sampling from a precomputed cdf: bins (..., n) sorted,
+    cdf (..., n - 1) in [0, 1] (a leading zero is prepended) ->
+    (..., N_importance), by sample_pdf's rank count and interpolation."""
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], -1)
+    shape = cdf.shape[:-1] + (N_importance,)
+    if u is None:
+        if det:
+            u = torch.linspace(0.0, 1.0, N_importance,
+                               device=cdf.device).expand(shape)
+        else:
+            u = rand(shape, generator, cdf.device)
+    inds = torch.sum((cdf[..., None, :] < u[..., :, None]).to(torch.int64),
+                     dim=-1)
+    below = torch.clamp(inds - 1, min=0)
+    above = torch.clamp(inds, max=cdf.shape[-1] - 1)
+    cdf_below = torch.gather(cdf, -1, below)
+    cdf_above = torch.gather(cdf, -1, above)
+    bins_below = torch.gather(bins, -1, below)
+    bins_above = torch.gather(bins, -1, above)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    t = (u - cdf_below) / denom
+    return bins_below + t * (bins_above - bins_below)
+
+
+def lin2img(x, H: int, W: int, batched: bool = False, B=None):
+    """(..., H*W, C) flat pixels -> channels-first (C, H, W), or
+    (B, C, H, W) when batched (B splits the leading rows if given)."""
+    n, c = x.shape[-2], x.shape[-1]
+    if not (n == H * W or (batched and B is not None)):
+        raise ValueError(f"lin2img: {n} pixels is not {H}x{W}")
+    if batched:
+        if B is None:
+            B = x.shape[0]
+        else:
+            x = x.reshape(B, n // B, c)
+        return x.permute(0, 2, 1).reshape(B, c, H, W)
+    return x.permute(1, 0).reshape(c, H, W)
 
 
 def block_order_indices(H: int, W: int, block_h: int = 8,

@@ -1,8 +1,7 @@
 """The editing slice's host pieces, port vs the JAX package on the same
 numpy inputs: geometry helpers, Umeyama / ICP / the transform estimate,
-the uv normalisation, the swap and fill transition weights (tie-free
-data: the JAX package's native KD-tree and scipy's cKDTree break exact
-distance ties differently), rodrigues and deform_model's indicators,
+the uv normalisation, the swap and fill transition weights (both
+packages' native KD-trees), rodrigues and deform_model's indicators,
 ARAP against the native library, the ray cast against the native BVH and
 the numpy caster, the paint dataset, the gradient mask and the PLY
 previews."""
@@ -199,7 +198,9 @@ def test_deform_model_matches_jax():
 
 def test_arap_matches_native():
     """The port's ARAP against the JAX package's native library: handles
-    pulled, a band pinned, 20 rounds of CG-solved global steps."""
+    pulled, a band pinned, 20 rounds of CG-solved global steps; the
+    default (the port's copy of the library) to 1e-12, the numpy backend
+    to 1e-8."""
     from neumesh_tpu_torch.mesh.arap import arap
     assert native.available()
     jmesh, _ = _jittered_icosphere(seed=4)
@@ -210,16 +211,23 @@ def test_arap_matches_native():
     cpos = np.concatenate([v[pinned], v[handles] + [0.06, -0.02, 0.1]])
     want = native.arap(v, t, cids, cpos, max_iter=20)
     got = arap(v, t, cids, cpos, max_iter=20)
-    np.testing.assert_allclose(got, want, atol=1e-8)
-    np.testing.assert_array_equal(got[cids], cpos)
-    assert np.abs(got - v).max() > 0.05
-    with pytest.raises(ValueError):
-        arap(v, t, np.array([len(v)]), np.zeros((1, 3)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    got_np = arap(v, t, cids, cpos, max_iter=20, backend="numpy")
+    np.testing.assert_allclose(got_np, want, atol=1e-8)
+    for g in (got, got_np):
+        np.testing.assert_array_equal(g[cids], cpos)
+        assert np.abs(g - v).max() > 0.05
+    for backend in ("native", "numpy"):
+        with pytest.raises(ValueError):
+            arap(v, t, np.array([len(v)]), np.zeros((1, 3)),
+                 backend=backend)
 
 
 def test_ray_cast_matches_native_and_numpy(rng):
-    """The torch caster (float64) against the native BVH and the numpy
-    fallback: the same primitive ids, misses included, and t to 1e-12."""
+    """MeshGrid's cast (the port's BVH by default) and the torch caster
+    (float64, backend="device") against the JAX package's native BVH and
+    numpy caster: the same primitive ids, misses included, and t to
+    1e-12."""
     from neumesh_tpu.mesh.raycast import _cast_rays_numpy
     from neumesh_tpu_torch.mesh.grid import MeshGrid
     jmesh, tmesh = _jittered_icosphere(seed=5)
@@ -231,16 +239,22 @@ def test_ray_cast_matches_native_and_numpy(rng):
     t_np, p_np = _cast_rays_numpy(jmesh, o, d)
     mg = MeshGrid(tmesh, device="cpu", distance_method="brute")
     t_got, p_got = mg.cast_ray(o, d)
-    assert 0.3 < np.isfinite(t_got).mean() < 1.0
-    for t_w, p_w in ((t_nat, p_nat), (t_np, p_np)):
-        np.testing.assert_array_equal(p_got, p_w)
-        hit = np.isfinite(t_w)
-        np.testing.assert_array_equal(np.isfinite(t_got), hit)
-        np.testing.assert_allclose(t_got[hit], t_w[hit], rtol=1e-12)
-    # small chunks: the same answer
+    np.testing.assert_array_equal(t_got, t_nat)
     from neumesh_tpu_torch.mesh.raycast import cast_rays
-    t2, p2 = cast_rays(tmesh, o, d, device="cpu", pairs_per_chunk=5000)
-    np.testing.assert_array_equal(p2, p_got)
+    t_dev, p_dev = cast_rays(tmesh, o, d, backend="device", device="cpu")
+    assert 0.3 < np.isfinite(t_got).mean() < 1.0
+    for t_g, p_g in ((t_got, p_got), (t_dev, p_dev)):
+        for t_w, p_w in ((t_nat, p_nat), (t_np, p_np)):
+            np.testing.assert_array_equal(p_g, p_w)
+            hit = np.isfinite(t_w)
+            np.testing.assert_array_equal(np.isfinite(t_g), hit)
+            np.testing.assert_allclose(t_g[hit], t_w[hit], rtol=1e-12)
+    # small chunks: the same answer
+    t2, p2 = cast_rays(tmesh, o, d, backend="device", device="cpu",
+                       pairs_per_chunk=5000)
+    np.testing.assert_array_equal(p2, p_dev)
+    with pytest.raises(ValueError, match="backend"):
+        cast_rays(tmesh, o, d, backend="numpy")
 
 
 def test_paint_dataset_matches_jax(tmp_path):

@@ -2,8 +2,8 @@
 the repository's eval.py, and the port's parity tool against
 tools/parity_eval.py's contract, on test_torch_render_cli.py's 24x24
 synthetic DTU-format scene and small NeuMesh (.pt). The port's model
-adopts the JAX package's candidate tables (CandidateGrid.from_arrays of
-the JAX grid of the same mesh), so both packages pick the same kNN.
+builds its own candidate tables with its default (native) KD-tree, equal
+to the JAX package's, so both packages pick the same kNN.
 Per-view PSNR within 1e-3 dB and SSIM within 1e-4 (the rows' rounding),
 LPIPS (synthetic VGG16 weights through the environment) within 1e-4; the
 same JSON keys; the --save_renders PNGs are the returned renders and
@@ -24,22 +24,6 @@ from test_torch_render_cli import cli_scene
 
 __all__ = ["cli_scene"]
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def jax_tables(monkeypatch):
-    """The port's MeshGrid builds the JAX package's grid of its mesh."""
-    from neumesh_tpu.ops.knn import build_uniform_grid
-    from neumesh_tpu_torch.mesh import grid as tgrid
-    from neumesh_tpu_torch.ops.knn import CandidateGrid
-
-    def adopt(points, cell_size=None, **_):
-        g = build_uniform_grid(points, cell_size=cell_size)
-        return CandidateGrid.from_arrays(
-            np.asarray(g.cell_row), np.asarray(g.cand_idx),
-            np.asarray(g.cand_pts), np.asarray(g.origin),
-            np.asarray(g.inv_h), g.dims)
-    monkeypatch.setattr(tgrid, "build_candidate_grid", adopt)
 
 
 @pytest.fixture

@@ -80,13 +80,12 @@ def test_grid_sdf_and_vertex_colors_match_jax(jax_extract, kind):
 def test_extract_mesh_fed_the_jax_grid_matches(jax_extract, tmp_path,
                                                monkeypatch, method):
     """Both extract_mesh functions on the same grid (the JAX package's,
-    through its numpy marching): the same PLY (vertices and triangles
-    equal, colours within one 8-bit level) and bbox JSON."""
-    from neumesh_tpu.cpp import native
+    each through its default, the C++ marching; nothing patched): the
+    same PLY (vertices and triangles equal, colours within one 8-bit
+    level) and bbox JSON."""
     jm, jp, tm = models("neus")
     N = 16
     grid = jax_extract.evaluate_grid_sdf(jm, jp, N, RANGE, RANGE, RANGE)
-    monkeypatch.setattr(native, "available", lambda: False)
     monkeypatch.setattr(textract, "evaluate_grid_sdf",
                         lambda *a, **k: grid)
     kw = dict(N_grid=N, x_range=RANGE, y_range=RANGE, z_range=RANGE,

@@ -1,9 +1,11 @@
 """The port's marching tetrahedra / marching cubes (neumesh_tpu_torch.mesh.
-marching_cubes) against the JAX package's numpy path: every case of
-tests/test_marching.py on the port, arrays EQUAL to
+marching_cubes) against the JAX package's: every case of
+tests/test_marching.py on the port's default (the C++ host library), its
+numpy path's arrays EQUAL to
 neumesh_tpu.mesh.marching_cubes.extract_isosurface(..., backend="numpy")
-on seeded fields, the triangle-mesh hygiene helpers against the JAX
-package's, and backend="native" raising."""
+on seeded fields, backend="native" equal to the JAX package's native
+arrays, the overflow guards, and the triangle-mesh hygiene helpers
+against the JAX package's."""
 import numpy as np
 import pytest
 
@@ -180,7 +182,8 @@ def test_arrays_equal_the_jax_numpy_path(method, field, iso):
     origin, spacing = (-1.0, -0.5, 0.25), (0.05, 0.07, 0.03)
     want = jmc.extract_isosurface(f, iso, origin, spacing, backend="numpy",
                                   method=method)
-    got = extract_isosurface(f, iso, origin, spacing, method=method)
+    got = extract_isosurface(f, iso, origin, spacing, backend="numpy",
+                             method=method)
     assert got.n_triangles > 0
     np.testing.assert_array_equal(got.vertices, want.vertices)
     np.testing.assert_array_equal(got.triangles, want.triangles)
@@ -194,9 +197,22 @@ def test_arrays_equal_the_jax_numpy_path(method, field, iso):
 
 
 def test_native_backend_raises_and_the_overflow_guard():
+    """backend="native" and "auto" (the default) run the port's C++
+    marching and return the JAX package's native arrays on the same
+    field; an unknown backend or method raises, and so do the overflow
+    guards of the numpy and the native extractors."""
+    f, origin, spacing = sphere_field(n=20)
+    f = f + 0.01 * np.random.default_rng(5).normal(size=f.shape)
+    for method in METHODS:
+        want = jmc.extract_isosurface(f, 0.05, origin, spacing,
+                                      backend="native", method=method)
+        for backend in ("native", "auto"):
+            got = extract_isosurface(f, 0.05, origin, spacing,
+                                     backend=backend, method=method)
+            assert got.n_triangles > 0
+            np.testing.assert_array_equal(got.vertices, want.vertices)
+            np.testing.assert_array_equal(got.triangles, want.triangles)
     field = sphere_field(n=8)[0]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        extract_isosurface(field, 0.0, backend="native")
     with pytest.raises(ValueError, match="backend"):
         extract_isosurface(field, 0.0, backend="cuda")
     with pytest.raises(ValueError, match="method"):
@@ -207,6 +223,13 @@ def test_native_backend_raises_and_the_overflow_guard():
     for fn in (tmc.marching_tetrahedra, tmc.marching_cubes):
         with pytest.raises(ValueError, match="int64"):
             fn(Huge())
+
+    class Huger:
+        shape = (2000, 2000, 1100)
+    from neumesh_tpu_torch.cpp import native
+    for fn in (native.marching_tetrahedra, native.marching_cubes):
+        with pytest.raises(ValueError, match="2\\^32"):
+            fn(Huger(), 0.0)
 
 
 def test_mesh_hygiene_matches_jax():

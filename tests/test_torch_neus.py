@@ -158,8 +158,14 @@ def test_neus_builder_defaults_and_outside_nerf():
     assert t.to_dict() == j.to_dict()          # defaults written back alike
     assert trainer.teacher_model is None and not model.use_outside_nerf
     assert sum(p.numel() for p in model.parameters()) > 0
-    with pytest.raises(NotImplementedError, match="multi-model slice"):
+    # no mask loss: a positive model:N_outside is required, and the model
+    # then carries the NeRF++ background net (tests/test_torch_neus_outside)
+    with pytest.raises(ValueError, match="N_outside"):
         build_framework(cfg(ConfigDict, 0.0), "NeuS", device="cpu")
+    c = cfg(ConfigDict, 0.0)
+    c.model["N_outside"] = 32
+    model, *_ = build_framework(c, "NeuS", device="cpu")
+    assert model.use_outside_nerf
 
 
 def test_siren_pretraining_fits_the_sphere():
