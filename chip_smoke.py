@@ -151,7 +151,8 @@ Prints the card line, one {"cli": {...}} line, one {"training": {...}}
 line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
 {"parallel": {...}} line, one {"host_geometry": {...}} line, one
 {"kernels": [...]} line (each row with its design, "wgmma" or "simt",
-the launches of the gate modes in launches_by_structure, of the editing
+bound_ms at the tensor-core rates beside bound_cuda_core_ms, the bound
+with every f32 flop at the CUDA-core rate, the launches of the gate modes in launches_by_structure, of the editing
 cases in launches_by_editing_case, of phase 9's sharded renders in
 launches_by_parallel_case, of phase 10's renders in
 launches_host_geometry), and last {"ok": true, "device": {...}}.
@@ -171,6 +172,9 @@ import numpy as np
 
 H100_BF16_FLOPS = 989e12        # dense tensor-core bf16
 H100_F32_FLOPS = 67e12          # CUDA-core fp32
+# an f32 hidden layer on the tensor cores: six bf16 products (the split of
+# field_common.cuh), so a sixth of the bf16 rate
+H100_F32_SPLIT_FLOPS = H100_BF16_FLOPS / 6
 H100_BYTES = 3.35e12            # HBM3
 
 TOL = {"f32": dict(atol=2e-5, rtol=1e-4, frac=0.99),
@@ -181,9 +185,9 @@ LOCATE_MASK_AGREE = {"bf16": 0.999, "f32": 1.0}
 
 KERNELS = ("field_fused", "secant_refine", "surface_locate",
            "candidate_field_v3", "candidate_field")
-# a row's design: its kernel runs the tensor-core tile stage, bf16 MLP
-# layers on wgmma ("wgmma"), or it has no MLP and everything runs on the
-# CUDA cores ("simt")
+# a row's design: its kernel runs the tensor-core tile stage, every hidden
+# MLP layer on wgmma (f32 ones as the bf16 split; "wgmma"), or it has no
+# MLP and everything runs on the CUDA cores ("simt")
 WGMMA_ROWS = {("field_fused", m) for m in ("density", "density_nabla",
                                             "full")} | \
     {("secant_refine", m) for m in ("plain", "rebracket", "frozen",
@@ -281,7 +285,8 @@ CLI_SIDE, CLI_VIEWS = 128, 2
 # the first step's loss and grad norm (relative), the render of the trained
 # student (side of the view)
 TRAIN_ITERS, TRAIN_WARMUP, TRAIN_REL, TRAIN_RENDER_SIDE = 20, 3, 1e-4, 64
-# rows of a kernel's block: samples (rays) of one context
+# rows of a kernel's block: of one or (the tile kernels below 64 rows a
+# context) several contexts
 BLOCK_ROWS = {"field_fused": 64, "secant_refine": 64, "surface_locate": 64,
               "candidate_field_v3": 32, "candidate_field": 32}
 # crops through the plain versions: least PSNR of rgb (and of the surface
@@ -389,17 +394,21 @@ def record_calls(calls):
 # ---------------------------------------------------------------------------
 
 def _mlp_flops(ws):
-    """(bf16 flops, f32 flops) of the weight matrices in ws."""
+    """(bf16 flops, f32 flops on the tensor cores, f32 flops on the CUDA
+    cores) of the weight matrices in ws: an f32 hidden layer runs as the
+    bf16 split, an f32 head (N <= 3) on the CUDA cores."""
     import torch
-    bf, f32 = 0.0, 0.0
+    bf, tc, cc = 0.0, 0.0, 0.0
     for w in ws:
         if w.dim() == 2 and w.shape[0] > 1:
             f = 2.0 * w.shape[0] * w.shape[1]
             if w.dtype == torch.bfloat16:
                 bf += f
+            elif w.shape[1] > 3:
+                tc += f
             else:
-                f32 += f
-    return bf, f32
+                cc += f
+    return bf, tc, cc
 
 
 def _nbytes(ts):
@@ -407,7 +416,7 @@ def _nbytes(ts):
                      if t is not None and hasattr(t, "numel")))
 
 
-def field_bound(args, kw):
+def field_work(args, kw):
     xyz, geo, feat = args[0], args[1], args[2]
     dens_ws = args[4] if len(args) > 4 else kw.get("dens_ws", ())
     col_ws = args[5] if len(args) > 5 else kw.get("col_ws")
@@ -416,47 +425,46 @@ def field_bound(args, kw):
     B, S, _ = xyz.shape
     C, F = geo.shape[2], feat.shape[-1]
     n = float(B * S)
-    f32 = n * C * (10 + (k if k > 1 else 1))          # d2 + selection
-    bf = 0.0
+    cc = n * C * (10 + (k if k > 1 else 1))           # d2 + selection
+    bf = tc = 0.0
     n_out = {"distance": 1, "density": 1, "density_nabla": 4, "full": 7}
     ins = [xyz, geo]
     if want != "distance":
-        f32 += n * (30 * k + 2 * k * F)                # interp + blend
-        b1, f1 = _mlp_flops(dens_ws)
+        cc += n * (30 * k + 2 * k * F)                 # interp + blend
+        w = list(_mlp_flops(dens_ws))
         if want != "density":
             # the tangent dD/dh: w0d, the hidden layers and the head; fg and
             # its embedding (the w0f rows) do not depend on h
-            bt, ft = _mlp_flops((dens_ws[0], *dens_ws[3:]))
-            b1, f1 = b1 + bt, f1 + ft
-        bf, f32 = bf + n * b1, f32 + n * f1
+            w = [x + y for x, y in
+                 zip(w, _mlp_flops((dens_ws[0], *dens_ws[3:])))]
+        bf, tc, cc = bf + n * w[0], tc + n * w[1], cc + n * w[2]
         ins += [feat, *dens_ws]
     if want == "full":
-        b2, f2 = _mlp_flops(col_ws)
-        bf, f32 = bf + n * b2, f32 + n * f2
+        b2, t2, c2 = _mlp_flops(col_ws)
+        bf, tc, cc = bf + n * b2, tc + n * t2, cc + n * c2
         ins += [dirs, *col_ws]
     nbytes = _nbytes(ins) + n * 4 * n_out[want]
-    return _bound(bf, f32, nbytes)
+    return bf, tc, cc, nbytes
 
 
-def secant_bound(args, kw):
+def secant_work(args, kw):
     rays_o, geo, feat, dens_ws = args[0], args[6], args[7], args[9]
     R = rays_o.shape[0]
     C, F = geo.shape[2], feat.shape[-1]
     k = kw.get("k", 8)
     evals = kw.get("n_iters", 6) + (2 if kw.get("d_low_w") is not None
                                     else 0)
-    b1, f1 = _mlp_flops(dens_ws)
-    per_eval = (30 * k + 2 * k * F) + f1
+    b1, t1, c1 = _mlp_flops(dens_ws)
+    per_eval = (30 * k + 2 * k * F) + c1
     if kw.get("frozen_knn"):
-        f32 = R * (C * (20 + k) + evals * per_eval)
+        cc = R * (C * (20 + k) + evals * per_eval)
     else:
-        f32 = R * evals * (C * (10 + k) + per_eval)
-    bf = R * evals * b1
+        cc = R * evals * (C * (10 + k) + per_eval)
     nbytes = _nbytes([geo, feat, *dens_ws]) + R * 4 * (6 + 6 + 1)
-    return _bound(bf, f32, nbytes)
+    return R * evals * b1, R * evals * t1, cc, nbytes
 
 
-def locate_bound(args, kw):
+def locate_work(args, kw):
     """n_steps distance evaluations and 2 + n_secant density evaluations
     per ray."""
     rays_o, geo, feat, dens_ws = args[0], args[4], args[5], args[7]
@@ -465,16 +473,15 @@ def locate_bound(args, kw):
     k = kw.get("k", 8)
     interp = C * (10 + k) + 30 * k
     n_dens = 2 + kw.get("n_secant", 6)
-    b1, f1 = _mlp_flops(dens_ws)
-    f32 = R * (kw.get("n_steps", 24) * interp
-               + n_dens * (interp + 2 * k * F + f1))
-    bf = R * n_dens * b1
+    b1, t1, c1 = _mlp_flops(dens_ws)
+    cc = R * (kw.get("n_steps", 24) * interp
+              + n_dens * (interp + 2 * k * F + c1))
     # rays_o, rays_d, near, far in; four planes out
     nbytes = _nbytes([geo, feat, *dens_ws]) + R * 4 * (3 + 3 + 2 + 4)
-    return _bound(bf, f32, nbytes)
+    return R * n_dens * b1, R * n_dens * t1, cc, nbytes
 
 
-def candidate_bound(name, args, kw):
+def candidate_work(name, args, kw):
     """Selection and interpolation over the context's C candidates, plus
     2 k F for the feature blend."""
     xyz = args[0]
@@ -486,28 +493,38 @@ def candidate_bound(name, args, kw):
     else:
         C, ins, feat = args[1].shape[1], list(args[:5]), args[5]
     F = feat.shape[-1] if want_feat else 0
-    f32 = n * (C * (10 + k) + 30 * k + 2 * k * F)
+    cc = n * (C * (10 + k) + 30 * k + 2 * k * F)
     if want_feat:
         ins.append(feat)
     nbytes = _nbytes(ins) + n * 4 * ((4 if want_dh else 1) + F)
-    return _bound(0.0, f32, nbytes)
+    return 0.0, 0.0, cc, nbytes
 
 
-def _bound(bf, f32, nbytes):
-    t_ops = (bf / H100_BF16_FLOPS + f32 / H100_F32_FLOPS) * 1e3
+def kernel_bound(name, args, kw, f32_tc_rate=H100_F32_SPLIT_FLOPS):
+    """(ms, "operations" | "bytes"): the larger of the call's operations
+    over the card's peak rates (bf16 and the f32 hidden layers on the
+    tensor cores, the f32 hidden layers at f32_tc_rate; the rest of the f32
+    work on the CUDA cores) and its bytes over the memory rate.
+    f32_tc_rate=H100_F32_FLOPS gives the CUDA-core bound of the f32
+    layers, the yardstick before they moved to the tensor cores."""
+    if name == "field_fused":
+        bf, tc, cc, nbytes = field_work(args, kw)
+    elif name == "secant_refine":
+        bf, tc, cc, nbytes = secant_work(args, kw)
+    elif name == "surface_locate":
+        bf, tc, cc, nbytes = locate_work(args, kw)
+    else:
+        bf, tc, cc, nbytes = candidate_work(name, args, kw)
+    t_ops = (bf / H100_BF16_FLOPS + tc / f32_tc_rate
+             + cc / H100_F32_FLOPS) * 1e3
     t_bytes = nbytes / H100_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def kernel_bound(name, args, kw):
-    if name == "field_fused":
-        return field_bound(args, kw)
-    if name == "secant_refine":
-        return secant_bound(args, kw)
-    if name == "surface_locate":
-        return locate_bound(args, kw)
-    return candidate_bound(name, args, kw)
+def cuda_core_bound(name, args, kw):
+    """kernel_bound with every f32 flop at the CUDA-core rate (ms)."""
+    return kernel_bound(name, args, kw, H100_F32_FLOPS)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -803,6 +820,7 @@ def time_kernels(timed, rows):
         row["ms"] = cuda_ms(lambda: fn(*a, **kw))
         row["plain_ms"] = cuda_ms(lambda: plain(*a, **kw), reps=2)
         row["bound_ms"], row["bound_by"] = kernel_bound(name, a, kw)
+        row["bound_cuda_core_ms"] = cuda_core_bound(name, a, kw)
         row["shapes"] = _shape_note(name, a)
         row["timed_variant"] = var
         row["max_abs_err"] = next(c["max_abs_err"] for c in row["checks"]
@@ -980,9 +998,13 @@ def rows_per_context(name, args):
 
 
 def live_share(name, args):
-    """Live rows over all rows of the call's blocks (a block serves one
-    context)."""
-    _, n = rows_per_context(name, args)
+    """Live rows over all rows of the call's blocks: the tile kernels'
+    block plan (kernels.block_plan: below 64 rows a context a block spans
+    several), the candidate kernels' 32-sample blocks of one context."""
+    from neumesh_tpu_torch.ops import kernels
+    B, n = rows_per_context(name, args)
+    if BLOCK_ROWS[name] == 64:
+        return float(kernels.block_plan(B, n)[2].float().mean())
     rows = BLOCK_ROWS[name]
     return n / (rows * -(-n // rows))
 
@@ -1106,13 +1128,16 @@ def time_cli_calls(timed, stats):
         ms = cuda_ms(lambda: fn(*a, **kw))
         plain_ms = cuda_ms(lambda: plain(*a, **kw), reps=2)
         bound, by = kernel_bound(name, a, kw)
+        bound_cc = cuda_core_bound(name, a, kw)
         for row in stats[tag]["per_frame_calls"]:
             if (row["kernel"], row["mode"], row["rows_per_context"]) == \
                     (name, mode, n):
                 row.update(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                           bound_by=by, shapes=_shape_note(name, a))
+                           bound_by=by, bound_cuda_core_ms=bound_cc,
+                           shapes=_shape_note(name, a))
         log(f"[cli] {tag}: {name}/{mode} at {n} rows a context: {ms:.3f} ms "
-            f"(plain {plain_ms:.3f}, bound {bound:.4f}, {by})")
+            f"(plain {plain_ms:.3f}, bound {bound:.4f}, {by}; CUDA-core "
+            f"bound {bound_cc:.4f})")
 
 
 # ---------------------------------------------------------------------------
@@ -1463,6 +1488,7 @@ def run_training(tmp, card):
                      "ms": cuda_ms(lambda: fn(*a, **kw)),
                      "plain_ms": cuda_ms(lambda: plain(*a, **kw), reps=2),
                      "bound_ms": bound, "bound_by": by,
+                     "bound_cuda_core_ms": cuda_core_bound(name, a, kw),
                      "live_share": live_share(name, a)})
         log(f"[train] {name}/{mode} B={B} S={S} C={a[1].shape[2]}: "
             f"{rows[-1]['ms']:.3f} ms (plain {rows[-1]['plain_ms']:.3f}, "
@@ -3197,7 +3223,9 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"],
+            "bound_cuda_core_ms": row["bound_cuda_core_ms"],
+            "library_ms": None,
             "design": "wgmma" if (kname, mode) in WGMMA_ROWS else "simt",
             "card": card, "shapes": row["shapes"],
             "timed_variant": row["timed_variant"], "checks": row["checks"]})

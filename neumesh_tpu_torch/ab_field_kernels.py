@@ -10,13 +10,20 @@ script's own checkout, so they are the same for every root:
 tests/test_torch_cuda.py::random_context at W = 256, geometry/colour dims
 32/32, multires 8/2/2/4, B = 512 tiles of C = 128 candidates, k = 8;
 S = 1024 samples a tile for density / density_nabla, 512 for full, and
-secant_refine with the re-bracket on 65,536 rays (3 iterations); weights
-in f32 and in bf16 (test_torch_cuda.low_precision_mask). surface_locate on
+secant_refine in its four options (plain, re-bracket, frozen, frozen with
+the re-bracket) on 65,536 rays (3 iterations); weights in f32 and in bf16
+(test_torch_cuda.low_precision_mask). field_fused distance (k = 1) at
+S = 2048 samples a tile. surface_locate on
 65,536 rays in 512 tiles of 128 (test_torch_cuda.locate_rays into a
 context of outward normals; 16 scan steps, 3 secant steps), f32 and bf16.
 candidate_field_v3 in its four modes at S = 512 samples a tile, F = 64,
 and candidate_field (v2) in its four modes on 4,096 rays of S = 64 samples
-and C = 96 candidates each (test_torch_cuda.ray_contexts). Prints one JSON
+and C = 96 candidates each (test_torch_cuda.ray_contexts). The render
+CLI's per-ray f32 calls ("per_ray/..."), one call of a 128x128 view's four
+chunks: 4,096 contexts of C = 96 candidates at the flagship widths,
+field_fused density at S = 16 and 64, density_nabla at S = 128, full at
+S = 1 and 127, and the plain secant (8 iterations) at one ray a context,
+f32 weights. Prints one JSON
 line per measurement: the root, the card (name and power limit), and each
 call's ms: the median of three windows of 10 launches each after a warm-up
 (chip_smoke.cuda_ms, CUDA events; the mean of a window), and under "min"
@@ -87,16 +94,48 @@ def measure(root: str) -> dict:
                     cws if want == "full" else None, d, want=want,
                     dtype=dtype, **inp["kw"]))
         gfeat = feat[..., :32].contiguous()
-        timed(f"secant_refine/rebracket/{tag}",
-            lambda: kernels.secant_refine(
-                *rays, geo, gfeat, inp["w1"], dws, n_iters=3, multires_d=8,
-                multires_fg=2, geometry_dim=32, dtype=dtype,
-                d_low_w=t(br["d_low_w"]), d_high_w=t(br["d_high_w"])))
+        for rb in (True, False):
+            for fr in (False, True):
+                wk = (dict(d_low_w=t(br["d_low_w"]),
+                           d_high_w=t(br["d_high_w"])) if rb else {})
+                timed(f"secant_refine/{kernels.secant_mode(rb, fr)}/{tag}",
+                    lambda: kernels.secant_refine(
+                        *rays, geo, gfeat, inp["w1"], dws, n_iters=3,
+                        multires_d=8, multires_fg=2, geometry_dim=32,
+                        dtype=dtype, frozen_knn=fr, **wk))
         lws = weights(loc["dws"], 2, low)
         timed(f"surface_locate/{tag}",
             lambda: kernels.surface_locate(
                 *lrays, lgeo, lfeat, loc["w1"], lws, n_steps=16, n_secant=3,
                 multires_d=8, multires_fg=2, geometry_dim=32, dtype=dtype))
+    far = tc.random_context(seed=3, B=512, S=2048, C=128, **WIDE)
+    dxyz, dgeo, dfeat = (t(far[n]) for n in ("xyz", "geo", "feat"))
+    timed("field_fused/distance/k1",
+          lambda: kernels.field_fused(dxyz, dgeo, dfeat, far["w1"], k=1,
+                                      want="distance"))
+    # the render CLI's per-ray f32 calls (one 4,096-ray chunk of a view)
+    pr = tc.random_context(seed=5, B=4096, S=128, C=96, **WIDE)
+    pxyz, pgeo, pfeat, pdirs = (t(pr[n]) for n in ("xyz", "geo", "feat",
+                                                   "dirs"))
+    pdws, pcws = weights(pr["dws"], 2, None), weights(pr["cws"], 1, None)
+    for want, S in (("density", 16), ("density", 64),
+                    ("density_nabla", 128), ("full", 1), ("full", 127)):
+        F = 64 if want == "full" else 32
+        x, d = pxyz[:, :S].contiguous(), pdirs[:, :S].contiguous()
+        fe = pfeat[..., :F].contiguous()
+        timed(f"per_ray/field_fused/{want}/S{S}/f32",
+              lambda: kernels.field_fused(
+                  x, pgeo, fe, pr["w1"], pdws,
+                  pcws if want == "full" else None, d, want=want,
+                  **pr["kw"]))
+    pbr = tc.brackets(12, 4096)
+    prays = [t(pbr[n]) for n in ("rays_o", "rays_d", "d_low", "d_high",
+                                 "f_low", "f_high")]
+    pg = pfeat[..., :32].contiguous()
+    timed("per_ray/secant_refine/plain/T1/f32",
+          lambda: kernels.secant_refine(
+              *prays, pgeo, pg, pr["w1"], pdws, n_iters=8, multires_d=8,
+              multires_fg=2, geometry_dim=32))
     x5 = xyz[:, :512].contiguous()
     for dh in (False, True):
         for ft in (True, False):

@@ -19,30 +19,36 @@
 // distance-only callers).
 //
 // One MLP stage, on the tensor cores (field_fused, secant_refine,
-// surface_locate; "tile" below): 64 samples a block, one wgmma M tile,
-// four warpgroups (512 threads, so the candidate passes take all 64
-// samples at once). The activations live in shared memory as bf16 in the
-// wgmma core-matrix layout (8 x 8 blocks, K-major, no swizzle); the
-// weights of each bf16 hidden layer, packed by the wrapper in the same
-// layout, stream through a ring of two 64-row K slices (cp.async.bulk
+// surface_locate; "tile" below): 64 rows (samples or rays) a block, one
+// wgmma M tile, four warpgroups (512 threads, so the candidate passes take
+// all 64 rows at once). Rows: with R >= 64 rows a context a block takes 64
+// rows of one context; with fewer (the per-ray shapes: one context a ray,
+// S = 1 or 16 samples) the flattened (context, row) order is cut into
+// blocks of 64 rows, each row with its own context (TileRows), so no
+// block runs a 64-row MLP for one live row. A block's contexts are staged
+// in shared memory where they fit beside the rest, else each row's lanes
+// read its context from global memory (L2).
+// Every hidden layer runs on wgmma.m64n64k16 (f32 accumulators that start
+// at the bias; each warpgroup a 64 x 64 quarter of the 256-wide output;
+// the tangent of density_nabla/full a second accumulator off the same
+// staged slice). Its weights, packed by the wrapper as K-major 8 x 8 core
+// matrices, stream through a ring of two 64-row K slices (cp.async.bulk
 // completing on an mbarrier, one slice loading while the other multiplies;
 // the ring runs on across layers and evaluations and starts loading under
-// the candidate stage). Each warpgroup computes a 64 x 64 quarter of the
-// 256-wide output with wgmma.m64n64k16 (bf16 in, f32 accumulators that
-// start at the bias); the tangent of density_nabla/full runs a second
-// accumulator off the same staged slice. Epilogue in registers: softplus
-// (beta 100) or ReLU, the tangent times softplus', rounding to the next
-// layer's dtype. The feature blend sums over each sample's listed kNN
-// picks. What bounds it now (ablations on the H100, PERF.md): the
-// exact-f32 CUDA-core work around the products -- the epilogue's
-// softplus/softplus' (expf, log1pf, IEEE division) and the candidate
-// passes -- then the wgmma waits; one block holds an SM (128 registers a
-// thread, 150-220 KB of shared memory).
-// On the CUDA cores inside that stage: f32 layers (selective-f32 d0/c0 and
-// every layer of the f32 models; dense_accum's arithmetic,
-// thread-per-output-column over 32 samples, the two 32-row sub-tiles on
-// the two halves of the block), the heads (N = 1, 3), the embeddings and
-// the feature blend. No bf16 layer runs there.
+// the candidate stage). A bf16 layer reads its activations as a bf16 tile
+// in the core-matrix layout from shared memory. An f32 layer (every layer
+// of the f32 models, selective-f32 d0/c0) is the TPU's precision="highest"
+// product: the weight comes as three bf16 planes (hi, mid, lo; hi + mid +
+// lo == w exactly), streamed as three slices per K slice, and each
+// warpgroup splits its register fragment of the f32 activation rows the
+// same way at the A operand, six products hi.hi, mid.hi, lo.hi, hi.mid,
+// mid.mid, hi.lo (the terms of order 2^-24 and below dropped). Epilogue
+// in registers: softplus (beta 100) or ReLU, the tangent times softplus',
+// rounding to the next layer's dtype. The feature blend sums over each
+// row's listed kNN picks. On the CUDA cores, exact f32: the candidate
+// stage, the heads (N = 1, 3), the embeddings, the blend and the
+// epilogues; one block holds an SM (128 registers a thread, up to ~225 KB
+// of shared memory).
 //
 // Numerics follow the TPU kernels, not the XLA path:
 //  - candidate math in exact f32 element-wise arithmetic (__fmul_rn and
@@ -51,7 +57,8 @@
 //    by k masked-min passes ("remove everything <= the pass minimum");
 //  - per-layer precision follows the weight dtype: a bf16 layer rounds its
 //    inputs to bf16, products are exact in f32, accumulation f32 (in
-//    wgmma's own order on the tensor cores), bias f32;
+//    wgmma's own order on the tensor cores), bias f32; an f32 layer takes
+//    the six-product bf16 split above (f32 to ~2^-23 relative a product);
 //  - scalar embeddings (d, view dirs) take cos(z) as sin(z + pi/2) with
 //    freq = 2^(blk/2); in bf16 serving the feature embeddings use the
 //    double-angle recursion in bf16 from f32 base sin/cos.
@@ -65,15 +72,15 @@
 
 namespace nm {
 
-constexpr int SB = 32;           // samples per candidate-kernel block; rows
-                                 // of an f32 layer's sub-tile
-constexpr int NT = 256;          // threads per candidate-kernel block and
-                                 // per f32 sub-tile
+constexpr int SB = 32;           // samples per candidate-kernel block
+constexpr int NT = 256;          // threads per candidate-kernel block
 constexpr int LPS = NT / SB;     // lanes per sample in candidate passes
 constexpr int TS = 64;           // samples (rays) per tile-stage block
 constexpr int TNT = 512;         // threads per tile-stage block: four
                                  // warpgroups, TS samples at LPS lanes
-constexpr int KS = 64;           // K rows per staged weight slice
+constexpr int KS = 64;           // K rows per staged weight slice (bf16)
+constexpr int KSF = 16;          // K rows per staged slice of an f32 layer
+                                 // (its three planes: 24 KB of a 32 KB slot)
 constexpr int NPAD = 256;        // packed layers' output width
 constexpr int RING = 2;          // staged weight slices in flight
 constexpr int KL = 32;           // kNN picks listed per sample for the
@@ -82,6 +89,7 @@ constexpr int MAX_LAYERS = 8;    // ops/_build.py MAX_LAYERS
 constexpr int KSEL = 16;         // frozen secant: at most 16 neighbours
 constexpr int KC = 16;           // candidates a lane keeps in registers
                                  // (C <= KC * LPS)
+constexpr size_t SMEM_MAX = 227 * 1024;  // dynamic shared memory a block
 static_assert(TNT / LPS == TS, "a tile block's candidate pass takes TS");
 constexpr float HALF_PI = 1.57079637f;   // float32(pi / 2)
 
@@ -89,18 +97,21 @@ enum Mode { DISTANCE = 0, DENSITY = 1, DENSITY_NABLA = 2, FULL = 3 };
 
 // ---- argument blocks (mirrored by ctypes structures in ops/_build.py)
 struct LayerDesc {
-  const void* w;      // (K, N) row-major, float32 or bfloat16
+  const void* w;      // (K, N) row-major, float32 or bfloat16 (the heads
+                      // read it)
   const float* b;     // (N,)
   int K, N, bf16;
-  int split;          // first layer: rows [0, split) get the bias before
-                      // rows [split, K); 0 for plain layers
-  // tile stage: wp = the bf16 hidden layer packed for wgmma (kp rows, each
-  // row block zero-padded to a multiple of 16, the second starting at row
-  // kp1, where the tangent stops; N zero-padded to NPAD), K-major 8 x 8
-  // core matrices, slice by slice of KS rows; null for the layers on the
-  // CUDA cores. kp (> 0)
-  // is the width of the bf16 activation tile a bf16 layer reads (heads
-  // included); 0 for f32 layers, which read f32 rows of stride ldx.
+  int split;          // first layer: its second row block starts at row
+                      // split; 0 for later layers
+  // wp: a hidden layer packed for wgmma (kp rows, each row block
+  // zero-padded to a multiple of 16, the second starting at row kp1, where
+  // the tangent's input is zero; N zero-padded to NPAD), K-major 8 x 8
+  // core matrices, slice by slice: KS rows of one bf16 plane for a bf16
+  // layer, KSF rows of the three planes (hi, mid, lo) one after the other
+  // for an f32 layer; null for the heads. kp: the input width a hidden
+  // layer reads (a bf16 tile of that width, or that many columns of the
+  // f32 rows of stride ldx); a bf16 head's tile width (NPAD); 0 for an f32
+  // head.
   const void* wp;
   int kp1, kp;
 };
@@ -113,6 +124,8 @@ struct FieldArgs {
   const void* feat;
   float* out;
   int feat_bf16, B, S, C, F, k, mode, md, mfg, mft, mv, gd, lowp, ldx;
+  int nst;            // contexts a block stages (0: read from global); set
+                      // by the C entry
   float w1;
   MLPDesc dens, col;
 };
@@ -123,6 +136,8 @@ struct RayField {
   const void* feat;
   float* out;
   int feat_bf16, R, B, T, C, F, k, md, mfg, gd, lowp, ldx;
+  int nst;            // contexts a block stages (0: read from global); set
+                      // by the C entry
   float w1, tau;
   MLPDesc dens;
 };
@@ -437,6 +452,19 @@ __device__ void interp_sample(const float* geo, int C, float x0, float x1,
   }
 }
 
+// interp_sample with the candidates in registers where they fit (C <= KC
+// LPS), else strided.
+template <int OUT>
+__device__ __forceinline__ void interp_any(const float* geo, int C, float x0,
+                                           float x1, float x2, float w1,
+                                           int k, bool want_dh, int lane,
+                                           const Picks& po, Interp& out) {
+  if (C <= KC * LPS)
+    interp_sample<KC, OUT>(geo, C, x0, x1, x2, w1, k, want_dh, lane, po, out);
+  else
+    interp_sample<0, OUT>(geo, C, x0, x1, x2, w1, k, want_dh, lane, po, out);
+}
+
 // ---------------------------------------------------------------------------
 // block-level stages (every thread of the block calls them)
 // ---------------------------------------------------------------------------
@@ -475,75 +503,110 @@ __device__ void feature_emb_to(const float* src, int ld_src, int D, int nf,
   }
 }
 
-// Accumulators of output column j of an f32 layer over the SB rows of a
-// sub-tile (X, and T with the tangent): acc = X w + b, tacc = T w.
-template <bool TANG>
-__device__ __forceinline__ void dense_accum(const LayerDesc& L,
-                                            const float* X, const float* T,
-                                            int ldx, int xoff2, int j,
-                                            float (&acc)[SB],
-                                            float (&tacc)[SB]) {
-  const int N = L.N;
-  const int K1 = L.split ? L.split : L.K;
-#pragma unroll
-  for (int s = 0; s < SB; ++s) {
-    acc[s] = 0.f;
-    if (TANG) tacc[s] = 0.f;
-  }
-  int k = 0;
-  for (; k + 4 <= K1; k += 4) {
-    const float w0 = ldw(L, (k + 0) * N + j), w1 = ldw(L, (k + 1) * N + j),
-                w2 = ldw(L, (k + 2) * N + j), w3 = ldw(L, (k + 3) * N + j);
-#pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      const float4 x = *reinterpret_cast<const float4*>(X + s * ldx + k);
-      acc[s] = fmaf(x.w, w3, fmaf(x.z, w2, fmaf(x.y, w1, fmaf(x.x, w0, acc[s]))));
-      if (TANG) {
-        const float4 t = *reinterpret_cast<const float4*>(T + s * ldx + k);
-        tacc[s] = fmaf(t.w, w3, fmaf(t.z, w2, fmaf(t.y, w1, fmaf(t.x, w0, tacc[s]))));
-      }
-    }
-  }
-  for (; k < K1; ++k) {
-    const float w = ldw(L, k * N + j);
-#pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      acc[s] = fmaf(X[s * ldx + k], w, acc[s]);
-      if (TANG) tacc[s] = fmaf(T[s * ldx + k], w, tacc[s]);
-    }
-  }
-  const float bj = L.b[j];
-#pragma unroll
-  for (int s = 0; s < SB; ++s) acc[s] = fadd(acc[s], bj);
-  if (!L.split) return;
-  // second row block (first layers): X columns from the aligned xoff2
-  const int K2 = L.K - L.split;
-  k = 0;
-  for (; k + 4 <= K2; k += 4) {
-    const int r = L.split + k;
-    const float w0 = ldw(L, (r + 0) * N + j), w1 = ldw(L, (r + 1) * N + j),
-                w2 = ldw(L, (r + 2) * N + j), w3 = ldw(L, (r + 3) * N + j);
-#pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(X + s * ldx + xoff2 + k);
-      acc[s] = fmaf(x.w, w3, fmaf(x.z, w2, fmaf(x.y, w1, fmaf(x.x, w0, acc[s]))));
-    }
-  }
-  for (; k < K2; ++k) {
-    const float w = ldw(L, (L.split + k) * N + j);
-#pragma unroll
-    for (int s = 0; s < SB; ++s) acc[s] = fmaf(X[s * ldx + xoff2 + k], w, acc[s]);
-  }
-}
-
 enum Act { ACT_SOFTPLUS = 0, ACT_RELU = 1 };
 
 // ---------------------------------------------------------------------------
 // tensor-core tile stage (field_fused, secant_refine, surface_locate):
-// TS = 64 samples a block, four warpgroups; see the note at the top of
-// this file
+// TS = 64 rows a block, four warpgroups; see the note at the top of this
+// file
 // ---------------------------------------------------------------------------
+
+// The rows of a tile-stage call: R rows (samples or rays) in each of B
+// contexts, row r of context b at flat index b R + r. R >= TS: a block
+// takes TS consecutive rows of one context (ceil(R / TS) blocks a
+// context, the last ragged). R < TS: the flat order cut into blocks of TS
+// rows (ceil(B R / TS) blocks, the last ragged), each row in its own
+// context, up to 1 + ceil((TS - 1) / R) contexts a block. A rule of shape:
+// the R >= TS shapes keep one context a block. A ragged row takes the
+// context of the block's first row, row 0. 32-bit arithmetic: the C
+// entries take B R <= INT_MAX - TS (rows_ok).
+struct BlockRow {
+  int ctx, row;
+  bool live;          // a row of the call (the ragged rows are not)
+  int flat;
+};
+__host__ __device__ inline bool rows_ok(int B, int R) {
+  return B > 0 && R > 0 && (long long)B * R <= INT_MAX - TS;
+}
+__host__ __device__ inline long long tile_blocks(int B, int R) {
+  return R >= TS ? (long long)B * ((R + TS - 1) / TS)
+                 : ((long long)B * R + TS - 1) / TS;
+}
+__host__ __device__ inline int block_contexts_max(int B, int R) {
+  const int n = R >= TS ? 1 : 1 + (TS - 1 + R - 1) / R;
+  return n < B ? n : B;
+}
+struct TileRows {
+  int R, n;           // rows a context, rows of the call (B R)
+  int first, count;   // the contexts of the block's live rows
+  int g0;             // R < TS: the flat index of the block's row 0; R >=
+                      // TS: its row in context `first`
+  // block blk's rows: the divisions once a block
+  __device__ TileRows(int B, int R_, int blk) : R(R_), n(B * R_) {
+    if (R >= TS) {
+      const int nblk = (R + TS - 1) / TS;
+      first = blk / nblk;
+      g0 = (blk - first * nblk) * TS;
+      count = 1;
+    } else {
+      g0 = blk * TS;
+      first = g0 / R;
+      count = (min(g0 + TS, n) - 1) / R - first + 1;
+    }
+  }
+  // row t of the block
+  __device__ BlockRow at(int t) const {
+    BlockRow r;
+    if (R >= TS) {
+      r.ctx = first;
+      r.row = g0 + t;
+      r.live = r.row < R;
+    } else {
+      const int g = g0 + t;
+      r.live = g < n;
+      r.ctx = r.live ? g / R : first;
+      r.row = g - r.ctx * R;
+    }
+    if (!r.live) r.row = 0;
+    r.flat = r.ctx * R + r.row;
+    return r;
+  }
+};
+
+// A block's candidate contexts (8, C) each: staged in shared memory
+// (n > 0 of them from context `first`) or read from global memory. Where
+// they are is a template argument of the kernels (L2), so that each
+// instantiation reads them through a pointer of one known state space and
+// carries one copy of the candidate stage.
+struct Contexts {
+  const float* global;   // (B, 8, C)
+  const float* staged;   // n * 8 * C, or null
+  const int* ctx;        // each row's context (TS, shared memory)
+  int C, first;
+  bool one;              // one context a block (R >= TS)
+  template <bool L2>
+  __device__ const float* of(int t) const {
+    const int c = one ? first : ctx[t];
+    if constexpr (L2) return global + (size_t)c * 8 * C;
+    else return staged + (c - first) * 8 * C;
+  }
+};
+
+// Each row's context into ctx[] (threads t < TS) and, with a staging
+// buffer, the block's contexts into it (every thread calls; the caller
+// synchronises).
+__device__ Contexts load_contexts(const TileRows& rows, const float* geo,
+                                  int C, float* staged, int* ctx) {
+  const int tid = threadIdx.x;
+  if (tid < TS) ctx[tid] = rows.at(tid).ctx;
+  const int first = rows.first;
+  if (staged) {
+    const float* src = geo + (size_t)first * 8 * C;
+    const int n = rows.count * 8 * C;
+    for (int i = tid; i < n; i += TNT) staged[i] = src[i];
+  }
+  return Contexts{geo, staged, ctx, C, first, rows.R >= TS};
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -557,9 +620,17 @@ __device__ __forceinline__ int tile_off(int s, int k, int kp) {
          (k & 7);
 }
 
+// Element offset of (row s, column k) in f32 rows of stride ldx (a
+// multiple of 32): the 8-column groups of a row XOR-swizzled by s & 3, so
+// that the 8 rows of a wgmma register fragment, and of the epilogue's
+// stores, fall in distinct banks four rows at a time.
+__device__ __forceinline__ int row_off(int s, int k, int ldx) {
+  return s * ldx + (k ^ ((s & 3) << 3));
+}
+
 // An activation buffer in the layout of the layer that reads it: a bf16
 // tile of width kp (kp > 0; storing rounds to bf16) or f32 rows of stride
-// ldx.
+// ldx (kp = 0).
 struct ActBuf {
   void* p;
   int kp, ldx;
@@ -571,13 +642,14 @@ struct ActBuf {
     if (kp)
       h()[tile_off(s, k, kp)] = __float2bfloat16_rn(v);
     else
-      f()[s * ldx + k] = v;
+      f()[row_off(s, k, ldx)] = v;
   }
   __device__ float get(int s, int k) const {
-    return kp ? __bfloat162float(h()[tile_off(s, k, kp)]) : f()[s * ldx + k];
+    return kp ? __bfloat162float(h()[tile_off(s, k, kp)])
+              : f()[row_off(s, k, ldx)];
   }
   __device__ ActBuf for_layer(const LayerDesc& L) const {
-    return ActBuf{p, L.kp, ldx};
+    return ActBuf{p, L.bf16 ? L.kp : 0, ldx};
   }
 };
 
@@ -603,6 +675,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[p][i])::"memory");
+}
 // generic-proxy stores to shared memory visible to wgmma's reads
 __device__ __forceinline__ void fence_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -626,6 +704,62 @@ __device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t da,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// The same product with A (64 x 16 bf16) from registers: this thread's
+// fragment a[0..3], rows warp * 16 + lane / 4 (+ 8), columns 2 (lane % 4)
+// (+ 1, + 8, + 9), as mma.m16n8k16's A; d = A B (+ d where accumulate).
+__device__ __forceinline__ void wgmma64_rs(float (&d)[32],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "
+      "%27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// Two f32 values as three bf16 pairs hi, mid, lo (x == hi + mid + lo
+// exactly: each rounding leaves at most 16, then 8 significant bits).
+__device__ __forceinline__ uint32_t bf2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void split3(float2 x, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x.x, x.y);
+  const float2 hf = __bfloat1622float2(h);
+  const float r0 = fsub(x.x, hf.x), r1 = fsub(x.y, hf.y);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const float2 mf = __bfloat1622float2(m);
+  hi = bf2_bits(h);
+  mid = bf2_bits(m);
+  lo = bf2_bits(__floats2bfloat162_rn(fsub(r0, mf.x), fsub(r1, mf.y)));
+}
+
+// This thread's register fragment of the 64 x 16 slice at column kg of
+// f32 rows X (every warpgroup reads all 64 rows), split: a[p] is plane p.
+__device__ __forceinline__ void split_fragment(const ActBuf& X, int kg,
+                                               uint32_t (&a)[3][4]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  const int c0 = kg + (lane & 3) * 2;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = r0 + (i & 1) * 8, col = c0 + (i >> 1) * 8;
+    const float2 x =
+        *reinterpret_cast<const float2*>(X.f() + row_off(row, col, X.ldx));
+    split3(x, a[0][i], a[1][i], a[2][i]);
+  }
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
@@ -682,9 +816,10 @@ __device__ void list_picks(const float* sW, int C, unsigned short* idx,
   }
 }
 
-// The blend of the TS samples (a row scan's products in a row scan's
-// order: the listed picks ascend); every thread calls, synchronises inside.
-__device__ void blend_tile(const void* feat, size_t feat_off, int fbf, int F,
+// The blend of the TS rows, each against the features (C, F) of its own
+// context ctx[s] (a row scan's products in a row scan's order: the listed
+// picks ascend); every thread calls, synchronises inside.
+__device__ void blend_tile(const void* feat, const int* ctx, int fbf, int F,
                            int Fb, const float* sW, int C,
                            unsigned short* idx, int* cnt, float* sFB) {
   list_picks(sW, C, idx, cnt);
@@ -693,6 +828,7 @@ __device__ void blend_tile(const void* feat, size_t feat_off, int fbf, int F,
     const int s = i / Fb, f = i % Fb;
     const float* wr = sW + s * C;
     const int n = cnt[s];
+    const size_t feat_off = (size_t)ctx[s] * C * F;   // this row's context
     float acc = 0.f;
     for (int j = 0; j < (n <= KL ? n : C); ++j) {
       const int c = n <= KL ? idx[s * KL + j] : j;
@@ -706,8 +842,13 @@ __device__ void blend_tile(const void* feat, size_t feat_off, int fbf, int F,
 }
 
 // ---- the block's tile-stage memory and its weight-slice stream
+// A packed layer's slices: KS rows of a bf16 layer, or KSF rows of an
+// f32 layer's three planes (hi, mid, lo).
+__host__ __device__ inline int slice_rows(const LayerDesc& L) {
+  return L.bf16 ? KS : KSF;
+}
 __host__ __device__ inline int n_slices(const LayerDesc& L) {
-  return L.wp ? (L.kp + KS - 1) / KS : 0;
+  return L.wp ? (L.kp + slice_rows(L) - 1) / slice_rows(L) : 0;
 }
 __host__ __device__ inline int mlp_slices(const MLPDesc& D) {
   int n = 0;
@@ -718,8 +859,8 @@ __host__ __device__ inline int mlp_slices(const MLPDesc& D) {
 __host__ __device__ inline size_t act_bytes(const MLPDesc& D, int ldx) {
   size_t b = 0;
   for (int l = 0; l < D.n; ++l) {
-    const size_t v = D.l[l].kp ? (size_t)TS * D.l[l].kp * 2
-                               : (size_t)TS * ldx * 4;
+    const size_t v = D.l[l].bf16 ? (size_t)TS * D.l[l].kp * 2
+                                 : (size_t)TS * ldx * 4;
     b = v > b ? v : b;
   }
   return (b + 127) & ~(size_t)127;
@@ -757,18 +898,26 @@ __host__ __device__ inline size_t tile_plan_bytes(const TilePlan& p) {
   return p.ring + p.act + 16;
 }
 
-// Every bf16 hidden layer must come packed for wgmma, every bf16 layer
-// with its input tile width; f32 layers read f32 rows of ldx >= NPAD.
+// Whether any hidden layer of D is f32 (the kernels' F32 instantiation).
+inline bool has_f32(const MLPDesc& D) {
+  for (int l = 0; l < D.n - 1; ++l)
+    if (!D.l[l].bf16) return true;
+  return false;
+}
+
+// Every hidden layer must come packed for wgmma with its input width, a
+// bf16 head with its tile width; f32 rows have a stride ldx >= NPAD, a
+// multiple of 32 (the swizzle), that holds every f32 layer's input.
 inline bool tile_mlp_ok(const MLPDesc& D, int ldx) {
-  if (D.n < 2 || D.n > MAX_LAYERS || ldx < NPAD) return false;
+  if (D.n < 2 || D.n > MAX_LAYERS || ldx < NPAD || ldx % 32) return false;
   for (int l = 0; l < D.n; ++l) {
     const LayerDesc& L = D.l[l];
     const bool hidden = l < D.n - 1;
-    if (L.bf16 != (L.kp > 0) || (L.wp != nullptr) != (hidden && L.bf16))
+    if ((L.wp != nullptr) != hidden || L.kp % 16) return false;
+    if (hidden && (L.kp <= 0 || L.kp1 % 16 || L.kp1 > L.kp || L.N > NPAD ||
+                   (!L.bf16 && L.kp > ldx)))
       return false;
-    if (L.kp % 16 || (L.wp && (L.kp1 % 16 || L.kp1 > L.kp || L.N > NPAD)))
-      return false;
-    if (hidden && L.N > NPAD) return false;
+    if (!hidden && (L.bf16 ? L.kp < L.K : L.kp != 0)) return false;
   }
   return true;
 }
@@ -816,10 +965,13 @@ __device__ void start_slice(const TileMem& m, uint32_t q) {
       const LayerDesc& L = D.l[l];
       const int n = n_slices(L);
       if (p < n) {
-        const int k0 = p * KS, ks = min(KS, L.kp - k0);
+        // slice p: ks rows of each of the layer's P planes, consecutive
+        const int P = L.bf16 ? 1 : 3, k0 = p * slice_rows(L),
+                  ks = min(slice_rows(L), L.kp - k0);
         bulk_load(m.ring + (q % RING) * KS * NPAD,
-                  static_cast<const __nv_bfloat16*>(L.wp) + (size_t)k0 * NPAD,
-                  (uint32_t)ks * NPAD * 2, m.bar + q % RING);
+                  static_cast<const __nv_bfloat16*>(L.wp) +
+                      (size_t)P * k0 * NPAD,
+                  (uint32_t)(P * ks) * NPAD * 2, m.bar + q % RING);
         return;
       }
       p -= n;
@@ -847,17 +999,29 @@ __device__ void tile_drain(const TileMem& m) {
       mbar_wait(m.bar + q % RING, (q / RING) & 1);
 }
 
-// One packed bf16 hidden layer on wgmma: reads X (and T) as tiles of width
-// L.kp, writes the outputs into Xn (Tn) in the next layer's layout, in
-// place. Warpgroup g computes output columns [64 g, 64 g + 64).
-template <bool TANG>
+// One packed hidden layer on wgmma, in place: reads X (and T) in the
+// layer's layout, writes the outputs into Xn (Tn) in the next layer's.
+// Warpgroup g computes output columns [64 g, 64 g + 64). A bf16 layer
+// takes A from its bf16 tile in shared memory, one KS-row slice's
+// products committed together. An f32 layer's slice holds KSF = 16 rows
+// of the weight's three planes hi, mid, lo: every warpgroup splits its
+// register fragment of those 16 columns of the f32 rows into a[0..2] and
+// takes the six products a[i] . plane j, i + j <= 2, then waits before
+// its next split overwrites the fragment. Without the tangent (the
+// registers of the tangent free) a slice's six products start a second
+// accumulator, which is added to the layer's in f32 (round to nearest)
+// after the slice: the tensor cores truncate each sum toward zero at the
+// larger operand's precision, and over a 256-row layer that bias would
+// build up in one accumulator. F32: the MLP has f32 hidden layers (without,
+// the f32 path is not compiled, and the bf16 kernels keep their registers).
+template <bool TANG, bool F32>
 __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
                             ActBuf T, int act, ActBuf Xn, ActBuf Tn) {
   const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3,
             lane = tid & 31;
   float acc[32], tac[32];
   const uint32_t sbo_a = (uint32_t)L.kp * 16;   // 8-row group stride
-  const int nsl = n_slices(L);
+  const int nsl = n_slices(L), rows = slice_rows(L);
   // the accumulators start at the bias (f32) and the tangent's at 0, so
   // nothing but wgmma touches them until the epilogue
 #pragma unroll
@@ -869,22 +1033,69 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
   for (int i = 0; i < nsl; ++i) {
     const uint32_t buf = m.seq % RING;
     mbar_wait(m.bar + buf, (m.seq / RING) & 1);
-    const int k0 = i * KS, ks = min(KS, L.kp - k0);
-    // this warpgroup's 64 output columns: 8 groups of 8, each ks / 8
-    // core matrices of 64 elements
+    const int k0 = i * rows, ks = min(rows, L.kp - k0);
+    // this warpgroup's 64 output columns of a plane: 8 groups of 8, each
+    // ks / 8 core matrices of 64 elements
     const __nv_bfloat16* wb = m.ring + buf * KS * NPAD + wg * 64 * ks;
-    wg_fence();
-    for (int kk = 0; kk < ks; kk += 16) {
-      const int kg = k0 + kk;
-      const uint64_t db = mat_desc(wb + kk * 8, 128, (uint32_t)ks * 16);
-      wgmma64(acc, mat_desc(X.h() + kg * 8, 128, sbo_a), db);
+    if (!F32 || L.bf16) {
+      wg_fence();
+      for (int kk = 0; kk < ks; kk += 16) {
+        const int kg = k0 + kk;
+        const uint64_t db = mat_desc(wb + kk * 8, 128, (uint32_t)ks * 16);
+        wgmma64(acc, mat_desc(X.h() + kg * 8, 128, sbo_a), db);
+        // the tangent's input is zero from kp1 on
+        if constexpr (TANG) {
+          if (kg < L.kp1)
+            wgmma64(tac, mat_desc(T.h() + kg * 8, 128, sbo_a), db);
+        }
+      }
+      wg_commit();
+      wg_wait0();
+    } else if constexpr (F32) {
+      // planes hi, mid, lo of the KSF = 16 rows, KSF * NPAD apart
+      const uint64_t b0 = mat_desc(wb, 128, KSF * 16),
+                     b1 = mat_desc(wb + KSF * NPAD, 128, KSF * 16),
+                     b2 = mat_desc(wb + 2 * KSF * NPAD, 128, KSF * 16);
+      uint32_t a[3][4], t[3][4];
+      // both fragments split on every path (registers that wgmma reads
+      // written only outside branches: no serialising fence in one)
+      split_fragment(X, k0, a);
+      if constexpr (TANG) split_fragment(T, k0, t);
+      wg_fence();
       if constexpr (TANG) {
-        if (kg < L.kp1)
-          wgmma64(tac, mat_desc(T.h() + kg * 8, 128, sbo_a), db);
+        wgmma64_rs(acc, a[0], b0);
+        wgmma64_rs(acc, a[1], b0);
+        wgmma64_rs(acc, a[2], b0);
+        wgmma64_rs(acc, a[0], b1);
+        wgmma64_rs(acc, a[1], b1);
+        wgmma64_rs(acc, a[0], b2);
+        wgmma64_rs(tac, t[0], b0);
+        wgmma64_rs(tac, t[1], b0);
+        wgmma64_rs(tac, t[2], b0);
+        wgmma64_rs(tac, t[0], b1);
+        wgmma64_rs(tac, t[1], b1);
+        wgmma64_rs(tac, t[0], b2);
+      } else {
+        wgmma64_rs(tac, a[0], b0, 0);
+        wgmma64_rs(tac, a[1], b0);
+        wgmma64_rs(tac, a[2], b0);
+        wgmma64_rs(tac, a[0], b1);
+        wgmma64_rs(tac, a[1], b1);
+        wgmma64_rs(tac, a[0], b2);
+      }
+      wg_commit();
+      wg_wait0();
+      // the fragments stay in their registers until the products that
+      // read them are done
+      fence_frag(a);
+      if constexpr (TANG) {
+        fence_frag(t);
+      } else {
+        fence_regs(tac);
+#pragma unroll
+        for (int r = 0; r < 32; ++r) acc[r] = fadd(acc[r], tac[r]);
       }
     }
-    wg_commit();
-    wg_wait0();
     __syncthreads();       // every warpgroup is done with the buffer
     if (tid == 0) start_slice(m, m.seq + RING);
     ++m.seq;
@@ -909,8 +1120,8 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
       }
       if (col >= L.N) h[u] = t[u] = 0.f;
     }
+    // two adjacent columns of one row, zeros past N: one store
     if (Xn.kp) {
-      // two adjacent columns of one row: one 4-byte store
       const int o = tile_off(row, c0, Xn.kp);
       *reinterpret_cast<__nv_bfloat162*>(Xn.h() + o) =
           __floats2bfloat162_rn(h[0], h[1]);
@@ -918,45 +1129,10 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
         *reinterpret_cast<__nv_bfloat162*>(Tn.h() + o) =
             __floats2bfloat162_rn(t[0], t[1]);
     } else {
-#pragma unroll
-      for (int u = 0; u < 2; ++u)
-        if (c0 + u < L.N) {
-          Xn.f()[row * Xn.ldx + c0 + u] = h[u];
-          if constexpr (TANG) Tn.f()[row * Tn.ldx + c0 + u] = t[u];
-        }
-    }
-  }
-  fence_proxy();
-  __syncthreads();
-}
-
-// One f32 hidden layer on the CUDA cores (dense_accum's arithmetic), in
-// place: thread j of each 256-thread half computes column j of one 32-row
-// sub-tile; every input is read before any output lands.
-template <bool TANG>
-__device__ void simt_layer_tile(const LayerDesc& L, ActBuf X, ActBuf T,
-                                int xoff2, int act, ActBuf Xn, ActBuf Tn) {
-  const int j = threadIdx.x % NT, s0 = threadIdx.x / NT * SB;
-  float acc[SB], tacc[SB];
-  if (j < L.N)
-    dense_accum<TANG>(L, X.f() + s0 * X.ldx, T.f() + s0 * T.ldx, X.ldx,
-                      xoff2, j, acc, tacc);
-  __syncthreads();
-  if (j < L.N) {
-#pragma unroll
-    for (int s = 0; s < SB; ++s) {
-      const float pre = acc[s];
-      if (act == ACT_SOFTPLUS) {
-        Xn.put(s0 + s, j, softplus100(pre));
-        if (TANG) Tn.put(s0 + s, j, fmul(tacc[s], softplus100_grad(pre)));
-      } else {
-        Xn.put(s0 + s, j, fmaxf(pre, 0.f));
-      }
-    }
-  } else if (Xn.kp) {          // zero pad columns of the next tile
-    for (int s = 0; s < SB; ++s) {
-      Xn.put(s0 + s, j, 0.f);
-      if (TANG) Tn.put(s0 + s, j, 0.f);
+      const int o = row_off(row, c0, Xn.ldx);
+      *reinterpret_cast<float2*>(Xn.f() + o) = make_float2(h[0], h[1]);
+      if constexpr (TANG)
+        *reinterpret_cast<float2*>(Tn.f() + o) = make_float2(t[0], t[1]);
     }
   }
   fence_proxy();
@@ -987,34 +1163,24 @@ __device__ void head_tile(const LayerDesc& L, ActBuf X, ActBuf T, bool tang,
 }
 
 // Hidden layers and head of an MLP whose first-layer inputs are in X (T),
-// laid out for layer 0 (first row block at column 0, second at xoff2).
-template <bool TANG>
-__device__ void mlp_tile(const MLPDesc& D, TileMem& m, int xoff2, int act,
-                         bool sigm, float* out, float* tout) {
+// laid out for layer 0 (first row block at column 0, second at its kp1).
+template <bool TANG, bool F32>
+__device__ void mlp_tile(const MLPDesc& D, TileMem& m, int act, bool sigm,
+                         float* out, float* tout) {
   const ActBuf X{m.X, 0, m.ldx}, T{m.T, 0, m.ldx};
   for (int l = 0; l < D.n - 1; ++l) {
     const LayerDesc& L = D.l[l];
     const ActBuf Xi = X.for_layer(L), Ti = T.for_layer(L);
     const ActBuf Xn = X.for_layer(D.l[l + 1]), Tn = T.for_layer(D.l[l + 1]);
-    if (L.wp)
-      wgmma_layer<TANG>(L, m, Xi, Ti, act, Xn, Tn);
-    else
-      simt_layer_tile<TANG>(L, Xi, Ti, l == 0 ? xoff2 : 0, act, Xn, Tn);
+    wgmma_layer<TANG, F32>(L, m, Xi, Ti, act, Xn, Tn);
   }
   const LayerDesc& H = D.l[D.n - 1];
   head_tile(H, X.for_layer(H), T.for_layer(H), TANG, sigm, out, tout);
 }
 
-// Column where a first layer's second row block starts in its input:
-// the padded first block of a tile, else the f32 rows' multiple of 4.
-__device__ __forceinline__ int second_block(const LayerDesc& L0) {
-  return L0.kp ? L0.kp1 : (L0.split + 3) & ~3;
-}
-
-// Zero the pad columns [from, kp) of a first-layer input tile.
-__device__ void zero_tail(ActBuf X, int from) {
-  if (!X.kp) return;
-  const int n = X.kp - from;
+// Zero the pad columns [from, L0.kp) of a first layer's input.
+__device__ void zero_tail(ActBuf X, const LayerDesc& L0, int from) {
+  const int n = L0.kp - from;
   for (int idx = threadIdx.x; idx < TS * n; idx += TNT)
     X.put(idx / n, from + idx % n, 0.f);
 }
@@ -1022,6 +1188,7 @@ __device__ void zero_tail(ActBuf X, int from) {
 // Density MLP of _density_mlp on the TS samples: inputs [ds, d cols, fg |
 // fg_emb], softplus (beta 100) hidden layers, linear head. sFB holds the
 // blended features (fg = its first gd columns, row stride ldfb).
+template <bool F32>
 __device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
                              const float* sFB, int ldfb, int md, int mfg,
                              int gd, int lowp, bool tang, float* sdens,
@@ -1030,8 +1197,9 @@ __device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
   const int r0 = L0.bf16;
   const int nd = 1 + 2 * (md > 0 ? md : 0);
   const int split = L0.split;                 // nd + gd
-  const int xoff2 = second_block(L0);
-  const ActBuf X{m.X, L0.kp, m.ldx}, T{m.T, L0.kp, m.ldx};
+  const int xoff2 = L0.kp1;                   // the second row block
+  const ActBuf X = ActBuf{m.X, 0, m.ldx}.for_layer(L0),
+               T = ActBuf{m.T, 0, m.ldx}.for_layer(L0);
   for (int idx = threadIdx.x; idx < TS * xoff2; idx += TNT) {
     const int s = idx / xoff2, j = idx % xoff2;
     float v = 0.f, dv = 0.f;
@@ -1049,17 +1217,22 @@ __device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
   }
   feature_emb_to(sFB, ldfb, gd, mfg, lowp, xoff2, r0,
                      [&](int s, int j, float v) { X.put(s, j, v); });
-  zero_tail(X, xoff2 + 2 * (mfg > 0 ? mfg : 0) * gd);
+  zero_tail(X, L0, xoff2 + 2 * (mfg > 0 ? mfg : 0) * gd);
+  // the tangent does not depend on the second row block: a bf16 layer
+  // skips it, an f32 one (which splits every slice's fragment of T, so
+  // that its products run on every path) reads zeros there
+  if (tang && !r0) zero_tail(T, L0, xoff2);
   fence_proxy();
   __syncthreads();
   if (tang)
-    mlp_tile<true>(D, m, xoff2, ACT_SOFTPLUS, false, sdens, sdDdh);
+    mlp_tile<true, F32>(D, m, ACT_SOFTPLUS, false, sdens, sdDdh);
   else
-    mlp_tile<false>(D, m, xoff2, ACT_SOFTPLUS, false, sdens, nullptr);
+    mlp_tile<false, F32>(D, m, ACT_SOFTPLUS, false, sdens, nullptr);
 }
 
 // Colour MLP of _field_kernel on the TS samples: inputs [nabla, d_emb,
 // vdir, view_emb, ft | ft_emb], ReLU hidden layers, sigmoid head.
+template <bool F32>
 __device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
                            const float* sdh, const float* sdDdh,
                            const float* sdir, const float* sFB, int ldfb,
@@ -1070,8 +1243,8 @@ __device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
   const int nd = 1 + 2 * (md > 0 ? md : 0);
   const int nv = 6 * (mv > 0 ? mv : 0);
   const int split = L0.split;                 // 3 + nd + 3 + nv + cd
-  const int xoff2 = second_block(L0);
-  const ActBuf X{m.X, L0.kp, m.ldx};
+  const int xoff2 = L0.kp1;                   // the second row block
+  const ActBuf X = ActBuf{m.X, 0, m.ldx}.for_layer(L0);
   for (int idx = threadIdx.x; idx < TS * xoff2; idx += TNT) {
     const int s = idx / xoff2, j = idx % xoff2;
     float v = 0.f;
@@ -1092,45 +1265,50 @@ __device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
   }
   feature_emb_to(sFB + gd, ldfb, cd, mft, lowp, xoff2, r0,
                      [&](int s, int j, float v) { X.put(s, j, v); });
-  zero_tail(X, xoff2 + 2 * (mft > 0 ? mft : 0) * cd);
+  zero_tail(X, L0, xoff2 + 2 * (mft > 0 ? mft : 0) * cd);
   fence_proxy();
   __syncthreads();
-  mlp_tile<false>(Cm, m, xoff2, ACT_RELU, true, srgb, nullptr);
+  mlp_tile<false, F32>(Cm, m, ACT_RELU, true, srgb, nullptr);
 }
 
 // ---------------------------------------------------------------------------
 // root search along rays (secant_refine, surface_locate): one block takes TS
-// rays of one tile; thread s < TS owns ray r0 + s and keeps its bracket in
-// registers, the tile context stays in shared memory, and nothing leaves the
-// chip between the sequential field evaluations.
+// rays (TileRows: of one tile, or of consecutive contexts below TS rays a
+// context); thread s < TS owns ray s of the block and keeps its bracket in
+// registers, the contexts stay in shared memory (or L2), and nothing leaves
+// the chip between the sequential field evaluations.
 // ---------------------------------------------------------------------------
 
 // Shared memory of a ray block after the tile stage's (TileMem::rest); the
 // kNN weight rows alias the activation region, and the kernel's own
 // buffers follow at `end` (a multiple of 4 floats from the start).
 struct RayTile {
-  float *geo;         // 8 * C
   float *o, *r, *xyz; // TS * 4 each: origin, direction, current point
   float *ds, *dens;   // TS each
   float *FB;          // TS * F blended features
   float *W;           // TS * C kNN weights
   unsigned short* idx;  // TS * KL listed kNN picks
   int* cnt;             // TS pick counts
+  Contexts geo;         // each ray's context: TS ids, then nst staged
   float *end;
 };
 
-__host__ __device__ inline size_t ray_tile_floats(const RayField& f) {
-  return 8 * (size_t)f.C + TS * (3 * 4 + 2) + TS * (size_t)f.F +
-         TS * (KL / 2 + 1);
+// Floats of a ray tile that stages nst contexts.
+__host__ __device__ inline size_t ray_tile_floats(const RayField& f,
+                                                  int nst) {
+  return TS * (3 * 4 + 2) + TS * (size_t)f.F + TS * (KL / 2 + 1) + TS +
+         8 * (size_t)f.C * nst;
 }
 
-// Carve the block's shared memory, load tile b's context and the owner
-// rays' origins and directions (the last ray repeated past T).
-__device__ RayTile ray_tile_load(const RayField& f, const TileMem& m, int b,
-                                 int r0) {
+// Carve the block's shared memory, load its rays' contexts (staged unless
+// L2; then f.nst is 0) and their origins and directions (zeros on the
+// ragged rows).
+template <bool L2>
+__device__ RayTile ray_tile_load(const RayField& f, const TileMem& m,
+                                 const TileRows& rows) {
+  const int nst = f.nst;
   RayTile t;
-  t.geo = m.rest;
-  t.o = t.geo + 8 * f.C;
+  t.o = m.rest;
   t.r = t.o + TS * 4;
   t.xyz = t.r + TS * 4;
   t.ds = t.xyz + TS * 4;
@@ -1138,16 +1316,17 @@ __device__ RayTile ray_tile_load(const RayField& f, const TileMem& m, int b,
   t.FB = t.dens + TS;
   t.idx = reinterpret_cast<unsigned short*>(t.FB + TS * f.F);
   t.cnt = reinterpret_cast<int*>(t.FB + TS * f.F + TS * KL / 2);
-  t.end = t.FB + TS * f.F + TS * (KL / 2 + 1);
+  int* ctx = t.cnt + TS;
+  float* staged = reinterpret_cast<float*>(ctx + TS);
+  t.end = staged + 8 * (size_t)f.C * nst;
   t.W = static_cast<float*>(m.X);
+  t.geo = load_contexts(rows, f.geo, f.C, L2 ? nullptr : staged, ctx);
   const int tid = threadIdx.x;
-  for (int i = tid; i < 8 * f.C; i += TNT)
-    t.geo[i] = f.geo[(size_t)b * 8 * f.C + i];
   if (tid < TS) {
-    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
+    const BlockRow r = rows.at(tid);
     for (int i = 0; i < 3; ++i) {
-      t.o[tid * 4 + i] = f.rays_o[ray * 3 + i];
-      t.r[tid * 4 + i] = f.rays_d[ray * 3 + i];
+      t.o[tid * 4 + i] = r.live ? f.rays_o[(size_t)r.flat * 3 + i] : 0.f;
+      t.r[tid * 4 + i] = r.live ? f.rays_d[(size_t)r.flat * 3 + i] : 0.f;
     }
   }
   return t;
@@ -1155,8 +1334,9 @@ __device__ RayTile ray_tile_load(const RayField& f, const TileMem& m, int b,
 
 // Interpolated distance at o + dv r of each owner's ray into t.ds; with
 // ROWS the kNN weights into t.W (all threads call). The candidates stay in
-// registers when they fit (interp_sample's NC).
-template <bool ROWS>
+// registers when they fit (interp_sample's NC); L2: the contexts are read
+// from global memory.
+template <bool ROWS, bool L2>
 __device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
   const int tid = threadIdx.x;
   if (tid < TS)
@@ -1166,16 +1346,10 @@ __device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
   {
     constexpr int OUT = ROWS ? PICK_ROWS : PICK_NONE;
     const int s = tid / LPS, lane = tid % LPS;   // TNT / LPS == TS
-    const float x0 = t.xyz[s * 4], x1 = t.xyz[s * 4 + 1],
-                x2 = t.xyz[s * 4 + 2];
     const Picks po{t.W + s * f.C, nullptr, nullptr, nullptr};
     Interp r;
-    if (f.C <= KC * LPS)
-      interp_sample<KC, OUT>(t.geo, f.C, x0, x1, x2, f.w1, f.k, false, lane,
-                             po, r);
-    else
-      interp_sample<0, OUT>(t.geo, f.C, x0, x1, x2, f.w1, f.k, false, lane,
-                            po, r);
+    interp_any<OUT>(t.geo.of<L2>(s), f.C, t.xyz[s * 4], t.xyz[s * 4 + 1],
+                    t.xyz[s * 4 + 2], f.w1, f.k, false, lane, po, r);
     if (lane == 0) t.ds[s] = r.ds;
   }
   __syncthreads();
@@ -1183,13 +1357,14 @@ __device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
 
 // Density minus tau of each owner's ray from t.ds and the kNN weights in
 // t.W (all threads call; 0 on the other threads).
-__device__ float ray_density(const RayField& f, const RayTile& t, TileMem& m,
-                             int b) {
-  blend_tile(f.feat, (size_t)b * f.C * f.F, f.feat_bf16, f.F, f.gd, t.W,
-             f.C, t.idx, t.cnt, t.FB);
+template <bool F32>
+__device__ float ray_density(const RayField& f, const RayTile& t,
+                             TileMem& m) {
+  blend_tile(f.feat, t.geo.ctx, f.feat_bf16, f.F, f.gd, t.W, f.C, t.idx,
+             t.cnt, t.FB);
   __syncthreads();
-  density_tile(f.dens, m, t.ds, t.FB, f.F, f.md, f.mfg, f.gd, f.lowp, false,
-               t.dens, nullptr);
+  density_tile<F32>(f.dens, m, t.ds, t.FB, f.F, f.md, f.mfg, f.gd, f.lowp,
+                    false, t.dens, nullptr);
   return threadIdx.x < TS ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;
 }
 

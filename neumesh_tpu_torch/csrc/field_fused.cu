@@ -11,48 +11,69 @@
 // density, density_nabla, full.
 //
 // What bounds it on the H100: at the serving shapes (W = 256, 3 density +
-// 4 colour layers, C = 128, k = 8) a sample costs ~1.2 MFLOP of bf16 MLP
-// work in `full` (with the tangent) against ~2 kFLOP of exact-f32
-// candidate math and ~28 bytes of sample I/O: operations, and the roofline
-// bound is the tensor cores'. The design puts the bf16 MLP layers on them
-// (field_common.cuh, tile stage): a block takes 64 samples of one tile,
-// one wgmma M tile, four warpgroups on the four 64-column quarters of
-// every 256-wide layer, the weights streamed through a two-slice
-// shared-memory ring. What holds it above the bound now is the exact-f32
-// work left on the CUDA cores: the epilogue's softplus / softplus' (the
-// largest part), the candidate passes (8 lanes a sample) and the feature
-// blend, then
-// the heads, the embeddings and every f32 layer (selective-f32 d0/c0, the
-// f32 models: thread-per-column as before, in the 64-sample block).
+// 4 colour layers, C = 128, k = 8) a sample costs ~1.2 MFLOP of MLP work
+// in `full` (with the tangent) against ~2 kFLOP of exact-f32 candidate
+// math and ~28 bytes of sample I/O: operations, and the roofline bound is
+// the tensor cores' (an f32 layer at a sixth of the bf16 rate: six bf16
+// products). The design puts every hidden layer on them (field_common.cuh,
+// tile stage): a block takes 64 rows, one wgmma M tile, four warpgroups on
+// the four 64-column quarters of every 256-wide layer, the weights
+// streamed through a two-slice shared-memory ring; an f32 layer as the
+// six-product bf16 split of the TPU's precision="highest" dot. At the
+// per-ray shapes (S < 64 samples a context: the render CLI's S = 1 shade
+// and S = 16 up-sampling) a block's 64 rows span several contexts, so
+// every row of the MLP tile is live but the last block's ragged ones. What
+// holds it above the bound: the exact-f32 work left on the CUDA cores --
+// the epilogue's softplus / softplus' (the largest part), the candidate
+// passes (8 lanes a sample), the feature blend, the heads and the
+// embeddings.
 //
-// Shared memory of a 64-sample block (C = 128, F = 64, W = 256):
-//   weight ring        2 x 64 x 256 bf16            64 KB  (bf16 layers)
+// Shared memory of a 64-row block (C = 128, F = 64, W = 256):
+//   weight ring        2 x 64 x 256 bf16            64 KB
 //   X, T               64 x 256 bf16 each           32 + 32 KB
 //                      (64 x 256 f32 each, 64 + 64 KB, where an f32 layer
 //                      reads them)
 //   kNN weight rows    64 x C f32 = 32 KB, aliased on X/T (dead until the
 //                      first-layer inputs are built)
 //   FB                 64 x F f32                   16 KB
-//   geo, per-sample    8 x C f32 + 64 x 20 f32      4 + 5 KB
-//   listed kNN picks   64 x 32 u16 + 64 counts      4 KB
-// i.e. 157 KB for bf16 `full`, 221 KB with selective-f32 layers and the
-// tangent: one block per SM, so 128-sample blocks (two M tiles) do not
-// fit, and the 512 threads at 128 registers fill the register file.
+//   per-row            64 x 21 f32 + 64 x 32 u16    10 KB
+//   geo                8 x C f32 a staged context   4 KB each
+// i.e. 157 KB for bf16 `full`, 225 KB in f32 with the tangent: one block
+// per SM, and the 512 threads at 128 registers fill the register file. The
+// contexts of a block stay in L2 where staging them would not fit (f32
+// `full` beyond one context, or 64 contexts at S = 1).
 #include "field_common.cuh"
 
 namespace nm {
 
-// One instantiation per register budget: KIND = DISTANCE (no MLP),
-// DENSITY (no tangent), DENSITY_NABLA (the tangent; full too).
-template <int KIND>
-__global__ void __launch_bounds__(TNT, 1)
+// Shared memory of a block staging nst contexts.
+__host__ __device__ inline size_t field_smem(const FieldArgs& a, int nst) {
+  const bool full = a.mode == FULL, mlp = a.mode != DISTANCE;
+  const TilePlan p = tile_plan(mlp ? &a.dens : nullptr,
+                               full ? &a.col : nullptr, a.ldx, a.C,
+                               a.mode == DENSITY_NABLA || full);
+  return tile_plan_bytes(p) +
+         sizeof(float) * (TS * (4 * 4 + 4) + (size_t)TS * a.F +
+                          TS * (KL / 2 + 1) + TS + 8 * (size_t)a.C * nst);
+}
+// Contexts a block stages: every one it may span, where they fit (the C
+// entry sets FieldArgs::nst).
+__host__ __device__ inline int field_staged(const FieldArgs& a) {
+  const int n = block_contexts_max(a.B, a.S);
+  return field_smem(a, n) <= SMEM_MAX ? n : 0;
+}
+
+// One instantiation per register budget: KIND = DISTANCE (no MLP; two
+// blocks an SM, 64 registers a thread), DENSITY (no tangent),
+// DENSITY_NABLA (the tangent; full too); F32: f32 hidden layers present;
+// L2: the contexts read from global memory (none staged).
+template <int KIND, bool F32, bool L2>
+__global__ void __launch_bounds__(TNT, KIND == DISTANCE ? 2 : 1)
     field_fused_kernel(const __grid_constant__ FieldArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  // one 1-D grid over (context, sample block): any number of contexts
-  const int nblk = (a.S + TS - 1) / TS;
-  const int b = blockIdx.x / nblk;
-  const int s0 = (blockIdx.x % nblk) * TS;
-  const int C = a.C, S = a.S, tid = threadIdx.x;
+  // one 1-D grid over the row blocks (TileRows): any number of contexts
+  const TileRows rows{a.B, a.S, (int)blockIdx.x};
+  const int C = a.C, tid = threadIdx.x;
   constexpr bool mlp = KIND != DISTANCE, tang = KIND == DENSITY_NABLA;
   const bool full = tang && a.mode == FULL;
   const TilePlan plan = tile_plan(mlp ? &a.dens : nullptr,
@@ -60,8 +81,7 @@ __global__ void __launch_bounds__(TNT, 1)
   TileMem m = tile_carve(smem, plan, mlp ? &a.dens : nullptr,
                          full ? &a.col : nullptr, 0, a.ldx);
   tile_start(m);                       // weights load under the candidates
-  float* sgeo = m.rest;                // 8 * C
-  float* sxyz = sgeo + 8 * C;          // TS * 4
+  float* sxyz = m.rest;                // TS * 4
   float* sdir = sxyz + TS * 4;         // TS * 4
   float* sdh = sdir + TS * 4;          // TS * 4
   float* srgb = sdh + TS * 4;          // TS * 4
@@ -73,15 +93,18 @@ __global__ void __launch_bounds__(TNT, 1)
   unsigned short* sidx =               // TS * KL listed kNN picks
       reinterpret_cast<unsigned short*>(sFB + TS * a.F);
   int* scnt = reinterpret_cast<int*>(sFB + TS * a.F + TS * KL / 2);
+  int* sctx = scnt + TS;               // TS: each row's context
+  float* sgeo = reinterpret_cast<float*>(sctx + TS);   // 8 * C * nst
   float* sW = static_cast<float*>(m.X);   // TS * C, aliased on X/T
 
-  for (int i = tid; i < 8 * C; i += TNT) sgeo[i] = a.geo[(size_t)b * 8 * C + i];
+  const Contexts geo = load_contexts(rows, a.geo, C,
+                                     L2 ? nullptr : sgeo, sctx);
   if (tid < TS) {
-    const int sg = min(s0 + tid, S - 1);   // ragged edge: repeat the last
-    const size_t o = ((size_t)b * S + sg) * 3;
+    const BlockRow r = rows.at(tid);   // a ragged row computes on zeros
     for (int i = 0; i < 3; ++i) {
-      sxyz[tid * 4 + i] = a.xyz[o + i];
-      if (full) sdir[tid * 4 + i] = a.dirs[o + i];
+      const size_t o = (size_t)r.flat * 3 + i;
+      sxyz[tid * 4 + i] = r.live ? a.xyz[o] : 0.f;
+      if (full) sdir[tid * 4 + i] = r.live ? a.dirs[o] : 0.f;
     }
   }
   __syncthreads();
@@ -93,12 +116,8 @@ __global__ void __launch_bounds__(TNT, 1)
     const float x0 = sxyz[s * 4], x1 = sxyz[s * 4 + 1], x2 = sxyz[s * 4 + 2];
     const Picks po{sW + s * C, nullptr, nullptr, nullptr};
     Interp r;
-    if (C <= KC * LPS)
-      interp_sample<KC, OUT>(sgeo, C, x0, x1, x2, a.w1, a.k, tang, lane, po,
-                             r);
-    else
-      interp_sample<0, OUT>(sgeo, C, x0, x1, x2, a.w1, a.k, tang, lane, po,
-                            r);
+    interp_any<OUT>(geo.of<L2>(s), C, x0, x1, x2, a.w1, a.k, tang, lane, po,
+                    r);
     if (lane == 0) {
       sds[s] = r.ds;
       sdh[s * 4] = r.dh0;
@@ -108,30 +127,45 @@ __global__ void __launch_bounds__(TNT, 1)
   }
   __syncthreads();
 
-  const size_t plane = (size_t)a.B * S;
-  const size_t obase = (size_t)b * S + s0;
-  const bool wr = tid < TS && s0 + tid < S;
+  const size_t plane = (size_t)a.B * a.S;
+  const BlockRow own = rows.at(tid < TS ? tid : 0);
+  const bool wr = tid < TS && own.live;
+  const size_t o = own.flat;
   if constexpr (!mlp) {
-    if (wr) a.out[obase + tid] = sds[tid];
+    if (wr) a.out[o] = sds[tid];
     return;
   }
 
-  blend_tile(a.feat, (size_t)b * C * a.F, a.feat_bf16, a.F,
-             full ? a.F : a.gd, sW, C, sidx, scnt, sFB);
+  blend_tile(a.feat, sctx, a.feat_bf16, a.F, full ? a.F : a.gd, sW, C, sidx,
+             scnt, sFB);
   __syncthreads();
-  density_tile(a.dens, m, sds, sFB, a.F, a.md, a.mfg, a.gd, a.lowp, tang,
-               sdens, sdD);
-  if (wr) a.out[obase + tid] = sdens[tid];
+  density_tile<F32>(a.dens, m, sds, sFB, a.F, a.md, a.mfg, a.gd, a.lowp, tang,
+                    sdens, sdD);
+  if (wr) a.out[o] = sdens[tid];
   if constexpr (!tang) return;
   if (wr)
     for (int i = 0; i < 3; ++i)
-      a.out[(1 + i) * plane + obase + tid] = fmul(sdD[tid], sdh[tid * 4 + i]);
+      a.out[(1 + i) * plane + o] = fmul(sdD[tid], sdh[tid * 4 + i]);
   if (!full) return;
-  color_tile(a.col, m, sds, sdh, sdD, sdir, sFB, a.F, a.gd, a.F - a.gd, a.md,
-             a.mft, a.mv, a.lowp, srgb);
+  color_tile<F32>(a.col, m, sds, sdh, sdD, sdir, sFB, a.F, a.gd, a.F - a.gd,
+                  a.md, a.mft, a.mv, a.lowp, srgb);
   if (wr)
     for (int i = 0; i < 3; ++i)
-      a.out[(4 + i) * plane + obase + tid] = srgb[tid * 3 + i];
+      a.out[(4 + i) * plane + o] = srgb[tid * 3 + i];
+}
+
+// The instantiation for a call: its kind, f32 layers, contexts in L2.
+template <int KIND, bool F32>
+inline void (*pick_l2(bool l2))(FieldArgs) {
+  return l2 ? field_fused_kernel<KIND, F32, true>
+            : field_fused_kernel<KIND, F32, false>;
+}
+inline void (*pick_field_kernel(int kind, bool f32, bool l2))(FieldArgs) {
+  if (kind == DISTANCE) return pick_l2<DISTANCE, false>(l2);
+  if (kind == DENSITY)
+    return f32 ? pick_l2<DENSITY, true>(l2) : pick_l2<DENSITY, false>(l2);
+  return f32 ? pick_l2<DENSITY_NABLA, true>(l2)
+             : pick_l2<DENSITY_NABLA, false>(l2);
 }
 
 }  // namespace nm
@@ -139,33 +173,32 @@ __global__ void __launch_bounds__(TNT, 1)
 extern "C" {
 
 size_t nm_field_fused_smem(const nm::FieldArgs* a) {
-  const bool full = a->mode == nm::FULL, mlp = a->mode != nm::DISTANCE;
-  const nm::TilePlan p = nm::tile_plan(
-      mlp ? &a->dens : nullptr, full ? &a->col : nullptr, a->ldx, a->C,
-      a->mode == nm::DENSITY_NABLA || full);
-  return nm::tile_plan_bytes(p) +
-         sizeof(float) * ((size_t)8 * a->C + nm::TS * (4 * 4 + 4) +
-                          (size_t)nm::TS * a->F + nm::TS * (nm::KL / 2 + 1));
+  return nm::field_smem(*a, nm::field_staged(*a));
 }
 
-int nm_field_fused(const nm::FieldArgs* a, void* stream) {
-  if (a->B <= 0 || a->S <= 0) return 0;
-  const long long nblk = (a->S + nm::TS - 1) / nm::TS;
-  if (nblk * a->B > INT_MAX || a->k < 1 || (a->ldx & 3) || a->ldx < 4)
+int nm_field_fused(const nm::FieldArgs* a_in, void* stream) {
+  if (a_in->B <= 0 || a_in->S <= 0) return 0;
+  nm::FieldArgs k = *a_in;
+  const nm::FieldArgs* a = &k;
+  k.nst = nm::field_staged(k);
+  const long long nblk = nm::tile_blocks(a->B, a->S);
+  if (!nm::rows_ok(a->B, a->S) || a->k < 1 || (a->ldx & 3) || a->ldx < 4)
     return (int)cudaErrorInvalidValue;
   if (a->mode != nm::DISTANCE &&
       (!nm::tile_mlp_ok(a->dens, a->ldx) ||
        (a->mode == nm::FULL && !nm::tile_mlp_ok(a->col, a->ldx))))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = nm_field_fused_smem(a);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = a->mode == nm::DISTANCE ? nm::field_fused_kernel<nm::DISTANCE>
-                : a->mode == nm::DENSITY ? nm::field_fused_kernel<nm::DENSITY>
-                : nm::field_fused_kernel<nm::DENSITY_NABLA>;
+  const size_t smem = nm::field_smem(k, k.nst);
+  if (smem > nm::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const bool f32 = a->mode != nm::DISTANCE &&
+                   (nm::has_f32(a->dens) ||
+                    (a->mode == nm::FULL && nm::has_f32(a->col)));
+  const int kind = a->mode == nm::FULL ? nm::DENSITY_NABLA : a->mode;
+  auto kernel = nm::pick_field_kernel(kind, f32, k.nst == 0);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)(nblk * a->B));
+  dim3 grid((unsigned)nblk);
   kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

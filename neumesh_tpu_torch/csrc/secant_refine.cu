@@ -10,43 +10,63 @@
 // `frozen` selects the k neighbours once at the bracket midpoint and
 // evaluates |x_mid + de r - p|^2 = A + 2 de B + de^2 on the k selected
 // columns only. The TPU kernel's tile grouping knob is dropped: rays are
-// independent, so a block simply takes 64 rays of one tile.
+// independent, so a block simply takes 64 rays: of one tile, or, below 64
+// rays a context (the render CLI's per-ray surface: T = 1), 64
+// consecutive rays of as many contexts (field_common.cuh, TileRows).
 //
 // What bounds it on the H100: the density MLP of each of the n_iters (+2
 // with the re-bracket) sequential evaluations, i.e. operations (the bound
-// is the bf16 products on the tensor cores); the inputs are a few floats
-// per ray. The design keeps the whole iteration chain of a ray inside one
-// block (bracket state in registers of the ray's owner thread, the tile
-// context in shared memory), so no intermediate leaves the chip between
-// iterations, and runs the density MLP's bf16 layers on the tensor cores
-// (field_common.cuh, tile stage): a block takes 64 rays of one tile, one
-// wgmma M tile, and the weight-slice ring runs on from one evaluation to
-// the next, so the next evaluation's first slices load under the current
-// one's candidate passes. What holds it above the bound now is the
-// exact-f32 work of every evaluation on the CUDA cores: the kNN passes,
-// the softplus epilogues, the blend, the embeddings and the head (and
-// the frozen selection, once). The frozen option is its own
+// is the products on the tensor cores, an f32 layer at a sixth of the bf16
+// rate); the inputs are a few floats per ray. The design keeps the whole
+// iteration chain of a ray inside one block (bracket state in registers of
+// the ray's owner thread, the contexts in shared memory where they fit,
+// else in L2), so no intermediate leaves the chip between iterations, and
+// runs the density MLP's hidden layers on the tensor cores
+// (field_common.cuh, tile stage; f32 layers as the six-product bf16
+// split): a block takes 64 rays, one wgmma M tile, every row live but the
+// last block's ragged ones, and the weight-slice ring runs on from one
+// evaluation to the next, so the next evaluation's first slices load under
+// the current one's candidate passes. What holds it above the bound now is
+// the exact-f32 work of every evaluation on the CUDA cores: the kNN
+// passes, the softplus epilogues, the blend, the embeddings and the head
+// (and the frozen selection, once). The frozen option is its own
 // instantiation, so its selection registers do not weigh on the rest.
 #include "field_common.cuh"
 
 namespace nm {
 
+// Shared memory of a block staging nst contexts.
+__host__ __device__ inline size_t secant_smem(const SecantArgs& a, int nst) {
+  const size_t TS_ = TS;
+  return tile_plan_bytes(tile_plan(&a.f.dens, nullptr, a.f.ldx, a.f.C,
+                                   false)) +
+         sizeof(float) * (ray_tile_floats(a.f, nst) + 2 * TS_ +
+                          5 * TS_ * KSEL) +
+         TS_ * a.f.C;
+}
+// Contexts a block stages: every one it may span, where they fit (the C
+// entry sets RayField::nst).
+__host__ __device__ inline int secant_staged(const SecantArgs& a) {
+  const int n = block_contexts_max(a.f.B, a.f.T);
+  return secant_smem(a, n) <= SMEM_MAX ? n : 0;
+}
+
 // FROZEN: one instantiation per option, so that the frozen selection's
-// registers do not weigh on the rest.
-template <bool FROZEN>
+// registers do not weigh on the rest; F32: f32 hidden layers present;
+// L2: the contexts read from global memory (none staged).
+template <bool FROZEN, bool F32, bool L2>
 __global__ void __launch_bounds__(TNT, 1)
     secant_refine_kernel(const __grid_constant__ SecantArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RayField& f = a.f;
-  // one 1-D grid over (context, ray block): any number of contexts
-  const int nblk = (f.T + TS - 1) / TS;
-  const int b = blockIdx.x / nblk, r0 = (blockIdx.x % nblk) * TS;
+  // one 1-D grid over the ray blocks (TileRows): any number of contexts
+  const TileRows rows{f.B, f.T, (int)blockIdx.x};
   const int tid = threadIdx.x;
   const int C = f.C, k = f.k;
   TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, C, false),
                          &f.dens, nullptr, 1, f.ldx);
   tile_start(m);
-  const RayTile t = ray_tile_load(f, m, b, r0);
+  const RayTile t = ray_tile_load<L2>(f, m, rows);
   float* sdev = t.end;                 // TS
   float* sdm = sdev + TS;              // TS
   float* sA = sdm + TS;                // TS * KSEL (frozen picks)
@@ -57,14 +77,18 @@ __global__ void __launch_bounds__(TNT, 1)
   unsigned char* srank = reinterpret_cast<unsigned char*>(sW8 + TS * KSEL);
 
   const bool owner = tid < TS;
+  const BlockRow own = rows.at(owner ? tid : 0);
   Bracket br{0.f, 0.f, 0.f, 0.f};
   float dlw = 0.f, dhw = 0.f;
   if (owner) {
-    const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
-    br = Bracket{a.d_low[ray], a.f_low[ray], a.d_high[ray], a.f_high[ray]};
-    if (a.rebracket) {
-      dlw = a.d_low_w[ray];
-      dhw = a.d_high_w[ray];
+    // a ragged ray keeps the zero bracket (finite throughout)
+    if (own.live) {
+      const size_t ray = own.flat;
+      br = Bracket{a.d_low[ray], a.f_low[ray], a.d_high[ray], a.f_high[ray]};
+      if (a.rebracket) {
+        dlw = a.d_low_w[ray];
+        dhw = a.d_high_w[ray];
+      }
     }
     sdm[tid] = a.rebracket ? fmul(0.5f, fadd(dlw, dhw))
                            : fmul(0.5f, fadd(br.dl, br.dh));
@@ -72,11 +96,12 @@ __global__ void __launch_bounds__(TNT, 1)
   __syncthreads();
 
   const int lane = tid % LPS;
-  const float *px = t.geo, *py = t.geo + C, *pz = t.geo + 2 * C,
-              *ix = t.geo + 3 * C, *iy = t.geo + 4 * C, *iz = t.geo + 5 * C,
-              *pp = t.geo + 6 * C, *vn = t.geo + 7 * C;
-
   const int s = tid / LPS;             // TNT / LPS == TS
+  const float* g = t.geo.of<L2>(s);    // this lane's ray's context
+  const float *px = g, *py = g + C, *pz = g + 2 * C, *ix = g + 3 * C,
+              *iy = g + 4 * C, *iz = g + 5 * C, *pp = g + 6 * C,
+              *vn = g + 7 * C;
+
   if constexpr (FROZEN) {
     // one-time selection at the bracket midpoint x_mid = o + d_mid r
     const float o0 = t.o[s * 4], o1 = t.o[s * 4 + 1], o2 = t.o[s * 4 + 2];
@@ -157,8 +182,8 @@ __global__ void __launch_bounds__(TNT, 1)
   // density (minus tau) at depth dv of each owner's ray; all threads call
   auto field = [&](float dv) -> float {
     if constexpr (!FROZEN) {
-      ray_interp_at<true>(f, t, dv);
-      return ray_density(f, t, m, b);
+      ray_interp_at<true, L2>(f, t, dv);
+      return ray_density<F32>(f, t, m);
     }
     if (owner) sdev[tid] = dv;
     __syncthreads();
@@ -205,7 +230,7 @@ __global__ void __launch_bounds__(TNT, 1)
       if (lane == 0) t.ds[s] = ds;
     }
     __syncthreads();
-    return ray_density(f, t, m, b);
+    return ray_density<F32>(f, t, m);
   };
 
   // the re-bracket's evaluations (d_high_w, then d_low_w) and the n_iters
@@ -226,8 +251,20 @@ __global__ void __launch_bounds__(TNT, 1)
     }
     dp = br.pred();
   }
-  if (owner && r0 + tid < f.T) f.out[(size_t)b * f.T + r0 + tid] = dp;
+  if (owner && own.live) f.out[own.flat] = dp;
   tile_drain(m);
+}
+
+// The instantiation for a call: frozen, f32 layers, contexts in L2.
+template <bool FROZEN, bool F32>
+inline void (*pick_l2(bool l2))(SecantArgs) {
+  return l2 ? secant_refine_kernel<FROZEN, F32, true>
+            : secant_refine_kernel<FROZEN, F32, false>;
+}
+inline void (*pick_secant_kernel(bool frozen, bool f32, bool l2))(SecantArgs) {
+  if (frozen)
+    return f32 ? pick_l2<true, true>(l2) : pick_l2<true, false>(l2);
+  return f32 ? pick_l2<false, true>(l2) : pick_l2<false, false>(l2);
 }
 
 }  // namespace nm
@@ -235,30 +272,27 @@ __global__ void __launch_bounds__(TNT, 1)
 extern "C" {
 
 size_t nm_secant_refine_smem(const nm::SecantArgs* a) {
-  const size_t TS = nm::TS;
-  return nm::tile_plan_bytes(nm::tile_plan(&a->f.dens, nullptr, a->f.ldx,
-                                           a->f.C, false)) +
-         sizeof(float) * (nm::ray_tile_floats(a->f) + 2 * TS +
-                          5 * TS * nm::KSEL) +
-         TS * a->f.C;
+  return nm::secant_smem(*a, nm::secant_staged(*a));
 }
 
-int nm_secant_refine(const nm::SecantArgs* a, void* stream) {
-  const nm::RayField& f = a->f;
-  if (f.R <= 0) return 0;
-  const long long nblk = (f.T + nm::TS - 1) / nm::TS;
-  if (f.B <= 0 || f.T <= 0 || nblk * f.B > INT_MAX || f.T * f.B != f.R ||
-      f.k < 1 ||
+int nm_secant_refine(const nm::SecantArgs* a_in, void* stream) {
+  if (a_in->f.R <= 0) return 0;
+  nm::SecantArgs k = *a_in;
+  const nm::SecantArgs* a = &k;
+  const nm::RayField& f = k.f;
+  if (!nm::rows_ok(f.B, f.T) || (long long)f.T * f.B != f.R || f.k < 1 ||
       f.k > nm::KSEL || (f.ldx & 3) || !nm::tile_mlp_ok(f.dens, f.ldx))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = nm_secant_refine_smem(a);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  auto kernel = a->frozen ? nm::secant_refine_kernel<true>
-                          : nm::secant_refine_kernel<false>;
+  k.f.nst = nm::secant_staged(k);
+  const long long nblk = nm::tile_blocks(f.B, f.T);
+  const size_t smem = nm::secant_smem(k, f.nst);
+  if (smem > nm::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = nm::pick_secant_kernel(a->frozen, nm::has_f32(f.dens),
+                                       f.nst == 0);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)(nblk * f.B));
+  dim3 grid((unsigned)nblk);
   kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -16,15 +16,17 @@
 // whose bf16 layers are the roofline bound's largest term (tensor cores).
 // The inputs are a few floats per ray.
 //
-// The design is secant_refine's ray block (field_common.cuh): 64 rays of
-// one tile per block of four warpgroups, the owner thread of each ray
+// The design is secant_refine's ray block (field_common.cuh): 64 rays (of
+// one tile, or of consecutive contexts below 64 rays a context) per block
+// of four warpgroups, the owner thread of each ray
 // keeping its scan and bracket state in registers, the tile context in
 // shared memory, nothing leaving the chip between the n_steps + 2 +
 // n_secant sequential evaluations. The scan runs the candidate stage alone
 // (no kNN weight rows written, the tie-broken distances of a lane's
 // candidates in registers); the first two weight slices of the density MLP
-// load under it. Each density evaluation then runs the bf16 hidden layers
-// on wgmma.m64n64k16, the weight-slice ring running on cyclically from one
+// load under it. Each density evaluation then runs the hidden layers on
+// wgmma.m64n64k16 (f32 ones as the six-product bf16 split), the
+// weight-slice ring running on cyclically from one
 // evaluation to the next. The three flag planes are written straight after
 // the scan, so that only the bracket lives through the density phase, and
 // the two re-bracket evaluations and the secant steps share one loop with
@@ -36,23 +38,39 @@
 
 namespace nm {
 
+// Shared memory of a block staging nst contexts.
+__host__ __device__ inline size_t locate_smem(const LocateArgs& a, int nst) {
+  return tile_plan_bytes(tile_plan(&a.f.dens, nullptr, a.f.ldx, a.f.C,
+                                   false)) +
+         sizeof(float) * ray_tile_floats(a.f, nst);
+}
+// Contexts a block stages: every one it may span, where they fit (the C
+// entry sets RayField::nst).
+__host__ __device__ inline int locate_staged(const LocateArgs& a) {
+  const int n = block_contexts_max(a.f.B, a.f.T);
+  return locate_smem(a, n) <= SMEM_MAX ? n : 0;
+}
+
+// F32: f32 hidden layers present; L2: the contexts read from global
+// memory (none staged).
+template <bool F32, bool L2>
 __global__ void __launch_bounds__(TNT, 1)
     surface_locate_kernel(const __grid_constant__ LocateArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const RayField& f = a.f;
-  // one 1-D grid over (context, ray block): any number of contexts
-  const int nblk = (f.T + TS - 1) / TS;
-  const int b = blockIdx.x / nblk, r0 = (blockIdx.x % nblk) * TS;
+  // one 1-D grid over the ray blocks (TileRows): any number of contexts
+  const TileRows rows{f.B, f.T, (int)blockIdx.x};
   const int tid = threadIdx.x;
   TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, f.C, false),
                          &f.dens, nullptr, 1, f.ldx);
   tile_start(m);                       // weights load under the scan
-  const RayTile t = ray_tile_load(f, m, b, r0);
+  const RayTile t = ray_tile_load<L2>(f, m, rows);
   const bool owner = tid < TS;
-  const bool live = owner && r0 + tid < f.T;
-  const size_t ray = (size_t)b * f.T + min(r0 + tid, f.T - 1);
-  float near = 0.f, far = 0.f;
-  if (owner) {
+  const BlockRow own = rows.at(owner ? tid : 0);
+  const bool live = owner && own.live;
+  const size_t ray = (size_t)own.flat;
+  float near = 0.f, far = 0.f;         // a ragged ray scans [0, 0]
+  if (live) {
     near = a.near[ray];
     far = a.far[ray];
   }
@@ -65,7 +83,7 @@ __global__ void __launch_bounds__(TNT, 1)
           pos2neg = 0.f;
     for (int j = 0; j < a.n_steps; ++j) {
       const float dv = j ? fadd(near, fmul(step, (float)j)) : near;
-      ray_interp_at<false>(f, t, dv);
+      ray_interp_at<false, L2>(f, t, dv);
       const float f_cur = owner ? fsub(t.ds[tid], f.tau) : 0.f;
       if (j == 0) {
         val0_pos = f_cur > 0.f ? 1.f : 0.f;
@@ -102,8 +120,8 @@ __global__ void __launch_bounds__(TNT, 1)
   float f_high_r = 0.f, dp = 0.f;
   for (int e = 0; e < 2 + a.n_secant; ++e) {
     const float dv = e == 0 ? d_high_w : e == 1 ? d_low_w : dp;
-    ray_interp_at<true>(f, t, dv);
-    const float fv = ray_density(f, t, m, b);
+    ray_interp_at<true, L2>(f, t, dv);
+    const float fv = ray_density<F32>(f, t, m);
     if (e == 0) {
       f_high_r = fv;
       continue;
@@ -128,28 +146,34 @@ __global__ void __launch_bounds__(TNT, 1)
 extern "C" {
 
 size_t nm_surface_locate_smem(const nm::LocateArgs* a) {
-  return nm::tile_plan_bytes(nm::tile_plan(&a->f.dens, nullptr, a->f.ldx,
-                                           a->f.C, false)) +
-         sizeof(float) * nm::ray_tile_floats(a->f);
+  return nm::locate_smem(*a, nm::locate_staged(*a));
 }
 
-int nm_surface_locate(const nm::LocateArgs* a, void* stream) {
-  const nm::RayField& f = a->f;
-  if (f.R <= 0) return 0;
-  const long long nblk = (f.T + nm::TS - 1) / nm::TS;
-  if (f.B <= 0 || f.T <= 0 || nblk * f.B > INT_MAX || f.T * f.B != f.R ||
-      f.k < 1 ||
+int nm_surface_locate(const nm::LocateArgs* a_in, void* stream) {
+  if (a_in->f.R <= 0) return 0;
+  nm::LocateArgs k = *a_in;
+  const nm::LocateArgs* a = &k;
+  const nm::RayField& f = k.f;
+  if (!nm::rows_ok(f.B, f.T) || (long long)f.T * f.B != f.R || f.k < 1 ||
       a->n_steps < 1 || a->n_secant < 0 || (f.ldx & 3) ||
       !nm::tile_mlp_ok(f.dens, f.ldx))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = nm_surface_locate_smem(a);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  k.f.nst = nm::locate_staged(k);
+  const long long nblk = nm::tile_blocks(f.B, f.T);
+  const size_t smem = nm::locate_smem(k, f.nst);
+  if (smem > nm::SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const bool l2 = f.nst == 0;
+  auto kernel =
+      nm::has_f32(f.dens)
+          ? (l2 ? nm::surface_locate_kernel<true, true>
+                : nm::surface_locate_kernel<true, false>)
+          : (l2 ? nm::surface_locate_kernel<false, true>
+                : nm::surface_locate_kernel<false, false>);
   cudaError_t e = cudaFuncSetAttribute(
-      nm::surface_locate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)(nblk * f.B));
-  nm::surface_locate_kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(*a);
+  dim3 grid((unsigned)nblk);
+  kernel<<<grid, nm::TNT, smem, (cudaStream_t)stream>>>(k);
   return (int)cudaGetLastError();
 }
 

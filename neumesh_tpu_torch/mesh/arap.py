@@ -2,12 +2,20 @@
 (backend="native") the C++ ARAP of the host library (cpp/native.py, the
 port's copy of neumesh_tpu/cpp), as the JAX package takes it;
 backend="numpy" runs the same algorithm vectorised in numpy and
-scipy.sparse, equal to it to ~1e-8 (the sums run in another order).
+scipy.sparse (the sums run in another order): equal to it to ~1e-8 where
+every one-ring spans 3-D, as on a marching-cubes or a jittered icosphere
+mesh. Planar one-rings (marching tetrahedra on a grid) give a covariance
+with a zero column; both backends then take that singular direction from
+roundoff and can differ by ~1e-2 after a few rounds (0.032 after 20 on a
+16^3 tetrahedra sphere, tests/test_torch_editing.py).
 
 Cotangent weights 0.5 cot summed per edge and clamped at 1e-8; max_iter
-local/global rounds: the local step fits each vertex's rotation to the
-SVD of its weighted edge covariance (the reflection fixed on the
-smallest singular value), the global step solves the Laplacian system on
+local/global rounds: the local step fits each vertex's rotation to its
+weighted edge covariance step by step as the library does (a Jacobi
+eigendecomposition of the covariance's Gram matrix in the library's
+sweep order, U = S v / sigma normalised with a coordinate axis below
+1e-12, the column of the least eigenvalue flipped on a reflection), the
+global step solves the Laplacian system on
 the free vertices by conjugate gradients (the three coordinates in one
 CG with shared step sizes, at most 200 iterations, stopping at
 |r|^2 <= 1e-16, warm-started from the current positions). A direct
@@ -45,15 +53,95 @@ def cotangent_edges(vertices: np.ndarray, triangles: np.ndarray):
     return key // len(v), key % len(v), np.maximum(w, 1e-8)
 
 
+def _mul(a, b):
+    """Batched 3x3 products summed in the library's order (M3::mul)."""
+    r = np.zeros(np.broadcast_shapes(a.shape, b.shape))
+    for i in range(3):
+        for j in range(3):
+            s = 0.0
+            for k in range(3):
+                s = s + a[..., i, k] * b[..., k, j]
+            r[..., i, j] = s
+    return r
+
+
+def _apply(m, v):
+    """Batched m v summed in the library's order (M3::apply)."""
+    return np.stack([m[..., i, 0] * v[..., 0] + m[..., i, 1] * v[..., 1]
+                     + m[..., i, 2] * v[..., 2] for i in range(3)], -1)
+
+
+def _det(m):
+    return (m[:, 0, 0] * (m[:, 1, 1] * m[:, 2, 2] - m[:, 1, 2] * m[:, 2, 1])
+            - m[:, 0, 1] * (m[:, 1, 0] * m[:, 2, 2] - m[:, 1, 2] * m[:, 2, 0])
+            + m[:, 0, 2] * (m[:, 1, 0] * m[:, 2, 1] - m[:, 1, 1] * m[:, 2, 0]))
+
+
+def _sym_eig(A):
+    """The library's Jacobi eigendecomposition (sym_eig) of (N, 3, 3)
+    symmetric matrices, vectorised: up to 32 sweeps over the pairs (0, 1),
+    (0, 2), (1, 2), a matrix leaving once its off-diagonal sum is below
+    1e-15, a pair skipped below 1e-18. Returns (eigenvectors as columns,
+    eigenvalues)."""
+    a = A.copy()
+    V = np.broadcast_to(np.eye(3), A.shape).copy()
+    eye = np.eye(3)
+    with np.errstate(divide="ignore", invalid="ignore", over="ignore"):
+        for _ in range(32):
+            live = (np.abs(a[:, 0, 1]) + np.abs(a[:, 0, 2])
+                    + np.abs(a[:, 1, 2])) >= 1e-15
+            if not live.any():
+                break
+            for p, q in ((0, 1), (0, 2), (1, 2)):
+                apq = a[:, p, q]
+                on = live & (np.abs(apq) >= 1e-18)
+                theta = (a[:, q, q] - a[:, p, p]) / (2 * apq)
+                t = (np.where(theta >= 0, 1.0, -1.0)
+                     / (np.abs(theta) + np.sqrt(theta * theta + 1)))
+                c = 1 / np.sqrt(t * t + 1)
+                s = t * c
+                J = np.broadcast_to(eye, A.shape).copy()
+                J[:, p, p] = c
+                J[:, q, q] = c
+                J[:, p, q] = s
+                J[:, q, p] = -s
+                on3 = on[:, None, None]
+                a = np.where(on3, _mul(_mul(J.transpose(0, 2, 1), a), J), a)
+                V = np.where(on3, _mul(V, J), V)
+    return V, np.stack([a[:, i, i] for i in range(3)], -1)
+
+
 def fit_rotations(S: np.ndarray) -> np.ndarray:
     """(N, 3, 3) rotations R nearest each covariance S = sum w e' e^T
-    (R e ~ e'): R = U diag(1, 1, det) V^T of S's SVD."""
-    U, _, Vt = np.linalg.svd(S)
-    d = np.sign(np.linalg.det(U @ Vt))
-    d = np.where(d == 0, 1.0, d)
-    U = U.copy()
-    U[:, :, 2] *= d[:, None]
-    return U @ Vt
+    (R e ~ e'), as the library's fit_rotation computes them: M = S^T,
+    the Jacobi eigenvectors v_j and eigenvalues w_j of M^T M, U's columns
+    M v_j / sqrt(max(w_j, 1e-18)) normalised (the j-th axis where the norm
+    falls below 1e-12), R = (U V^T)^T, and on a negative determinant U's
+    column of the least eigenvalue flipped."""
+    S = np.asarray(S, np.float64)
+    M = S.transpose(0, 2, 1)
+    Vm, w = _sym_eig(_mul(M.transpose(0, 2, 1), M))
+    U = np.empty_like(M)
+    for j in range(3):
+        sigma = np.sqrt(np.maximum(w[:, j], 1e-18))
+        uj = _apply(M, Vm[:, :, j]) * (1.0 / sigma)[:, None]
+        nrm = np.sqrt(uj[:, 0] * uj[:, 0] + uj[:, 1] * uj[:, 1]
+                      + uj[:, 2] * uj[:, 2])
+        small = nrm < 1e-12
+        uj[small] = np.eye(3)[j]
+        nrm = np.where(small, 1.0, nrm)
+        U[:, :, j] = uj * (1.0 / nrm)[:, None]
+    Vt = Vm.transpose(0, 2, 1)
+    R = _mul(U, Vt)
+    neg = _det(R) < 0
+    if neg.any():
+        # the first least eigenvalue, as the library's strict < scan
+        jmin = np.argmin(w[neg], axis=-1)
+        Un = U[neg]
+        Un[np.arange(len(jmin)), :, jmin] *= -1
+        U[neg] = Un
+        R[neg] = _mul(Un, Vt[neg])
+    return R.transpose(0, 2, 1)
 
 
 def arap(vertices: np.ndarray, triangles: np.ndarray,

@@ -24,10 +24,11 @@ import time
 import torch
 
 MAX_LAYERS = 8      # csrc/field_common.cuh MAX_LAYERS
-NT = 256            # widest hidden layer: one thread per output column
-                    # of an f32 layer (csrc/field_common.cuh NT)
+TS = 64             # rows of a tile-stage block (csrc TS)
 KS = 64             # K rows per staged weight slice (csrc KS)
-NPAD = 256          # packed layers' output width (csrc NPAD)
+KSF = 16            # K rows per staged slice of an f32 layer (csrc KSF)
+NPAD = 256          # packed layers' output width, the widest hidden layer
+                    # (csrc NPAD)
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -67,7 +68,8 @@ class FieldArgs(ctypes.Structure):
                  for n in ("xyz", "dirs", "geo", "feat", "out")]
                 + [(n, ctypes.c_int)
                    for n in ("feat_bf16", "B", "S", "C", "F", "k", "mode",
-                             "md", "mfg", "mft", "mv", "gd", "lowp", "ldx")]
+                             "md", "mfg", "mft", "mv", "gd", "lowp", "ldx",
+                             "nst")]
                 + [("w1", ctypes.c_float), ("dens", MLPDesc),
                    ("col", MLPDesc)])
 
@@ -77,7 +79,7 @@ class RayField(ctypes.Structure):
                  for n in ("rays_o", "rays_d", "geo", "feat", "out")]
                 + [(n, ctypes.c_int)
                    for n in ("feat_bf16", "R", "B", "T", "C", "F", "k", "md",
-                             "mfg", "gd", "lowp", "ldx")]
+                             "mfg", "gd", "lowp", "ldx", "nst")]
                 + [("w1", ctypes.c_float), ("tau", ctypes.c_float),
                    ("dens", MLPDesc)])
 

@@ -19,6 +19,7 @@ of the TPU kernels.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -789,10 +790,6 @@ def candidate_field(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
 # kernel argument packing
 # ---------------------------------------------------------------------------
 
-def _align4(n: int) -> int:
-    return (n + 3) // 4 * 4
-
-
 def _dens_layers(dens_ws, geometry_dim):
     """[(w (K, N), b (N,), split)] with the first layer's d-embedding and
     fg/fg-embedding row blocks joined: rows [ds, dcols, fg | fg_emb], bias
@@ -820,46 +817,118 @@ def _pad16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def pack_layer(w, split: int):
-    """A bf16 (K, N) hidden-layer weight in the tile stage's layout ->
-    (packed (kp * NPAD,) bf16, kp1, kp). Row blocks ([0, split) and
-    [split, K) of a first layer; the whole of a later one) are zero-padded
-    to multiples of 16 rows, a later layer's to NPAD rows (the width of the
-    activation tile it reads), and N to NPAD columns; kp1 rows take the
-    bias after them (kp1 = kp: after all). The transpose (K-major) is cut
-    into slices of KS rows, each laid out as 8 x 8 core matrices in the
-    order (n // 8, k // 8, n % 8, k % 8), the order the kernel's bulk
-    copies and wgmma descriptors read. Packed per call, never cached: a
-    weight edited in place cannot go stale."""
-    from ._build import KS, NPAD
+def split_planes(w):
+    """An f32 tensor as three bf16 planes (hi, mid, lo): hi = bf16(w), mid =
+    bf16(w - hi), lo = bf16(w - hi - mid), each rounding to nearest even.
+    hi + mid + lo == w exactly (each rounding leaves at most 16, then 8
+    significant bits), so the six products hi.hi, mid.hi, lo.hi, hi.mid,
+    mid.mid, hi.lo of two split operands give their f32 product to terms
+    of order 2^-24 (the split of the TPU's precision="highest" dot)."""
+    hi = w.to(torch.bfloat16)
+    r = w - hi.to(torch.float32)
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.to(torch.float32)).to(torch.bfloat16)
+    return hi, mid, lo
 
-    K, N = w.shape
+
+def _packed_rows(K: int, split: int):
+    """The source row of each of a hidden layer's kp packed rows (-1: a
+    zero pad row) and kp1: row blocks [0, split) and [split, K) of a first
+    layer each zero-padded to a multiple of 16 rows, a later layer (split
+    0) to NPAD rows, the width of the activation it reads."""
+    from ._build import NPAD
+
     if split:
-        blocks = [(w[:split], _pad16(split)), (w[split:], _pad16(K - split))]
+        blocks = [(0, split), (split, K)]
     else:
         if K > NPAD:
             raise ValueError(f"field kernels: hidden K {K} > {NPAD}")
-        blocks = [(w, NPAD)]
-    kp = sum(n for _, n in blocks)
-    wp = w.new_zeros((kp, NPAD))
-    r = 0
-    for blk, n in blocks:
-        wp[r:r + blk.shape[0], :N] = blk
-        r += n
-    wt = wp.t()
-    packed = torch.cat([
-        wt[:, k0:k0 + KS].reshape(NPAD // 8, 8, -1, 8).permute(0, 2, 1, 3)
-        .reshape(-1) for k0 in range(0, kp, KS)])
-    return packed, (blocks[0][1] if split else kp), kp
+        blocks = [(0, K)]
+    rows = []
+    for lo, hi in blocks:
+        n = _pad16(hi - lo) if split else NPAD
+        rows += list(range(lo, hi)) + [-1] * (n - (hi - lo))
+    return rows, (_pad16(split) if split else len(rows))
+
+
+@functools.lru_cache(maxsize=64)
+def _pack_index(shapes, device):
+    """For hidden layers of shapes ((K, N, split, bf16), ...), all bf16 or
+    all f32: the flat index, into the concatenation of their row-major
+    weights and one zero, of every element of their packed planes in
+    packed order (one plane: a bf16 layer's, or each of an f32 layer's
+    three), with each layer's (kp1, kp). Depends on the shapes alone, so
+    it is built once per shape; the weights are gathered through it on
+    every call."""
+    from ._build import KS, KSF, NPAD
+
+    total = sum(K * N for K, N, _, _ in shapes)
+    parts, dims, base = [], [], 0
+    n = torch.arange(NPAD)
+    for K, N, split, bf16 in shapes:
+        rows, kp1 = _packed_rows(K, split)
+        r = torch.tensor(rows)[:, None]
+        # (kp, NPAD): the source element, or the zero at `total`
+        src = torch.where((r >= 0) & (n < N), base + r * N + n, total)
+        # each slice's transpose as 8 x 8 core matrices, in the order
+        # (n // 8, k // 8, n % 8, k % 8)
+        step = KS if bf16 else KSF
+        for k0 in range(0, len(rows), step):
+            ks = min(step, len(rows) - k0)
+            parts.append(src[k0:k0 + ks].t().reshape(NPAD // 8, 8, ks // 8, 8)
+                         .permute(0, 2, 1, 3).reshape(-1))
+        dims.append((kp1, len(rows)))
+        base += K * N
+    return torch.cat(parts).to(device), tuple(dims)
+
+
+def _pack(layers):
+    """Hidden layers [(w (K, N), split)], all bf16 or all f32, in the tile
+    stage's layout -> (packed bf16, [(offset, kp1, kp)] per layer; offset
+    in elements). Each layer's rows are padded as _packed_rows says, N to
+    NPAD columns; the transpose (K-major) of each slice, KS rows of a bf16
+    layer or KSF rows of each of an f32 layer's three split_planes, laid
+    out as 8 x 8 core matrices (_pack_index), the three planes of an f32
+    slice one after the other: the order the kernel's bulk copies and
+    wgmma descriptors read. One gather for all the layers (and, f32, one
+    split); packed per call, never cached, so a weight edited in place
+    cannot go stale."""
+    from ._build import KSF, NPAD
+
+    ws = [w for w, _ in layers]
+    bf16 = ws[0].dtype == torch.bfloat16
+    idx, dims = _pack_index(
+        tuple((*w.shape, split, bf16) for w, split in layers), ws[0].device)
+    src = torch.cat([w.reshape(-1) for w in ws] + [ws[0].new_zeros(1)])
+    g = src[idx]
+    P = 1 if bf16 else 3
+    if not bf16:
+        g = torch.stack(split_planes(g.view(-1, KSF * NPAD)), 1).view(-1)
+    offs, o = [], 0
+    for kp1, kp in dims:
+        offs.append((o, kp1, kp))
+        o += P * kp * NPAD
+    return g, offs
+
+
+def pack_layer(w, split: int):
+    """One (K, N) hidden-layer weight, f32 or bf16, in the tile stage's
+    layout (_pack) -> (packed (P * kp * NPAD,) bf16, P = 1 for bf16 and 3
+    for f32, kp1, kp)."""
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"field kernels: weight dtype {w.dtype}")
+    packed, [(_, kp1, kp)] = _pack([(w.contiguous(), split)])
+    return packed, kp1, kp
 
 
 def _mlp_desc(layers, keep):
     """ctypes MLP descriptor for the tensor-core tile stage + the row
-    stride (floats) of the f32 activation rows. Every bf16 hidden layer is
-    packed by pack_layer and every bf16 layer given the width of the bf16
-    tile it reads; the row stride is at least NPAD and wide enough for
-    every f32 layer's input (the second row block of a first layer starts
-    at a multiple of 4) and output."""
+    stride (floats) of the f32 activation rows. The hidden layers are
+    packed by _pack, the bf16 ones and the f32 ones in one call each, and
+    given their input width kp (a bf16 layer reads a bf16 tile that wide,
+    an f32 layer that many columns of its f32 rows), a bf16 head its tile
+    width NPAD; the row stride is a multiple of 32 (the kernel's swizzle),
+    at least NPAD and every f32 layer's kp."""
     from . import _build
 
     if len(layers) > _build.MAX_LAYERS:
@@ -867,28 +936,59 @@ def _mlp_desc(layers, keep):
     desc = _build.MLPDesc()
     desc.n = len(layers)
     ldx = _build.NPAD
+    hidden = {}             # bf16 -> [(layer, w, split)]
     for i, (w, b, split) in enumerate(layers):
         if w.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"field kernels: weight dtype {w.dtype}")
         K, N = w.shape
-        hidden = i < len(layers) - 1
-        if hidden and N > _build.NT:
-            raise ValueError(f"field kernels: width {N} > {_build.NT}")
+        bf16 = int(w.dtype == torch.bfloat16)
         w = w.contiguous()
         b = b.reshape(-1).to(torch.float32).contiguous()
         desc.l[i].w = _ptr(w, keep)
         desc.l[i].b = _ptr(b, keep)
         desc.l[i].K, desc.l[i].N = K, N
-        desc.l[i].bf16 = bf16 = int(w.dtype == torch.bfloat16)
+        desc.l[i].bf16 = bf16
         desc.l[i].split = split
-        if bf16:
-            if hidden:
-                wp, desc.l[i].kp1, desc.l[i].kp = pack_layer(w, split)
-                desc.l[i].wp = _ptr(wp, keep)
-            else:
-                desc.l[i].kp = _build.NPAD
-        ldx = max(ldx, _align4(split) + K - split if split else K, N)
-    return desc, _align4(ldx)
+        if i < len(layers) - 1:
+            if N > _build.NPAD:
+                raise ValueError(f"field kernels: width {N} > {_build.NPAD}")
+            hidden.setdefault(bf16, []).append((i, w, split))
+        elif bf16:
+            desc.l[i].kp = _build.NPAD
+    for bf16, group in hidden.items():
+        packed, offs = _pack([(w, split) for _, w, split in group])
+        keep.append(packed)
+        for (i, _, _), (o, kp1, kp) in zip(group, offs):
+            desc.l[i].wp = packed.data_ptr() + 2 * o
+            desc.l[i].kp1, desc.l[i].kp = kp1, kp
+            if not bf16:
+                ldx = max(ldx, kp)
+    return desc, -(-ldx // 32) * 32
+
+
+def block_plan(B: int, R: int):
+    """The tile kernels' rows (csrc/field_common.cuh TileRows) for B
+    contexts of R rows (samples or rays) each: (ctx, row, live), three
+    (blocks, 64) tensors, row t of block i computing row row[i, t] of
+    context ctx[i, t] where live[i, t]. R >= 64: 64 consecutive rows of one
+    context a block, ceil(R / 64) blocks a context; fewer: the flattened
+    (context, row) order cut into blocks of 64 rows. A ragged row takes
+    the context of its block's first row, row 0, and is not live."""
+    from ._build import TS
+
+    t = torch.arange(TS)
+    if R >= TS:
+        nblk = -(-R // TS)
+        blk = torch.arange(B * nblk)[:, None]
+        ctx = (blk // nblk).expand(-1, TS)
+        row = blk % nblk * TS + t
+        live = row < R
+    else:
+        g = torch.arange(-(-B * R // TS))[:, None] * TS + t
+        live = g < B * R
+        ctx, row = g // R, g % R
+    ctx = torch.where(live, ctx, ctx[:, :1])
+    return ctx, torch.where(live, row, 0), live
 
 
 def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,
@@ -966,7 +1066,9 @@ def _check_inputs(xyz, geo, feat, dirs):
         raise TypeError(f"field kernels: feat dtype {feat.dtype}")
 
 
-__all__ = ["field_fused", "field_fused_plain", "pack_layer", "secant_refine",
+__all__ = ["field_fused", "field_fused_plain", "pack_layer", "split_planes",
+           "block_plan",
+           "secant_refine",
            "secant_refine_plain", "secant_pred", "surface_locate",
            "surface_locate_plain", "candidate_field_v3",
            "candidate_field_v3_plain", "candidate_field",

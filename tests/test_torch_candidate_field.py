@@ -114,3 +114,30 @@ def test_candidate_plain_sums_every_tied_pick(v3, k):
     ok = no_tie_mask(c["xyz"], pack_geo(c), k=k)
     assert not ok[:, 0].any() and ok.mean() > 0.5
     assert_candidate_close(got, want, ok)
+
+
+@pytest.mark.parametrize("threads", [2, 4, 8])
+def test_candidate_field_v3_plain_does_not_move_with_threads(threads):
+    """The plain version on the inputs of
+    test_candidate_field_v3_plain_matches_pallas (seed 5, k = 8, ds, dh
+    and feats) gives the same bits at 1 and at `threads` torch threads,
+    and with its operands at another buffer alignment: its sums do not
+    depend on the intra-op thread count."""
+    import torch
+    c = ray_contexts(seed=5, R=3, S=13, C=40, F=12)
+    n0 = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = torch_candidate(c, True, True, True, 8)
+        torch.set_num_threads(threads)
+        many = torch_candidate(c, True, True, True, 8)
+        shifted = {}
+        for n in ("xyz", "pts", "ind", "pp", "vn", "feat"):
+            buf = np.zeros(c[n].size + 3, c[n].dtype)
+            buf[3:] = c[n].reshape(-1)
+            shifted[n] = buf[3:].reshape(c[n].shape)
+        moved = torch_candidate(shifted, True, True, True, 8)
+    finally:
+        torch.set_num_threads(n0)
+    for got in (many, moved):
+        assert all(np.array_equal(a, b) for a, b in zip(got, one))

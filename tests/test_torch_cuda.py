@@ -55,10 +55,21 @@ CARD_SECANT_CASES = ([(*c, (), 100, {}) for c in SECANT_CASES]
                         (True, False, None, (), 100, dict(C=192)),
                         (True, True, "bf16", (), 100, dict(WIDE, C=256))])
 # the per-ray path's shapes (one context a ray, C = 96 candidates, F = 64):
-# up-sampling S = 16, surface shading S = 1, colour at S = 127 midpoints
-PER_RAY_FIELD_CASES = [(want, dt, S) for S in (1, 16, 127)
+# up-sampling S = 16, surface shading S = 1, colour at S = 127 midpoints;
+# below 64 samples a context a block spans several contexts (S = 1, 16,
+# 37, 63), from 64 one (65, 127)
+PER_RAY_S = (1, 16, 37, 63, 65, 127)
+PER_RAY_FIELD_CASES = [(want, dt, S) for S in PER_RAY_S
                        for want in ("density", "density_nabla", "full")
-                       for dt in (None, "bf16")] + [("distance", None, 128)]
+                       for dt in (None, "bf16")] + \
+    [("distance", None, S) for S in (1, 16, 128)]
+# the secant at the per-ray shapes: (T rays a context, rebracket, frozen,
+# dtype, tags); T = 1 is the render CLI's surface
+PER_RAY_SECANT_CASES = ([(T, rb, fr, dt, ()) for T in (1, 16, 37, 63)
+                         for rb in (True, False) for fr in (False, True)
+                         for dt in (None, "bf16")]
+                        + [(T, True, fr, "bf16", SEL_F32) for T in (1, 37)
+                           for fr in (False, True)])
 # (want_dh, want_feat, k) of candidate_field_v3 / candidate_field
 CAND_CASES = [(True, True, 8), (False, True, 8), (True, False, 8),
               (False, False, 8), (True, True, 1)]
@@ -418,12 +429,13 @@ def test_kernel_layer_descriptors():
     layers = kernels._dens_layers(dws, 8)
     assert layers[0][0].shape == (9 + 8 + 16, 32) and layers[0][2] == 9 + 8
     desc, ldx = kernels._mlp_desc(layers, keep)
-    assert desc.n == 4 and ldx % 4 == 0
-    assert ldx >= kernels._align4(17) + 16
+    assert desc.n == 4 and ldx % 32 == 0
+    assert desc.l[0].kp1 == 32 and desc.l[0].kp == 48 and ldx >= 48
     cdesc, cldx = kernels._mlp_desc(kernels._col_layers(cws, 8, 4, 2), keep)
     nh = 3 + 9 + 3 + 12 + 8
     assert cdesc.l[0].split == nh and cdesc.l[0].bf16 == 1
-    assert cdesc.l[0].K == nh + 16 and cldx >= kernels._align4(nh) + 16
+    assert cdesc.l[0].K == nh + 16 and cldx % 32 == 0
+    assert (cdesc.l[0].kp1, cdesc.l[0].kp) == (48, 64)
     assert cdesc.n == len(cws) // 2 <= _build.MAX_LAYERS
 
 
@@ -475,9 +487,10 @@ def test_packed_layers_unpack_to_their_weights(ctx):
 
 
 def test_tile_descriptors_pack_only_bf16_hidden_layers():
-    """The tile stage's descriptors: bf16 hidden layers packed, a bf16
-    head reading an NPAD-wide tile, f32 layers on f32 rows of stride >=
-    NPAD."""
+    """The tile stage's descriptors: every hidden layer packed (a bf16 one
+    as one plane, an f32 one as its three split planes), a bf16 head
+    reading an NPAD-wide tile, an f32 head none; f32 rows of stride >=
+    NPAD, a multiple of 32."""
     from neumesh_tpu_torch.ops._build import NPAD
     inp = random_context(seed=4)
     low = low_precision_mask(inp["dws"], "bf16", kept_f32(SEL_F32, (0, 1),
@@ -487,8 +500,9 @@ def test_tile_descriptors_pack_only_bf16_hidden_layers():
     layers = kernels._dens_layers(dws, 8)
     keep = []
     desc, ldx = kernels._mlp_desc(layers, keep)
-    assert ldx >= NPAD and ldx % 4 == 0
-    assert (desc.l[0].bf16, desc.l[0].kp, desc.l[0].wp) == (0, 0, None)
+    assert ldx >= NPAD and ldx % 32 == 0
+    assert (desc.l[0].bf16, desc.l[0].kp1, desc.l[0].kp) == (0, 32, 48)
+    assert desc.l[0].wp
     for i in (1, 2):
         assert desc.l[i].bf16 == 1 and desc.l[i].wp
         assert desc.l[i].kp1 == desc.l[i].kp == NPAD
@@ -524,13 +538,13 @@ def test_surface_locate_descriptor_is_a_tile_descriptor(dtype, tags):
         dtype=None if dtype is None else torch.bfloat16, logit_tau=0.0)
     f = args.f
     assert (f.R, f.B, f.T, f.C, f.F, f.k) == (111, 3, 37, 128, 8, 8)
-    assert f.ldx >= NPAD and f.ldx % 4 == 0 and f.dens.n == 4
+    assert f.ldx >= NPAD and f.ldx % 32 == 0 and f.dens.n == 4
     assert (args.n_steps, args.n_secant) == (16, 3) and keep
     for i in range(4):
         L, hidden = f.dens.l[i], i < 3
         bf = int(low[(0, 3, 5, 7)[i]])
-        assert L.bf16 == bf and (L.kp > 0) == bool(bf)
-        assert bool(L.wp) == bool(bf and hidden) and L.kp % 16 == 0
+        assert L.bf16 == bf and (L.kp > 0) == bool(bf or hidden)
+        assert bool(L.wp) == hidden and L.kp % 16 == 0
         if L.wp:
             assert L.kp1 % 16 == 0 and L.kp1 <= L.kp and L.N <= NPAD
     if dtype is not None and not tags:
@@ -763,14 +777,54 @@ def test_surface_locate_kernel_matches_plain_on_card(dtype, tags, T, n_steps,
 @pytest.mark.cuda
 @pytest.mark.parametrize("want,dtype,S", PER_RAY_FIELD_CASES)
 def test_field_fused_at_per_ray_shapes_on_card(want, dtype, S):
+    """B = 509 contexts (B S no multiple of the 64-row block: the last
+    block ragged)."""
     _need_card()
-    inp = random_context(seed=31, B=512, S=S, C=96, gd=32, cd=32)
+    inp = random_context(seed=31, B=509, S=S, C=96, gd=32, cd=32)
     mask = no_tie_mask(inp["xyz"], inp["geo"])
     got = [o.cpu().numpy() for o in
            torch_field(inp, want, 8, dtype, (), device="cuda")]
     ref = [o.cpu().numpy() for o in
            torch_field(inp, want, 8, dtype, (), device="cuda", plain=True)]
     assert_field_close(got, ref, mask, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("want", ["density", "density_nabla", "full"])
+@pytest.mark.parametrize("S", PER_RAY_S)
+def test_field_fused_selective_f32_at_per_ray_shapes_on_card(want, S):
+    """bf16 serving with the selective-f32 layers (d0, dh, c0, ch) at the
+    per-ray shapes and the flagship width: the f32 first layers on the
+    tensor-core split beside bf16 layers, B = 509 contexts."""
+    _need_card()
+    inp = random_context(seed=39, **dict(WIDE, B=509, S=S, C=96))
+    mask = no_tie_mask(inp["xyz"], inp["geo"])
+    got = [o.cpu().numpy() for o in
+           torch_field(inp, want, 8, "bf16", SEL_F32, device="cuda")]
+    ref = [o.cpu().numpy() for o in
+           torch_field(inp, want, 8, "bf16", SEL_F32, device="cuda",
+                       plain=True)]
+    assert_field_close(got, ref, mask, want, "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,rebracket,frozen,dtype,tags",
+                         PER_RAY_SECANT_CASES)
+def test_secant_refine_at_per_ray_shapes_on_card(T, rebracket, frozen, dtype,
+                                                 tags):
+    """The secant below 64 rays a context (a block spans several
+    contexts), every option, f32, bf16 and selective f32, at the flagship
+    width; B T no multiple of 64 (the last block ragged), one launch."""
+    _need_card()
+    B = 1021 if T == 1 else 67
+    inp = random_context(seed=40 + T, **dict(WIDE, B=B, S=1, C=96))
+    br = brackets(41 + T, B * T)
+    kernels.reset_launch_counts()
+    got = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", tags=tags)
+    assert sum(kernels.LAUNCHES["secant_refine"].values()) == 1
+    ref = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", plain=True,
+                       tags=tags)
+    assert_roots_close(got.cpu().numpy(), ref.cpu().numpy(), dtype)
 
 
 @pytest.mark.cuda
