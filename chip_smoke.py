@@ -28,7 +28,10 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     (f32, bf16, bf16 with selective-f32 layers) on the volume serving
     structure's inputs; candidate_field (v2, on no path) at R=4096, S=64,
     C=96 built from the no-nablas volume's contexts; kernel and plain
-    times, roofline bound.
+    times, roofline bound. field_fused's distance mode (its own kernel,
+    csrc/field_distance.cu) also timed and held at k = 8 on the serving
+    scan's inputs and at the per-ray shapes made from them (4,096 contexts
+    of 96 candidates, S = 1, 16, 128), beside its instruction floor.
  4. 64x64 crops of every structure rendered through the kernels and
     through the plain versions, PSNR of rgb (and of the surface normals)
     between them; frame time, Mrays/s, peak memory and traced idle share
@@ -110,7 +113,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     unedited render's, their rgb within the f32 tolerance on the rays
     whose tile candidates hold no edited vertex; after painting every
     parameter but the painted rows of color_features bit-identical, those
-    rows moved, every loss finite. Reports ms per view edited and unedited, the
+    rows moved, every loss finite; the swap_surface scan's f32 k = 8
+    distance call timed. Reports ms per view edited and unedited, the
     edit's host steps (load, ICP, kNN, ARAP, MeshGrid rebuild), the ray
     cast, paint ms/it and the phase's peak memory.
  9. multi-GPU (neumesh_tpu_torch.parallel) on the one card: (a) right
@@ -150,8 +154,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 Prints the card line, one {"cli": {...}} line, one {"training": {...}}
 line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
 {"parallel": {...}} line, one {"host_geometry": {...}} line, one
-{"kernels": [...]} line (each row with its design, "wgmma" or "simt",
-bound_ms at the tensor-core rates beside bound_cuda_core_ms, the bound
+{"kernels": [...]} line (each row with its design, "wgmma", "simt" or
+"thread_scan" (the distance row, with its instruction floor floor_ms and
+timed_shapes: the serving scan at k = 1 and 8, the swap's scan, the
+per-ray shapes), bound_ms at the tensor-core rates beside
+bound_cuda_core_ms, the bound
 with every f32 flop at the CUDA-core rate, the launches of the gate modes in launches_by_structure, of the editing
 cases in launches_by_editing_case, of phase 9's sharded renders in
 launches_by_parallel_case, of phase 10's renders in
@@ -176,6 +183,12 @@ H100_F32_FLOPS = 67e12          # CUDA-core fp32
 # field_common.cuh), so a sixth of the bf16 rate
 H100_F32_SPLIT_FLOPS = H100_BF16_FLOPS / 6
 H100_BYTES = 3.35e12            # HBM3
+# separately issued f32 instructions a second: 128 lanes an SM x 132 SMs x
+# 1.98 GHz (boost); the exact-f32 candidate chain cannot contract into FMAs
+H100_F32_ISSUE = 128 * 132 * 1.98e9
+# instructions a candidate and sample of the distance scan: xv (3 mul, 2
+# add), xx + pp, 2 xv, the subtraction, max 0, the tie-break, the minimum
+DIST_INSTR = 11
 
 TOL = {"f32": dict(atol=2e-5, rtol=1e-4, frac=0.99),
        "f32_nabla": dict(atol=1e-4, rtol=1e-4, frac=0.99),
@@ -193,6 +206,10 @@ WGMMA_ROWS = {("field_fused", m) for m in ("density", "density_nabla",
     {("secant_refine", m) for m in ("plain", "rebracket", "frozen",
                                     "frozen_rebracket")} | \
     {("surface_locate", m) for m in ("bf16", "f32")}
+FD = ("field_fused", "distance")
+# a row's design beside WGMMA_ROWS: the distance mode's own kernel, a thread
+# a sample scanning shared-memory candidates (csrc/field_distance.cu)
+ROW_DESIGN = {FD: "thread_scan"}
 SOURCES = {
     "field_fused": ("neumesh_tpu_torch/csrc/field_fused.cu",
                     "neumesh_tpu/ops/pallas_kernels.py:645"),
@@ -205,6 +222,11 @@ SOURCES = {
     "candidate_field": ("neumesh_tpu_torch/csrc/candidate_field.cu",
                         "neumesh_tpu/ops/pallas_kernels.py:60"),
 }
+# rows whose kernel has a source of its own: (kernel, mode) -> source
+ROW_SOURCES = {FD: "neumesh_tpu_torch/csrc/field_distance.cu"}
+# the kernel symbols torch.profiler attributes device time to, beside
+# KERNELS': field_fused's distance mode
+PROFILE_KEYS = (*KERNELS, "field_distance")
 
 # root-anchored volume serving structure (the JAX bench's VOL settings)
 VOL_MODEL = dict(tile_kp_per_probe=12, tile_cell_budget=64, scan_knn_k=1)
@@ -326,6 +348,35 @@ def cuda_ms(fn, reps=5):
     e1.record()
     e1.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps=20):
+    """Device ms of one call of fn: reps calls captured in a CUDA graph,
+    the median of three replays (no host launch cost between them)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(3):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        g.replay()
+        e1.record()
+        e1.synchronize()
+        ms.append(e0.elapsed_time(e1) / reps)
+    del g
+    return sorted(ms)[1]
 
 
 def compare(got, want, tol):
@@ -827,6 +878,66 @@ def time_kernels(timed, rows):
                                   if c["variant"] == var)
 
 
+def distance_floor_ms(args):
+    """The distance scan's instruction floor: DIST_INSTR separately issued
+    f32 instructions a candidate and sample at H100_F32_ISSUE (ms); the
+    roofline bound counts the same chain as flops at 67 TFLOP/s."""
+    B, S, _ = args[0].shape
+    return B * S * args[1].shape[2] * DIST_INSTR / H100_F32_ISSUE * 1e3
+
+
+def time_distance_call(a, kw):
+    """One field_fused(want="distance") call held against its plain
+    version on the card (f32 tolerance) and timed: ms (CUDA events around
+    launches, as every row), device_ms (graph_ms: the small calls' events
+    time the host's launch), plain ms, bound, instruction floor, live
+    share of its blocks."""
+    import torch
+    from neumesh_tpu_torch.ops import kernels
+    with torch.no_grad():
+        got = kernels.field_fused(*a, **kw)
+        want = kernels.field_fused_plain(*a, **kw)
+        err, share = compare(got, want, TOL["f32"])
+        tag = f"distance k={kw.get('k', 8)} {_shape_note(FD[0], a)}"
+        if share < TOL["f32"]["frac"]:
+            raise AssertionError(f"{tag} disagrees with its plain version: "
+                                 f"{share:.4f} within tol")
+        ms = cuda_ms(lambda: kernels.field_fused(*a, **kw), reps=10)
+        device_ms = graph_ms(lambda: kernels.field_fused(*a, **kw))
+        plain_ms = cuda_ms(lambda: kernels.field_fused_plain(*a, **kw),
+                           reps=2)
+    bound, by = kernel_bound(FD[0], a, kw)
+    row = {"k": kw.get("k", 8), "shapes": _shape_note(FD[0], a), "ms": ms,
+           "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": by, "floor_ms": distance_floor_ms(a),
+           "max_abs_err": err, "frac_within_tol": share,
+           "live_share": live_share(FD[0], a, kw)}
+    log(f"[distance] {tag}: {ms:.4f} ms, device {device_ms:.4f} (plain "
+        f"{plain_ms:.3f}, bound {bound:.4f} {by}, floor "
+        f"{row['floor_ms']:.4f}), max|err| {err:.3e}")
+    return row
+
+
+def distance_shapes(a, kw):
+    """The distance kernel at (a) the serving scan's recorded call (k = 1),
+    (b) the same at k = 8, (d) the render CLI's per-ray shapes made from
+    it: 8 contexts a tile (4,096 at 512 tiles), each with the tile's first
+    96 candidates and 256 of its samples, cut to S = 1, 16, 128 (k as
+    recorded). (c), the editing swap's scan, is timed in phase 8."""
+    import torch
+    out = {"a_serving": time_distance_call(a, kw),
+           "b_serving_k8": time_distance_call(a, dict(kw, k=8))}
+    xyz, geo = a[0], a[1]
+    B, S0, _ = xyz.shape
+    g = geo[:, :, :96].repeat_interleave(8, 0).contiguous()
+    x = xyz.reshape(B * 8, S0 // 8, 3)
+    f = torch.zeros((g.shape[0], 96, 1), device=g.device)
+    for S in (1, 16, 128):
+        out[f"d_per_ray_S{S}"] = time_distance_call(
+            (x[:, :S].contiguous(), g, f, *a[3:]), kw)
+    return out
+
+
 def profile_frame(fn):
     """Device time by kernel over one traced call of fn (torch.profiler):
     the port's kernels, every other device op, busy time against the
@@ -841,7 +952,7 @@ def profile_frame(fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by = {k: 0.0 for k in (*KERNELS, "other")}
+    by = {k: 0.0 for k in (*PROFILE_KEYS, "other")}
     for ev in prof.key_averages():
         # only the device's own events: an aten op on the host carries the
         # time of the kernels it launched, which are listed besides
@@ -852,8 +963,10 @@ def profile_frame(fn):
         if us <= 0:
             continue
         # no kernel's symbol contains another's ("candidate_field_kernel"
-        # is not in "candidate_field_v3_kernel")
-        key = next((k for k in KERNELS if k + "_kernel" in ev.key), "other")
+        # is not in "candidate_field_v3_kernel", "field_fused_kernel" not in
+        # "field_distance_kernel")
+        key = next((k for k in PROFILE_KEYS if k + "_kernel" in ev.key),
+                   "other")
         by[key] += us / 1e3
     busy = sum(by.values())
     return {"traced_wall_ms": wall_ms, "device_busy_ms": busy,
@@ -997,12 +1110,16 @@ def rows_per_context(name, args):
     return args[0].shape[0], args[0].shape[1]
 
 
-def live_share(name, args):
+def live_share(name, args, kw=None):
     """Live rows over all rows of the call's blocks: the tile kernels'
     block plan (kernels.block_plan: below 64 rows a context a block spans
-    several), the candidate kernels' 32-sample blocks of one context."""
+    several), field_fused's distance mode's (kernels.distance_block_plan),
+    the candidate kernels' 32-sample blocks of one context."""
     from neumesh_tpu_torch.ops import kernels
     B, n = rows_per_context(name, args)
+    if name == "field_fused" and (kw or {}).get("want") == "distance":
+        return float(kernels.distance_block_plan(
+            B, n, args[1].shape[2], kw.get("k", 8))[2].float().mean())
     if BLOCK_ROWS[name] == 64:
         return float(kernels.block_plan(B, n)[2].float().mean())
     rows = BLOCK_ROWS[name]
@@ -1093,7 +1210,7 @@ def run_cli(tmp):
             B, n = rows_per_context(name, a)
             key = (name, mode, n)
             per_call.setdefault(key, {"calls": 0, "contexts": 0,
-                                      "live_share": live_share(name, a)})
+                                      "live_share": live_share(name, a, kw)})
             per_call[key]["calls"] += 1
             per_call[key]["contexts"] += B
             timed.setdefault(key + (tag,), (a, kw))
@@ -1489,7 +1606,7 @@ def run_training(tmp, card):
                      "plain_ms": cuda_ms(lambda: plain(*a, **kw), reps=2),
                      "bound_ms": bound, "bound_by": by,
                      "bound_cuda_core_ms": cuda_core_bound(name, a, kw),
-                     "live_share": live_share(name, a)})
+                     "live_share": live_share(name, a, kw)})
         log(f"[train] {name}/{mode} B={B} S={S} C={a[1].shape[2]}: "
             f"{rows[-1]['ms']:.3f} ms (plain {rows[-1]['plain_ms']:.3f}, "
             f"bound {bound:.4f} {by}), live rows {rows[-1]['live_share']:.3f}")
@@ -2295,11 +2412,17 @@ def run_editing(tmp, card, p):
     log(f"[edit] gate (port, {PIPE_ITERS} iterations): {json.dumps(gate)}")
     log(f"[edit] gate (JAX package, GATES_r05): {json.dumps(jax_gate)}")
 
-    # every recorded call against its plain version
+    # every recorded call against its plain version; the swap's f32 k = 8
+    # tile scan by distance timed
     with torch.no_grad():
         rows = check_kernels(variants)
     result["checks"] = {f"{k}/{m}": len(r["checks"])
                         for (k, m), r in rows.items()}
+    scan = next(((a, kw) for name, mode, var, a, kw, *_ in variants
+                 if (name, mode) == FD and var == "edit_swap_surface"), None)
+    if scan is None:
+        raise AssertionError("edit swap_surface: no distance call recorded")
+    result["distance_call"] = time_distance_call(*scan)
     result["replays"] = len(variants)
     del variants, rows
     torch.cuda.synchronize()
@@ -3095,6 +3218,8 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
     variants, timed = kernel_variants(rec, models)
     rows = check_kernels(variants)
     time_kernels(timed, rows)
+    rows[FD]["floor_ms"] = distance_floor_ms(rec["serving_bf16"][FD][0])
+    rows[FD]["timed_shapes"] = distance_shapes(*rec["serving_bf16"][FD])
     del rec, variants, timed
 
     # ---- crops through the plain versions on the card: rgb, and the
@@ -3194,6 +3319,12 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
     kernels_out = []
     for (kname, mode), row in sorted(rows.items()):
         src, rep = SOURCES[kname]
+        src = ROW_SOURCES.get((kname, mode), src)
+        extra = {}
+        if (kname, mode) == FD:
+            extra = {"floor_ms": row["floor_ms"], "timed_shapes": dict(
+                row["timed_shapes"],
+                c_swap_surface=edit["distance_call"])}
         by_st = {st: counts[st][kname][mode] for st in STRUCTURES}
         home = LAUNCHES_OF[kname]
         all_st = sum(by_st.values())
@@ -3226,9 +3357,11 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
             "bound_by": row["bound_by"],
             "bound_cuda_core_ms": row["bound_cuda_core_ms"],
             "library_ms": None,
-            "design": "wgmma" if (kname, mode) in WGMMA_ROWS else "simt",
+            "design": ("wgmma" if (kname, mode) in WGMMA_ROWS
+                       else ROW_DESIGN.get((kname, mode), "simt")),
             "card": card, "shapes": row["shapes"],
-            "timed_variant": row["timed_variant"], "checks": row["checks"]})
+            "timed_variant": row["timed_variant"], "checks": row["checks"],
+            **extra})
     print(json.dumps({"kernels": kernels_out}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,6 +2,7 @@
 turns (A B B A ...), at the flagship widths.
 
     python3 neumesh_tpu_torch/ab_field_kernels.py ROOT_A ROOT_B [--rounds 2]
+        [--only SUBSTRING]
 
 Each ROOT is the root of a checkout holding neumesh_tpu_torch/. Every
 measurement runs in a process of its own that imports that root's package
@@ -12,8 +13,12 @@ tests/test_torch_cuda.py::random_context at W = 256, geometry/colour dims
 S = 1024 samples a tile for density / density_nabla, 512 for full, and
 secant_refine in its four options (plain, re-bracket, frozen, frozen with
 the re-bracket) on 65,536 rays (3 iterations); weights in f32 and in bf16
-(test_torch_cuda.low_precision_mask). field_fused distance (k = 1) at
-S = 2048 samples a tile. surface_locate on
+(test_torch_cuda.low_precision_mask). field_fused distance at S = 2048
+samples a tile: k = 1 (the serving scan) and k = 8 on 512 tiles, k = 8 on
+32 contexts of 16,384 samples (the shape of the editing swap's surface
+scan; the same samples regrouped), and the
+per-ray shapes, k = 1 on 4,096 contexts of C = 96 at S = 1, 16, 128.
+surface_locate on
 65,536 rays in 512 tiles of 128 (test_torch_cuda.locate_rays into a
 context of outward normals; 16 scan steps, 3 secant steps), f32 and bf16.
 candidate_field_v3 in its four modes at S = 512 samples a tile, F = 64,
@@ -26,8 +31,14 @@ S = 1 and 127, and the plain secant (8 iterations) at one ray a context,
 f32 weights. Prints one JSON
 line per measurement: the root, the card (name and power limit), and each
 call's ms: the median of three windows of 10 launches each after a warm-up
-(chip_smoke.cuda_ms, CUDA events; the mean of a window), and under "min"
-the fastest window.
+(chip_smoke.cuda_ms, CUDA events; the mean of a window), under "min"
+the fastest window, for the distance rows under "device" the device
+time alone (chip_smoke.graph_ms: 20 calls in a CUDA graph; around a call
+shorter than its host launch, the events time the launch), and for the
+tile-shaped field_fused rows under "bound" [ms, what bounds it]
+(chip_smoke.kernel_bound; the distance rows add the instruction floor,
+chip_smoke.distance_floor_ms). --only keeps the rows whose name holds
+SUBSTRING.
 
 A measurement script, not part of the package: no module of the port
 imports it. It sits in the port's tree so that the same-card A/B numbers
@@ -44,13 +55,14 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDE = dict(W=256, gd=32, cd=32, md=8, mfg=2, mft=2, mv=4)
 
 
-def measure(root: str) -> dict:
+def measure(root: str, only: str = "") -> dict:
     # the measured package from root; the test helpers and the timer from
     # this checkout (behind root, which may hold a chip_smoke of its own)
     sys.path[:0] = [root, os.path.join(HERE, "tests"), HERE]
     import torch
     import test_torch_cuda as tc
-    from chip_smoke import card_line, cuda_ms
+    from chip_smoke import (card_line, cuda_ms, distance_floor_ms,
+                            graph_ms, kernel_bound)
     from neumesh_tpu_torch.ops import kernels
 
     inp = tc.random_context(seed=1, B=512, S=1024, C=128, **WIDE)
@@ -74,11 +86,22 @@ def measure(root: str) -> dict:
     lgeo, lfeat = t(loc["geo"]), t(loc["feat"][..., :32])
     rc = tc.ray_contexts(seed=4, R=4096, S=64, C=96, F=64)
     v2 = [t(rc[n]) for n in ("xyz", "pts", "pp", "ind", "vn", "feat")]
-    out, fastest = {}, {}
+    out, fastest, device, bound = {}, {}, {}, {}
 
-    def timed(name, fn):
+    def timed(name, fn, field=None):
+        """field: (args, kw) of a field_fused call, for its bound."""
+        if only not in name:
+            return
         ms = sorted(cuda_ms(fn, reps=10) for _ in range(3))
         out[name], fastest[name] = ms[1], ms[0]
+        if field is not None:
+            bound[name] = kernel_bound("field_fused", *field)
+        if "distance" in name:
+            device[name] = graph_ms(fn)
+            bound[name] += (distance_floor_ms(field[0]),)
+
+    def field_call(*a, **kw):
+        return (lambda: kernels.field_fused(*a, **kw)), (a, kw)
 
     for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
         low = None if dtype is None else "bf16"
@@ -88,11 +111,9 @@ def measure(root: str) -> dict:
             F = 64 if want == "full" else 32
             x, d = xyz[:, :S].contiguous(), dirs[:, :S].contiguous()
             fe = feat[..., :F].contiguous()
-            timed(f"field_fused/{want}/{tag}",
-                lambda: kernels.field_fused(
-                    x, geo, fe, inp["w1"], dws,
-                    cws if want == "full" else None, d, want=want,
-                    dtype=dtype, **inp["kw"]))
+            timed(f"field_fused/{want}/{tag}", *field_call(
+                x, geo, fe, inp["w1"], dws, cws if want == "full" else None,
+                d, want=want, dtype=dtype, **inp["kw"]))
         gfeat = feat[..., :32].contiguous()
         for rb in (True, False):
             for fr in (False, True):
@@ -110,14 +131,22 @@ def measure(root: str) -> dict:
                 multires_d=8, multires_fg=2, geometry_dim=32, dtype=dtype))
     far = tc.random_context(seed=3, B=512, S=2048, C=128, **WIDE)
     dxyz, dgeo, dfeat = (t(far[n]) for n in ("xyz", "geo", "feat"))
-    timed("field_fused/distance/k1",
-          lambda: kernels.field_fused(dxyz, dgeo, dfeat, far["w1"], k=1,
-                                      want="distance"))
+    for k in (1, 8):
+        timed(f"field_fused/distance/k{k}", *field_call(
+            dxyz, dgeo, dfeat, far["w1"], k=k, want="distance"))
+    # the editing swap's surface scan: 32 contexts of 16,384 samples
+    timed("field_fused/distance/k8/B32_S16384", *field_call(
+        dxyz.reshape(64, 16384, 3)[:32], dgeo[:32], dfeat[:32], far["w1"],
+        k=8, want="distance"))
     # the render CLI's per-ray f32 calls (one 4,096-ray chunk of a view)
     pr = tc.random_context(seed=5, B=4096, S=128, C=96, **WIDE)
     pxyz, pgeo, pfeat, pdirs = (t(pr[n]) for n in ("xyz", "geo", "feat",
                                                    "dirs"))
     pdws, pcws = weights(pr["dws"], 2, None), weights(pr["cws"], 1, None)
+    for S in (1, 16, 128):
+        timed(f"per_ray/field_fused/distance/S{S}/k1", *field_call(
+            pxyz[:, :S].contiguous(), pgeo, pfeat, pr["w1"], k=1,
+            want="distance"))
     for want, S in (("density", 16), ("density", 64),
                     ("density_nabla", 128), ("full", 1), ("full", 127)):
         F = 64 if want == "full" else 32
@@ -146,14 +175,21 @@ def measure(root: str) -> dict:
             timed(f"candidate_field/{mode}",
                 lambda: kernels.candidate_field(
                     *v2, inp["w1"], k=8, want_dh=dh, want_feat=ft))
-    return {"root": root, "card": card_line(), "ms": out, "min": fastest}
+    return {"root": root, "card": card_line(), "ms": out, "min": fastest,
+            "device": device, "bound": bound}
 
 
 def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(os.path.abspath(sys.argv[2]))), flush=True)
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--measure":
+        print(json.dumps(measure(os.path.abspath(sys.argv[2]),
+                                 *sys.argv[3:])), flush=True)
         return 0
     args = sys.argv[1:]
+    only = []
+    if "--only" in args:
+        i = args.index("--only")
+        only = [args[i + 1]]
+        del args[i:i + 2]
     rounds = 2
     if "--rounds" in args:
         i = args.index("--rounds")
@@ -165,7 +201,7 @@ def main() -> int:
     for r in range(rounds):
         for root in (args if r % 2 == 0 else args[::-1]):
             rc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                                 "--measure", root]).returncode
+                                 "--measure", root, *only]).returncode
             if rc:
                 return rc
     return 0

@@ -13,7 +13,8 @@ of chip_smoke.cuda_ms (CUDA events; the mean of a window of the
 structure's reps), and one frame traced by chip_smoke.profile_frame.
 Prints one JSON line per measurement: the root, the card (name and power
 limit), the scene's build seconds and, per structure, the three window
-means, the device busy ms and the traced wall ms.
+means, the device busy ms, the traced wall ms and the device ms by kernel
+(as that root's chip_smoke.profile_frame attributes it).
 
 A measurement script, not part of the package: no module of the port
 imports it. It sits in the port's tree so that the same-card A/B numbers
@@ -53,7 +54,8 @@ def measure(root: str) -> dict:
             ms = [cs.cuda_ms(frame, reps=reps) for _ in range(3)]
             prof = cs.profile_frame(frame)
             out[st] = {"ms": ms, "busy_ms": prof["device_busy_ms"],
-                       "wall_ms": prof["traced_wall_ms"]}
+                       "wall_ms": prof["traced_wall_ms"],
+                       "device_ms_by_kernel": prof["device_ms_by_kernel"]}
     return out
 
 

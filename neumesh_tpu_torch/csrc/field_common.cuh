@@ -1,11 +1,13 @@
-// Device code shared by field_fused.cu, secant_refine.cu,
-// surface_locate.cu and candidate_field.cu: the NeuMesh field chain of
-// neumesh_tpu/ops/pallas_kernels.py (_interp_distance, _feat_dot,
-// _emb_cols, _emb_cols_rec, _density_mlp, the colour MLP of _field_kernel,
-// the density evaluations of _secant_kernel and _locate_kernel) against
-// one tile's candidate context.
+// Device code shared by field_fused.cu, field_distance.cu,
+// secant_refine.cu, surface_locate.cu and candidate_field.cu
+// (field_distance.cu takes only the candidate chain's pieces): the NeuMesh
+// field chain of neumesh_tpu/ops/pallas_kernels.py (_interp_distance,
+// _feat_dot, _emb_cols, _emb_cols_rec, _density_mlp, the colour MLP of
+// _field_kernel, the density evaluations of _secant_kernel and
+// _locate_kernel) against one tile's candidate context.
 //
-// Candidate stage (every kernel; interp_sample): LPS = 8 lanes per sample
+// Candidate stage (every kernel but field_distance.cu, which runs a thread
+// a sample; interp_sample): LPS = 8 lanes per sample
 // (consecutive lanes of one warp, reduced with width-8 shuffles), lane l
 // taking candidates l, l + 8, ... Exact f32 on the CUDA cores. With
 // C <= 128 a lane keeps the tie-broken d2 of its 16 candidates in
@@ -16,7 +18,8 @@
 // candidate slot. The kNN weights leave the stage as rows of C (the tile
 // kernels, whose blend lists the nonzero ones), as a list of picks in
 // ascending candidate order (the candidate kernels), or not at all (the
-// distance-only callers).
+// scans by distance of secant_refine and surface_locate, candidate_field
+// without features).
 //
 // One MLP stage, on the tensor cores (field_fused, secant_refine,
 // surface_locate; "tile" below): 64 rows (samples or rays) a block, one
@@ -263,15 +266,26 @@ __device__ __forceinline__ void for_cands(int C, int lane, Fn fn) {
 __device__ __forceinline__ float sq_norm(float x0, float x1, float x2) {
   return fadd(fadd(fmul(x0, x0), fmul(x1, x1)), fmul(x2, x2));
 }
+// d2 of the sample (x0, x1, x2), xx = |x|^2, to the candidate at (px, py,
+// pz) with pp = |p|^2
+__device__ __forceinline__ float point_d2(float px, float py, float pz,
+                                          float pp, float x0, float x1,
+                                          float x2, float xx) {
+  const float xv = fadd(fadd(fmul(x0, px), fmul(x1, py)), fmul(x2, pz));
+  return fmaxf(fsub(fadd(xx, pp), fmul(2.f, xv)), 0.f);
+}
 __device__ __forceinline__ float cand_d2(const float* geo, int C, int c,
                                          float x0, float x1, float x2,
                                          float xx) {
-  const float xv = fadd(fadd(fmul(x0, geo[c]), fmul(x1, geo[C + c])),
-                        fmul(x2, geo[2 * C + c]));
-  return fmaxf(fsub(fadd(xx, geo[6 * C + c]), fmul(2.f, xv)), 0.f);
+  return point_d2(geo[c], geo[C + c], geo[2 * C + c], geo[6 * C + c], x0,
+                  x1, x2, xx);
+}
+// candidate c's tie-break factor 1 + c 2e-7
+__device__ __forceinline__ float tie_factor(int c) {
+  return fadd(1.f, fmul((float)c, 2e-7f));
 }
 __device__ __forceinline__ float tie_broken(int c, float d2) {
-  return fmul(d2, fadd(1.f, fmul((float)c, 2e-7f)));
+  return fmul(d2, tie_factor(c));
 }
 __device__ __forceinline__ float raw_weight(float d2) {
   return fdiv(1.f, fadd(sqrtf(d2), 1e-7f));
@@ -873,23 +887,15 @@ __host__ __device__ inline size_t act_bytes(const MLPDesc& D, int ldx) {
 struct TilePlan {
   size_t ring, xb, act;
 };
-__host__ __device__ inline TilePlan tile_plan(const MLPDesc* d,
+__host__ __device__ inline TilePlan tile_plan(const MLPDesc& d,
                                               const MLPDesc* c, int ldx,
                                               int C, bool tang) {
-  TilePlan p{0, 0, 0};
-  size_t tb = 0;
-  int nsl = 0;
-  if (d) {
-    p.xb = act_bytes(*d, ldx);
-    tb = tang ? p.xb : 0;
-    nsl += mlp_slices(*d);
-  }
+  TilePlan p{(size_t)RING * KS * NPAD * 2, act_bytes(d, ldx), 0};
+  const size_t tb = tang ? p.xb : 0;
   if (c) {
     const size_t cb = act_bytes(*c, ldx);
     p.xb = cb > p.xb ? cb : p.xb;
-    nsl += mlp_slices(*c);
   }
-  p.ring = nsl ? (size_t)RING * KS * NPAD * 2 : 0;
   const size_t wrows = ((size_t)TS * C * 4 + 127) & ~(size_t)127;
   p.act = p.xb + tb > wrows ? p.xb + tb : wrows;
   return p;
@@ -937,7 +943,7 @@ struct TileMem {
 };
 
 __device__ TileMem tile_carve(unsigned char* smem, const TilePlan& p,
-                              const MLPDesc* m0, const MLPDesc* m1,
+                              const MLPDesc& m0, const MLPDesc* m1,
                               int cyclic, int ldx) {
   TileMem m;
   m.ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -945,9 +951,9 @@ __device__ TileMem tile_carve(unsigned char* smem, const TilePlan& p,
   m.T = smem + p.ring + p.xb;
   m.bar = reinterpret_cast<uint64_t*>(smem + p.ring + p.act);
   m.rest = reinterpret_cast<float*>(smem + tile_plan_bytes(p));
-  m.mlp[0] = m0;
+  m.mlp[0] = &m0;
   m.mlp[1] = m1;
-  m.total = (m0 ? mlp_slices(*m0) : 0) + (m1 ? mlp_slices(*m1) : 0);
+  m.total = mlp_slices(m0) + (m1 ? mlp_slices(*m1) : 0);
   m.cyclic = cyclic;
   m.ldx = ldx;
   m.seq = 0;

@@ -7,8 +7,8 @@
 // interpolated distance h and its closed-form gradient, the kNN feature
 // blend, positional embeddings, the density MLP (softplus, beta 100) with
 // the forward tangent dD/dh (nabla = dD/dh * grad h), and the colour MLP
-// (ReLU, sigmoid). Modes: distance (k = 1 one-hot fast path available),
-// density, density_nabla, full.
+// (ReLU, sigmoid). Modes: density, density_nabla, full; the distance
+// mode (no features, no MLP) is field_distance.cu.
 //
 // What bounds it on the H100: at the serving shapes (W = 256, 3 density +
 // 4 colour layers, C = 128, k = 8) a sample costs ~1.2 MFLOP of MLP work
@@ -48,9 +48,8 @@ namespace nm {
 
 // Shared memory of a block staging nst contexts.
 __host__ __device__ inline size_t field_smem(const FieldArgs& a, int nst) {
-  const bool full = a.mode == FULL, mlp = a.mode != DISTANCE;
-  const TilePlan p = tile_plan(mlp ? &a.dens : nullptr,
-                               full ? &a.col : nullptr, a.ldx, a.C,
+  const bool full = a.mode == FULL;
+  const TilePlan p = tile_plan(a.dens, full ? &a.col : nullptr, a.ldx, a.C,
                                a.mode == DENSITY_NABLA || full);
   return tile_plan_bytes(p) +
          sizeof(float) * (TS * (4 * 4 + 4) + (size_t)TS * a.F +
@@ -63,23 +62,22 @@ __host__ __device__ inline int field_staged(const FieldArgs& a) {
   return field_smem(a, n) <= SMEM_MAX ? n : 0;
 }
 
-// One instantiation per register budget: KIND = DISTANCE (no MLP; two
-// blocks an SM, 64 registers a thread), DENSITY (no tangent),
+// One instantiation per register budget: KIND = DENSITY (no tangent),
 // DENSITY_NABLA (the tangent; full too); F32: f32 hidden layers present;
 // L2: the contexts read from global memory (none staged).
 template <int KIND, bool F32, bool L2>
-__global__ void __launch_bounds__(TNT, KIND == DISTANCE ? 2 : 1)
+__global__ void __launch_bounds__(TNT, 1)
     field_fused_kernel(const __grid_constant__ FieldArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   // one 1-D grid over the row blocks (TileRows): any number of contexts
   const TileRows rows{a.B, a.S, (int)blockIdx.x};
   const int C = a.C, tid = threadIdx.x;
-  constexpr bool mlp = KIND != DISTANCE, tang = KIND == DENSITY_NABLA;
+  constexpr bool tang = KIND == DENSITY_NABLA;
   const bool full = tang && a.mode == FULL;
-  const TilePlan plan = tile_plan(mlp ? &a.dens : nullptr,
-                                  full ? &a.col : nullptr, a.ldx, C, tang);
-  TileMem m = tile_carve(smem, plan, mlp ? &a.dens : nullptr,
-                         full ? &a.col : nullptr, 0, a.ldx);
+  const TilePlan plan = tile_plan(a.dens, full ? &a.col : nullptr, a.ldx, C,
+                                  tang);
+  TileMem m = tile_carve(smem, plan, a.dens, full ? &a.col : nullptr, 0,
+                         a.ldx);
   tile_start(m);                       // weights load under the candidates
   float* sxyz = m.rest;                // TS * 4
   float* sdir = sxyz + TS * 4;         // TS * 4
@@ -110,14 +108,13 @@ __global__ void __launch_bounds__(TNT, KIND == DISTANCE ? 2 : 1)
   __syncthreads();
 
   {
-    // the kNN weight rows only where a blend reads them
-    constexpr int OUT = mlp ? PICK_ROWS : PICK_NONE;
+    // the kNN weight rows, which the blend reads
     const int s = tid / LPS, lane = tid % LPS;   // TNT / LPS == TS
     const float x0 = sxyz[s * 4], x1 = sxyz[s * 4 + 1], x2 = sxyz[s * 4 + 2];
     const Picks po{sW + s * C, nullptr, nullptr, nullptr};
     Interp r;
-    interp_any<OUT>(geo.of<L2>(s), C, x0, x1, x2, a.w1, a.k, tang, lane, po,
-                    r);
+    interp_any<PICK_ROWS>(geo.of<L2>(s), C, x0, x1, x2, a.w1, a.k, tang,
+                          lane, po, r);
     if (lane == 0) {
       sds[s] = r.ds;
       sdh[s * 4] = r.dh0;
@@ -131,10 +128,6 @@ __global__ void __launch_bounds__(TNT, KIND == DISTANCE ? 2 : 1)
   const BlockRow own = rows.at(tid < TS ? tid : 0);
   const bool wr = tid < TS && own.live;
   const size_t o = own.flat;
-  if constexpr (!mlp) {
-    if (wr) a.out[o] = sds[tid];
-    return;
-  }
 
   blend_tile(a.feat, sctx, a.feat_bf16, a.F, full ? a.F : a.gd, sW, C, sidx,
              scnt, sFB);
@@ -161,7 +154,6 @@ inline void (*pick_l2(bool l2))(FieldArgs) {
             : field_fused_kernel<KIND, F32, false>;
 }
 inline void (*pick_field_kernel(int kind, bool f32, bool l2))(FieldArgs) {
-  if (kind == DISTANCE) return pick_l2<DISTANCE, false>(l2);
   if (kind == DENSITY)
     return f32 ? pick_l2<DENSITY, true>(l2) : pick_l2<DENSITY, false>(l2);
   return f32 ? pick_l2<DENSITY_NABLA, true>(l2)
@@ -182,17 +174,14 @@ int nm_field_fused(const nm::FieldArgs* a_in, void* stream) {
   const nm::FieldArgs* a = &k;
   k.nst = nm::field_staged(k);
   const long long nblk = nm::tile_blocks(a->B, a->S);
-  if (!nm::rows_ok(a->B, a->S) || a->k < 1 || (a->ldx & 3) || a->ldx < 4)
-    return (int)cudaErrorInvalidValue;
-  if (a->mode != nm::DISTANCE &&
-      (!nm::tile_mlp_ok(a->dens, a->ldx) ||
-       (a->mode == nm::FULL && !nm::tile_mlp_ok(a->col, a->ldx))))
+  if (!nm::rows_ok(a->B, a->S) || a->k < 1 || a->mode < nm::DENSITY ||
+      a->mode > nm::FULL || !nm::tile_mlp_ok(a->dens, a->ldx) ||
+      (a->mode == nm::FULL && !nm::tile_mlp_ok(a->col, a->ldx)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = nm::field_smem(k, k.nst);
   if (smem > nm::SMEM_MAX) return (int)cudaErrorInvalidValue;
-  const bool f32 = a->mode != nm::DISTANCE &&
-                   (nm::has_f32(a->dens) ||
-                    (a->mode == nm::FULL && nm::has_f32(a->col)));
+  const bool f32 = nm::has_f32(a->dens) ||
+                   (a->mode == nm::FULL && nm::has_f32(a->col));
   const int kind = a->mode == nm::FULL ? nm::DENSITY_NABLA : a->mode;
   auto kernel = nm::pick_field_kernel(kind, f32, k.nst == 0);
   cudaError_t e = cudaFuncSetAttribute(

@@ -38,7 +38,7 @@ namespace nm {
 // Shared memory of a block staging nst contexts.
 __host__ __device__ inline size_t secant_smem(const SecantArgs& a, int nst) {
   const size_t TS_ = TS;
-  return tile_plan_bytes(tile_plan(&a.f.dens, nullptr, a.f.ldx, a.f.C,
+  return tile_plan_bytes(tile_plan(a.f.dens, nullptr, a.f.ldx, a.f.C,
                                    false)) +
          sizeof(float) * (ray_tile_floats(a.f, nst) + 2 * TS_ +
                           5 * TS_ * KSEL) +
@@ -63,8 +63,8 @@ __global__ void __launch_bounds__(TNT, 1)
   const TileRows rows{f.B, f.T, (int)blockIdx.x};
   const int tid = threadIdx.x;
   const int C = f.C, k = f.k;
-  TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, C, false),
-                         &f.dens, nullptr, 1, f.ldx);
+  TileMem m = tile_carve(smem, tile_plan(f.dens, nullptr, f.ldx, C, false),
+                         f.dens, nullptr, 1, f.ldx);
   tile_start(m);
   const RayTile t = ray_tile_load<L2>(f, m, rows);
   float* sdev = t.end;                 // TS

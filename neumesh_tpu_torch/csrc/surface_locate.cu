@@ -40,7 +40,7 @@ namespace nm {
 
 // Shared memory of a block staging nst contexts.
 __host__ __device__ inline size_t locate_smem(const LocateArgs& a, int nst) {
-  return tile_plan_bytes(tile_plan(&a.f.dens, nullptr, a.f.ldx, a.f.C,
+  return tile_plan_bytes(tile_plan(a.f.dens, nullptr, a.f.ldx, a.f.C,
                                    false)) +
          sizeof(float) * ray_tile_floats(a.f, nst);
 }
@@ -61,8 +61,8 @@ __global__ void __launch_bounds__(TNT, 1)
   // one 1-D grid over the ray blocks (TileRows): any number of contexts
   const TileRows rows{f.B, f.T, (int)blockIdx.x};
   const int tid = threadIdx.x;
-  TileMem m = tile_carve(smem, tile_plan(&f.dens, nullptr, f.ldx, f.C, false),
-                         &f.dens, nullptr, 1, f.ldx);
+  TileMem m = tile_carve(smem, tile_plan(f.dens, nullptr, f.ldx, f.C, false),
+                         f.dens, nullptr, 1, f.ldx);
   tile_start(m);                       // weights load under the scan
   const RayTile t = ray_tile_load<L2>(f, m, rows);
   const bool owner = tid < TS;

@@ -29,17 +29,30 @@ KS = 64             # K rows per staged weight slice (csrc KS)
 KSF = 16            # K rows per staged slice of an f32 layer (csrc KSF)
 NPAD = 256          # packed layers' output width, the widest hidden layer
                     # (csrc NPAD)
+# field_distance.cu's block plan (csrc DT, DT_L2, K1_LANES, DL, SPT_K1,
+# SPT_LIST, LIST_C, DIST_SMEM), mirrored by
+# ops/kernels.py::distance_block_plan
+DT = 128            # threads a distance block
+DT_L2 = 32          # ... reading its contexts from L2 at k > 1
+DIST_K1_LANES = 8   # threads a sample reading from L2 at k = 1
+DL = 8              # the sorted list of the 2 <= k <= DL scan
+DIST_SPT = 8        # samples a thread at most, k = 1
+DIST_SPT_LIST = 2   # and with the list
+LIST_C = 128        # candidates of the list scan, at most
+DIST_SMEM = 64 * 1024   # staged contexts of a block, at most
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "neumesh_tpu_torch")
 SOURCES = {"field_fused": "field_fused.cu",
+           "field_distance": "field_distance.cu",
            "secant_refine": "secant_refine.cu",
            "surface_locate": "surface_locate.cu",
            "candidate_field": "candidate_field.cu"}
 # kernel -> (library built from SOURCES, C entry point)
 ENTRY = {"field_fused": ("field_fused", "nm_field_fused"),
+         "field_distance": ("field_distance", "nm_field_distance"),
          "secant_refine": ("secant_refine", "nm_secant_refine"),
          "surface_locate": ("surface_locate", "nm_surface_locate"),
          "candidate_field_v3": ("candidate_field", "nm_candidate_field_v3"),

@@ -2,7 +2,8 @@
 versions.
 
   field_fused         <- neumesh_tpu/ops/pallas_kernels.py::_field_kernel
-                         (csrc/field_fused.cu)
+                         (csrc/field_fused.cu; want="distance":
+                         csrc/field_distance.cu)
   secant_refine       <- ::_secant_kernel (csrc/secant_refine.cu)
   surface_locate      <- ::_locate_kernel (csrc/surface_locate.cu)
   candidate_field_v3  <- ::_v3_kernel (csrc/candidate_field.cu)
@@ -337,7 +338,8 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
         args.dens = dens_d
     if col_d is not None:
         args.col = col_d
-    _build.launch("field_fused", args, xyz)
+    _build.launch("field_distance" if want == "distance" else "field_fused",
+                  args, xyz)
     LAUNCHES["field_fused"][want] += 1
     return list(out)
 
@@ -989,6 +991,48 @@ def block_plan(B: int, R: int):
         ctx, row = g // R, g % R
     ctx = torch.where(live, ctx, ctx[:, :1])
     return ctx, torch.where(live, row, 0), live
+
+
+def distance_block_plan(B: int, S: int, C: int, k: int):
+    """field_fused(want="distance")'s blocks (csrc/field_distance.cu
+    DistPlan and the kernel's rows) for B contexts of S samples, C
+    candidates and k: (ctx, row, live, staged), the first three (blocks,
+    spt * rows) tensors, slot j * rows + q of block i (sample slot q's j-th
+    sample) computing row row[i, slot] of context ctx[i, slot] where live;
+    staged: the contexts in shared memory, rows = 128 (a thread a sample),
+    else read from L2, rows = 16 at k = 1 (8 threads a sample), 32 (a
+    thread a sample) at k > 1. S >= 128: one context a block, spt samples
+    a slot `rows` rows apart (staged: k = 1 up to 8, the list scan, 2 <= k
+    <= 8 and C <= 128, up to 2; else 1), ceil(S / (spt * rows)) blocks a
+    context; fewer: the flattened (context, row) order cut into blocks of
+    `rows`. A ragged slot takes the context of its block's first row, row
+    0, and is not live."""
+    from ._build import (DIST_K1_LANES, DIST_SMEM, DIST_SPT, DIST_SPT_LIST,
+                         DL, DT, DT_L2, LIST_C)
+
+    one = S >= DT
+    nctx = 1 if one else min(B, 1 + (DT - 1 + S - 1) // S)
+    cp = -(-C // 32) * 32
+    staged = (nctx * 32 + 4) * cp <= DIST_SMEM
+    rows = DT if staged else DT // DIST_K1_LANES if k == 1 else DT_L2
+    most = (1 if not staged else DIST_SPT if k == 1
+            else DIST_SPT_LIST if k <= DL and C <= LIST_C else 1)
+    spt = 1
+    while spt * 2 <= most and S >= spt * 2 * DT:
+        spt *= 2
+    slot = torch.arange(spt * rows)
+    if one:
+        per = -(-S // (spt * rows))
+        blk = torch.arange(B * per)[:, None]
+        ctx = (blk // per).expand(-1, spt * rows)
+        row = blk % per * (spt * rows) + slot
+        live = row < S
+    else:
+        g = torch.arange(-(-B * S // rows))[:, None] * rows + slot
+        live = g < B * S
+        ctx, row = g // S, g % S
+    ctx = torch.where(live, ctx, ctx[:, :1])
+    return ctx, torch.where(live, row, 0), live, staged
 
 
 def _ray_field(name, rays_o, rays_d, geo, feat, w1, dens_ws, out, k,

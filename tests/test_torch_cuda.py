@@ -70,6 +70,16 @@ PER_RAY_SECANT_CASES = ([(T, rb, fr, dt, ()) for T in (1, 16, 37, 63)
                          for dt in (None, "bf16")]
                         + [(T, True, fr, "bf16", SEL_F32) for T in (1, 37)
                            for fr in (False, True)])
+# field_fused(want="distance") on the card (csrc/field_distance.cu): k = 1
+# (the serving scan), 2 and 8 (the register list), 16 (masked-min scans);
+# C = 8 (below k = 16), 96, 128, 200; S = 1, 16, 63 (several contexts a
+# block, S = 1 read from L2), 64, 65 (two or three contexts a block), 2048
+# (one context a block, several samples a thread)
+DIST_CASES = [(k, C, S) for k in (1, 2, 8, 16) for C in (8, 96, 128, 200)
+              for S in (1, 16, 63, 64, 65, 2048)]
+# the distance kernel at the edges: (k, distance_context kind)
+DIST_EDGE_CASES = [(k, kind) for k in (1, 2, 8, 16)
+                   for kind in ("ties", "pads")]
 # (want_dh, want_feat, k) of candidate_field_v3 / candidate_field
 CAND_CASES = [(True, True, 8), (False, True, 8), (True, False, 8),
               (False, False, 8), (True, True, 1)]
@@ -311,6 +321,74 @@ def tie_contexts(seed=7, R=3, S=6, C=40, F=8):
     c["pp"] = np.sum(c["pts"] * c["pts"], -1)
     c["vn"] = np.sum(c["pts"] * c["ind"], -1)
     return c
+
+
+def distance_context(kind, seed=0, B=5, S=40, C=48):
+    """random_context samples and contexts with the distance scan's edge
+    cases built in (B >= 3, C >= 24):
+     - "ties": candidates 3 and 17 of every context one vertex, (0.5, 0,
+       0), candidates 5 and 6 one vertex, and samples 0 and 1 on the first
+       (d2 = 0 twice, every product exact: the tie-broken values tie at 0);
+     - "pads": the last 4 candidates of every context pad columns
+       (position 0, indicator 0, pp = 1e12, vn = 0), the 2 before them 1e9
+       sentinel vertices (zero indicator), and context 0 with 3 live
+       candidates only (fewer than k).
+    Returns random_context's dict and `held`, the (B, S) samples whose
+    k-th and k+1-th tie-broken distances (float64) are well apart for
+    every k of DIST_EDGE_CASES, or that sit on a vertex: their selection
+    is the same in any order of the d2 chain's operations (the card's
+    kernel and plain version run the same order: every sample holds)."""
+    inp = random_context(seed=seed, B=B, S=S, C=C)
+    geo, xyz = inp["geo"], inp["xyz"]
+    if kind == "ties":
+        for j in (3, 17):
+            geo[:, 0:3, j] = (0.5, 0.0, 0.0)
+        geo[:, 0:3, 6] = geo[:, 0:3, 5]
+        xyz[:, 0:2] = (0.5, 0.0, 0.0)
+        exact = np.zeros(xyz.shape[:2], bool)
+        exact[:, 0:2] = True
+    else:
+        pad = np.zeros(C, bool)
+        pad[C - 4:] = True
+        pad = np.broadcast_to(pad, (B, C)).copy()
+        pad[0, 3:] = True
+        geo[:, 0:6][:, :, C - 6:C - 4] = 0.0
+        geo[:, 0:3, C - 6:C - 4] = 1e9
+        geo[:, 0:6].transpose(0, 2, 1)[pad] = 0.0
+        exact = np.zeros(xyz.shape[:2], bool)
+    f32 = np.float32
+    p, n = geo[:, 0:3], geo[:, 3:6]
+    geo[:, 6] = np.sum(p * p, 1, dtype=f32)
+    geo[:, 7] = np.sum(p * n, 1, dtype=f32)
+    if kind == "pads":
+        geo[:, 6][pad] = 1e12
+        geo[:, 7][pad] = 0.0
+    x = xyz.astype(np.float64)
+    pt = geo[:, 0:3].astype(np.float64).transpose(0, 2, 1)
+    d2 = (np.sum(x * x, -1)[..., None] + geo[:, 6][:, None].astype(np.float64)
+          - 2.0 * np.einsum("bsi,bci->bsc", x, pt))
+    tb = np.sort(np.maximum(d2, 0.0) * (1.0 + np.arange(C) * 2e-7), -1)
+    gap = np.diff(tb, axis=-1) > 1e-6
+    held = exact | np.all([gap[..., k - 1] for k in (1, 2, 8, 16)
+                           if k < C], 0)
+    return dict(inp, held=held)
+
+
+def torch_distance(inp, k, device="cpu", plain=False):
+    """field_fused(want="distance") (or its plain version) -> (B, S)
+    numpy."""
+    fn = kernels.field_fused_plain if plain else kernels.field_fused
+    B, C = inp["geo"].shape[0], inp["geo"].shape[2]
+    return fn(torch.from_numpy(inp["xyz"]).to(device),
+              torch.from_numpy(inp["geo"]).to(device),
+              torch.zeros((B, C, 1), device=device), inp["w1"], k=k,
+              want="distance")[0].cpu().numpy()
+
+
+def assert_distance_close(got, want, held):
+    """2e-5 + 1e-4 rel on the held samples, finite everywhere."""
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got[held], want[held], atol=2e-5, rtol=1e-4)
 
 
 def pack_geo(c):
@@ -673,6 +751,50 @@ def test_field_fused_kernel_matches_plain_on_card(want, k, dtype, tags, ctx):
     ref = [o.cpu().numpy() for o in
            torch_field(inp, want, k, dtype, tags, device="cuda", plain=True)]
     assert_field_close(got, ref, mask, want, dtype)
+
+
+def _launched_libraries(monkeypatch):
+    """The names _build.launch is called with, in order."""
+    from neumesh_tpu_torch.ops import _build
+    names, launch = [], _build.launch
+
+    def record(name, args, operand):
+        names.append(name)
+        launch(name, args, operand)
+    monkeypatch.setattr(_build, "launch", record)
+    return names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,C,S", DIST_CASES)
+def test_field_distance_kernel_matches_plain_on_card(k, C, S, monkeypatch):
+    """The distance kernel (field_distance.cu, not the tile kernel) against
+    the plain version at B = 7 contexts (with S = 63 / 65 no block
+    boundary meets a context's), every sample within 2e-5 + 1e-4 rel."""
+    _need_card()
+    inp = random_context(seed=50 + k + C + S, B=7, S=S, C=C)
+    names = _launched_libraries(monkeypatch)
+    kernels.reset_launch_counts()
+    got = torch_distance(inp, k, "cuda")
+    assert names == ["field_distance"]
+    assert kernels.LAUNCHES["field_fused"]["distance"] == 1
+    want = torch_distance(inp, k, "cuda", plain=True)
+    assert_distance_close(got, want, np.ones(got.shape, bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,kind", DIST_EDGE_CASES)
+@pytest.mark.parametrize("S", [16, 300])
+def test_field_distance_kernel_at_ties_and_pads_on_card(k, kind, S):
+    """distance_context's exact ties (duplicate vertices, samples on a
+    vertex: every candidate at the least tie-broken value counts), pad
+    columns, 1e9 sentinels and a context with fewer live candidates than
+    k, at several contexts a block (S = 16) and one (S = 300)."""
+    _need_card()
+    inp = distance_context(kind, seed=60 + k, B=9, S=S, C=96)
+    got = torch_distance(inp, k, "cuda")
+    want = torch_distance(inp, k, "cuda", plain=True)
+    assert_distance_close(got, want, np.ones(got.shape, bool))
 
 
 @pytest.mark.cuda

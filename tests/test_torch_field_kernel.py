@@ -11,9 +11,10 @@ import torch
 
 from neumesh_tpu.ops.pallas_kernels import field_fused as jax_field
 from neumesh_tpu_torch.ops import kernels
-from test_torch_cuda import (FIELD_CASES, WIDE, assert_field_close, kept_f32,
+from test_torch_cuda import (FIELD_CASES, WIDE, assert_distance_close,
+                             assert_field_close, distance_context, kept_f32,
                              low_precision_mask, no_tie_mask, random_context,
-                             torch_field)
+                             torch_distance, torch_field)
 
 
 def _jax_field(inp, want, k, dtype, tags):
@@ -46,6 +47,64 @@ def test_field_fused_plain_matches_pallas(want, k, dtype, tags):
                                     "density_nabla": 4, "full": 7}[want]
     assert all(g.shape == (3, 75) for g in got)
     assert_field_close(got, ref, mask, want, dtype)
+
+
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("kind", ["ties", "pads"])
+def test_field_distance_plain_matches_pallas_at_ties_and_pads(kind, k):
+    """want="distance" at the scan's edges (distance_context): duplicate
+    vertices with samples on one (exact ties at d2 = 0: k = 1 sums every
+    tied candidate, k = 8 takes both as one distinct value), pad columns
+    (pp = 1e12), 1e9 sentinels and a context with 3 live candidates (k =
+    8 picks pads): the port's plain version against the JAX kernel in
+    interpret mode, 2e-5 + 1e-4 rel on the held samples (with every
+    sample on a vertex)."""
+    inp = distance_context(kind, seed=70 + k)
+    held = inp["held"]
+    assert held.mean() > 0.8 and (kind == "pads" or held[:, :2].all())
+    got = torch_distance(inp, k)
+    ref = _jax_field(inp, "distance", k, None, ())[0]
+    assert got.shape == ref.shape == (5, 40)
+    assert_distance_close(got, ref, held)
+    if kind == "pads" and k == 8:
+        # context 0 holds 3 live candidates: its samples lean on the pads
+        assert np.abs(got[0]).min() > 100.0 * np.abs(got[1:]).max()
+
+
+@pytest.mark.parametrize("k", [1, 8, 16])
+def test_distance_block_plan_covers_every_sample_once(k):
+    """kernels.distance_block_plan (field_distance.cu's blocks) over a
+    sweep of B, S and C: every (context, row) computed by exactly one live
+    slot; a block spans at most its planned contexts; one context a block
+    from 128 samples a context; 128 samples a staged block; from L2, 16
+    (8 threads each) at k = 1, else 32."""
+    from neumesh_tpu_torch.ops._build import DIST_SMEM, DT, DT_L2
+    for B in (1, 2, 7, 509):
+        for S in (1, 2, 16, 37, 63, 64, 65, 127, 128, 129, 300, 511, 512,
+                  513, 1024, 2048, 2049):
+            for C in (8, 96, 4000):
+                ctx, row, live, staged = kernels.distance_block_plan(
+                    B, S, C, k)
+                flat = (ctx * S + row)[live]
+                assert torch.equal(torch.sort(flat).values,
+                                   torch.arange(B * S)), (B, S, C)
+                assert bool((row[live] < S).all())
+                span = ctx.max(1).values - ctx.min(1).values + 1
+                if S >= DT:
+                    assert bool((span == 1).all())
+                else:
+                    assert int(span.max()) <= 1 + (DT - 1 + S - 1) // S
+                # staged: the contexts a block spans fit its shared memory
+                # (C padded to whole 32-candidate words)
+                cp = -(-C // 32) * 32
+                fits = (int(span.max()) * 32 + 4) * cp <= DIST_SMEM
+                assert fits if staged else not (S >= DT and fits)
+                rows = DT if staged else DT // 8 if k == 1 else DT_L2
+                assert ctx.shape[1] % rows == 0
+    # the render CLI's shapes: S = 1 reads its contexts from L2, S = 16 and
+    # one context a block stage them
+    assert [kernels.distance_block_plan(4096, S, 96, k)[3]
+            for S in (1, 16, 128)] == [False, True, True]
 
 
 def unpack_planes(packed, kp, P, rows):
