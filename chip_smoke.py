@@ -32,6 +32,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     csrc/field_distance.cu) also timed and held at k = 8 on the serving
     scan's inputs and at the per-ray shapes made from them (4,096 contexts
     of 96 candidates, S = 1, 16, 128), beside its instruction floor.
+    Then the stage split (kernels.stage_split, the tile kernels' timing
+    instantiation, launched nowhere else but ab_field_kernels.py): the
+    share of a block's cycles and the microseconds a tile of each stage
+    (SPLIT_ROWS: the serving structure's bf16 field_fused calls in every
+    mode, its secant, the f32 density), each share finite and every
+    row's shares summing to 1.
  4. 64x64 crops of every structure rendered through the kernels and
     through the plain versions, PSNR of rgb (and of the surface normals)
     between them; frame time, Mrays/s, peak memory and traced idle share
@@ -154,8 +160,9 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
 Prints the card line, one {"cli": {...}} line, one {"training": {...}}
 line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
 {"parallel": {...}} line, one {"host_geometry": {...}} line, one
-{"kernels": [...]} line (each row with its design, "wgmma", "simt" or
-"thread_scan" (the distance row, with its instruction floor floor_ms and
+{"kernels": [...]} line (each row with its design, "ws_wgmma" (the
+warp-specialised persistent tile kernels: field_fused's MLP modes and
+secant_refine), "wgmma", "simt" or "thread_scan" (the distance row, with its instruction floor floor_ms and
 timed_shapes: the serving scan at k = 1 and 8, the swap's scan, the
 per-ray shapes), bound_ms at the tensor-core rates beside
 bound_cuda_core_ms, the bound
@@ -208,8 +215,24 @@ WGMMA_ROWS = {("field_fused", m) for m in ("density", "density_nabla",
     {("surface_locate", m) for m in ("bf16", "f32")}
 FD = ("field_fused", "distance")
 # a row's design beside WGMMA_ROWS: the distance mode's own kernel, a thread
-# a sample scanning shared-memory candidates (csrc/field_distance.cu)
-ROW_DESIGN = {FD: "thread_scan"}
+# a sample scanning shared-memory candidates (csrc/field_distance.cu); the
+# warp-specialised persistent tile kernels (a producer warpgroup feeding
+# the weight ring, field_common.cuh), field_fused's MLP modes and the
+# secant
+ROW_DESIGN = {FD: "thread_scan",
+              **{km: "ws_wgmma" for km in WGMMA_ROWS
+                 if km[0] != "surface_locate"},
+              # their f32 builds keep the serial wgmma block (csrc
+              # secant_ws)
+              **{km: "ws_wgmma (f32: wgmma)" for km in (
+                  ("secant_refine", "plain"),
+                  ("secant_refine", "rebracket"))}}
+# the stage split's rows: (kernel, mode, kernel_variants' variant)
+SPLIT_ROWS = (("field_fused", "density", "serving_bf16:bf16"),
+              ("field_fused", "density_nabla", "serving_bf16:bf16"),
+              ("field_fused", "full", "serving_bf16:bf16"),
+              ("secant_refine", "rebracket", "serving_bf16:bf16"),
+              ("field_fused", "density", "serving_bf16:f32"))
 SOURCES = {
     "field_fused": ("neumesh_tpu_torch/csrc/field_fused.cu",
                     "neumesh_tpu/ops/pallas_kernels.py:645"),
@@ -632,8 +655,14 @@ def build_kernels():
         counts = hgmma_counts(_build._lib_path(name))
         hg = ("no cuobjdump in the toolkit" if counts is None else
               "HGMMA " + ", ".join(f"{fn}: {n}" for fn, n in counts.items()))
+        roles = ""
+        if name in _build.WS_KERNELS:
+            roles = ("; setmaxnreg: producer warpgroup "
+                     f"{_build.WS_REGS['producer']}, consumers "
+                     f"{_build.WS_REGS['consumer']} registers a thread "
+                     "(ptxas counts the launch's 96)")
         log(f"[build] {name}: {info['seconds']:.1f} s; " + " | ".join(lines)
-            + f"; {hg}")
+            + f"; {hg}{roles}")
     return secs, host_s
 
 
@@ -876,6 +905,34 @@ def time_kernels(timed, rows):
         row["timed_variant"] = var
         row["max_abs_err"] = next(c["max_abs_err"] for c in row["checks"]
                                   if c["variant"] == var)
+
+
+def run_stage_split(variants):
+    """{"kernel/mode variant": kernels.stage_split(...)} of SPLIT_ROWS on
+    their recorded inputs; each row's shares finite and summing to 1."""
+    from neumesh_tpu_torch.ops import kernels
+    out = {}
+    for name, mode, var, args, kw, *_ in variants:
+        tag = f"{name}/{mode} {var}"
+        if (name, mode, var) not in SPLIT_ROWS or tag in out:
+            continue
+        sp = kernels.stage_split(name, *args, **kw)
+        sp["smem"] = kernels.tile_smem_plan(name, *args, **kw)
+        total = sum(sp["share"].values())
+        if not (all(math.isfinite(v) for v in sp["share"].values())
+                and abs(total - 1.0) < 1e-6 and sp["us_per_tile"] > 0):
+            raise AssertionError(f"stage split of {tag}: {sp}")
+        out[tag] = sp
+        log(f"[split] {tag}: {sp['us_per_tile']:.2f} us a tile, "
+            f"{sp['tiles']} tiles on {sp['blocks']} blocks; "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sp["share"].items()))
+        log(f"[build] {tag}: {sp['smem']['bytes']} B of shared memory a "
+            f"block, a ring of {sp['smem']['ring']} slots, "
+            f"{sp['smem']['staged']} staged contexts (the timing "
+            "instantiation adds its stage sums)")
+    if len(out) != len(SPLIT_ROWS):
+        raise AssertionError(f"stage split: rows {sorted(out)}")
+    return out
 
 
 def distance_floor_ms(args):
@@ -3218,6 +3275,7 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
     variants, timed = kernel_variants(rec, models)
     rows = check_kernels(variants)
     time_kernels(timed, rows)
+    split = run_stage_split(variants)
     rows[FD]["floor_ms"] = distance_floor_ms(rec["serving_bf16"][FD][0])
     rows[FD]["timed_shapes"] = distance_shapes(*rec["serving_bf16"][FD])
     del rec, variants, timed
@@ -3256,7 +3314,7 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
         log(f"[frame] {st}: {ms:.2f} ms, {H * H / ms / 1e3:.4f} Mrays/s, "
             f"idle share {frame[st]['profile']['idle_share']}")
     print(json.dumps({"frame": frame, "crop_psnr_db": psnr,
-                      "build_s": build_s,
+                      "stage_split": split, "build_s": build_s,
                       "total_s": time.perf_counter() - t_start,
                       "card": card}))
 
@@ -3357,8 +3415,9 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
             "bound_by": row["bound_by"],
             "bound_cuda_core_ms": row["bound_cuda_core_ms"],
             "library_ms": None,
-            "design": ("wgmma" if (kname, mode) in WGMMA_ROWS
-                       else ROW_DESIGN.get((kname, mode), "simt")),
+            "design": ROW_DESIGN.get((kname, mode),
+                                     "wgmma" if (kname, mode) in WGMMA_ROWS
+                                     else "simt"),
             "card": card, "shapes": row["shapes"],
             "timed_variant": row["timed_variant"], "checks": row["checks"],
             **extra})

@@ -13,7 +13,9 @@ tests/test_torch_cuda.py::random_context at W = 256, geometry/colour dims
 S = 1024 samples a tile for density / density_nabla, 512 for full, and
 secant_refine in its four options (plain, re-bracket, frozen, frozen with
 the re-bracket) on 65,536 rays (3 iterations); weights in f32 and in bf16
-(test_torch_cuda.low_precision_mask). field_fused distance at S = 2048
+(test_torch_cuda.low_precision_mask), field_fused also in bf16 with the
+selective-f32 layers d0, dh, c0, ch ("bf16_sel", the surface
+structures' weights). field_fused distance at S = 2048
 samples a tile: k = 1 (the serving scan) and k = 8 on 512 tiles, k = 8 on
 32 contexts of 16,384 samples (the shape of the editing swap's surface
 scan; the same samples regrouped), and the
@@ -37,8 +39,17 @@ time alone (chip_smoke.graph_ms: 20 calls in a CUDA graph; around a call
 shorter than its host launch, the events time the launch), and for the
 tile-shaped field_fused rows under "bound" [ms, what bounds it]
 (chip_smoke.kernel_bound; the distance rows add the instruction floor,
-chip_smoke.distance_floor_ms). --only keeps the rows whose name holds
-SUBSTRING.
+chip_smoke.distance_floor_ms), the secant rows' too, and under
+"bound_cuda_core" each of those rows' bound with every f32 flop at the
+CUDA-core rate (chip_smoke.cuda_core_bound). --only keeps the rows whose name holds
+SUBSTRING (or one of several, comma-separated).
+
+    python3 neumesh_tpu_torch/ab_field_kernels.py --split ROOT [ROOT ...]
+
+times where a tile block's time goes instead (ops/kernels.py::stage_split,
+the kernels' timing instantiation) in the rows of SPLIT_ROWS: one JSON line
+a root with each row's stage shares, cycles and microseconds a tile; a
+root whose package has no stage_split prints its rows as null.
 
 A measurement script, not part of the package: no module of the port
 imports it. It sits in the port's tree so that the same-card A/B numbers
@@ -53,16 +64,22 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WIDE = dict(W=256, gd=32, cd=32, md=8, mfg=2, mft=2, mv=4)
+# the rows whose block time --split breaks down
+SPLIT_ROWS = ("field_fused/density/bf16", "field_fused/density_nabla/bf16",
+              "field_fused/full/bf16", "secant_refine/rebracket/bf16",
+              "field_fused/density/f32", "field_fused/density_nabla/f32",
+              "field_fused/full/f32", "field_fused/full/bf16_sel",
+              "secant_refine/rebracket/f32", "secant_refine/plain/f32")
 
 
-def measure(root: str, only: str = "") -> dict:
+def measure(root: str, only: str = "", split: bool = False) -> dict:
     # the measured package from root; the test helpers and the timer from
     # this checkout (behind root, which may hold a chip_smoke of its own)
     sys.path[:0] = [root, os.path.join(HERE, "tests"), HERE]
     import torch
     import test_torch_cuda as tc
-    from chip_smoke import (card_line, cuda_ms, distance_floor_ms,
-                            graph_ms, kernel_bound)
+    from chip_smoke import (card_line, cuda_core_bound, cuda_ms,
+                            distance_floor_ms, graph_ms, kernel_bound)
     from neumesh_tpu_torch.ops import kernels
 
     inp = tc.random_context(seed=1, B=512, S=1024, C=128, **WIDE)
@@ -71,8 +88,8 @@ def measure(root: str, only: str = "") -> dict:
     def t(a):
         return torch.from_numpy(a).cuda()
 
-    def weights(lst, n_first, dtype):
-        low = tc.low_precision_mask(lst, dtype, (), n_first)
+    def weights(lst, n_first, dtype, keep=()):
+        low = tc.low_precision_mask(lst, dtype, keep, n_first)
         return [t(w).to(torch.bfloat16) if lo else t(w)
                 for w, lo in zip(lst, low)]
 
@@ -86,16 +103,26 @@ def measure(root: str, only: str = "") -> dict:
     lgeo, lfeat = t(loc["geo"]), t(loc["feat"][..., :32])
     rc = tc.ray_contexts(seed=4, R=4096, S=64, C=96, F=64)
     v2 = [t(rc[n]) for n in ("xyz", "pts", "pp", "ind", "vn", "feat")]
-    out, fastest, device, bound = {}, {}, {}, {}
+    out, fastest, device, bound, stages = {}, {}, {}, {}, {}
+    bound_cc = {}
 
-    def timed(name, fn, field=None):
-        """field: (args, kw) of a field_fused call, for its bound."""
-        if only not in name:
+    def timed(name, fn, field=None, call=None):
+        """field: (args, kw) of a field_fused call, for its bound; call:
+        (kernel, args, kw) for --split."""
+        if split:
+            if name in SPLIT_ROWS:
+                kname, a, kw = call or ("field_fused", *field)
+                stages[name] = (kernels.stage_split(kname, *a, **kw)
+                                if hasattr(kernels, "stage_split") else None)
+            return
+        if not any(o in name for o in only.split(",")):
             return
         ms = sorted(cuda_ms(fn, reps=10) for _ in range(3))
         out[name], fastest[name] = ms[1], ms[0]
-        if field is not None:
-            bound[name] = kernel_bound("field_fused", *field)
+        kb = ("field_fused", *field) if field is not None else call
+        if kb is not None:
+            bound[name] = kernel_bound(*kb)
+            bound_cc[name] = cuda_core_bound(*kb)
         if "distance" in name:
             device[name] = graph_ms(fn)
             bound[name] += (distance_floor_ms(field[0]),)
@@ -103,9 +130,15 @@ def measure(root: str, only: str = "") -> dict:
     def field_call(*a, **kw):
         return (lambda: kernels.field_fused(*a, **kw)), (a, kw)
 
-    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16")):
+    sel = tc.SEL_F32
+    for dtype, tag in ((None, "f32"), (torch.bfloat16, "bf16"),
+                       (torch.bfloat16, "bf16_sel")):
         low = None if dtype is None else "bf16"
-        dws, cws = weights(inp["dws"], 2, low), weights(inp["cws"], 1, low)
+        keep = tag == "bf16_sel"
+        dws = weights(inp["dws"], 2, low, tc.kept_f32(
+            sel, (0, 1), len(inp["dws"]) - 2) if keep else ())
+        cws = weights(inp["cws"], 1, low, tc.kept_f32(
+            sel, (0,), len(inp["cws"]) - 2) if keep else ())
         for want, S in (("density", 1024), ("density_nabla", 1024),
                         ("full", 512)):
             F = 64 if want == "full" else 32
@@ -114,16 +147,19 @@ def measure(root: str, only: str = "") -> dict:
             timed(f"field_fused/{want}/{tag}", *field_call(
                 x, geo, fe, inp["w1"], dws, cws if want == "full" else None,
                 d, want=want, dtype=dtype, **inp["kw"]))
+        if keep:
+            continue
         gfeat = feat[..., :32].contiguous()
         for rb in (True, False):
             for fr in (False, True):
                 wk = (dict(d_low_w=t(br["d_low_w"]),
                            d_high_w=t(br["d_high_w"])) if rb else {})
+                sa = (*rays, geo, gfeat, inp["w1"], dws)
+                skw = dict(n_iters=3, multires_d=8, multires_fg=2,
+                           geometry_dim=32, dtype=dtype, frozen_knn=fr, **wk)
                 timed(f"secant_refine/{kernels.secant_mode(rb, fr)}/{tag}",
-                    lambda: kernels.secant_refine(
-                        *rays, geo, gfeat, inp["w1"], dws, n_iters=3,
-                        multires_d=8, multires_fg=2, geometry_dim=32,
-                        dtype=dtype, frozen_knn=fr, **wk))
+                      lambda: kernels.secant_refine(*sa, **skw),
+                      call=("secant_refine", sa, skw))
         lws = weights(loc["dws"], 2, low)
         timed(f"surface_locate/{tag}",
             lambda: kernels.surface_locate(
@@ -175,8 +211,10 @@ def measure(root: str, only: str = "") -> dict:
             timed(f"candidate_field/{mode}",
                 lambda: kernels.candidate_field(
                     *v2, inp["w1"], k=8, want_dh=dh, want_feat=ft))
+    if split:
+        return {"root": root, "card": card_line(), "split": stages}
     return {"root": root, "card": card_line(), "ms": out, "min": fastest,
-            "device": device, "bound": bound}
+            "device": device, "bound": bound, "bound_cuda_core": bound_cc}
 
 
 def main() -> int:
@@ -184,7 +222,18 @@ def main() -> int:
         print(json.dumps(measure(os.path.abspath(sys.argv[2]),
                                  *sys.argv[3:])), flush=True)
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure-split":
+        print(json.dumps(measure(os.path.abspath(sys.argv[2]), split=True)),
+              flush=True)
+        return 0
     args = sys.argv[1:]
+    if args[:1] == ["--split"]:
+        for root in args[1:]:
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                 "--measure-split", root]).returncode
+            if rc:
+                return rc
+        return 0
     only = []
     if "--only" in args:
         i = args.index("--only")

@@ -35,10 +35,16 @@
 // at the bias; each warpgroup a 64 x 64 quarter of the 256-wide output;
 // the tangent of density_nabla/full a second accumulator off the same
 // staged slice). Its weights, packed by the wrapper as K-major 8 x 8 core
-// matrices, stream through a ring of two 64-row K slices (cp.async.bulk
-// completing on an mbarrier, one slice loading while the other multiplies;
-// the ring runs on across layers and evaluations and starts loading under
-// the candidate stage). A bf16 layer reads its activations as a bf16 tile
+// matrices, stream through a ring of 64-row K slices (cp.async.bulk
+// completing on a full mbarrier; the ring runs on across layers,
+// evaluations and tiles and starts loading under the candidate stage).
+// field_fused and secant_refine are warp-specialised (WS_THREADS; but
+// secant_refine's f32 instantiations without the frozen selection): a
+// producer warpgroup issues the copies into 2..RING_MAX slots, each slot
+// released by the consumer warps' arrivals on its empty mbarrier, and the
+// blocks are persistent (persistent_grid); surface_locate and those f32
+// secant instantiations keep two slots that every thread waits for,
+// thread 0 re-arming a slot after a block-wide barrier. A bf16 layer reads its activations as a bf16 tile
 // in the core-matrix layout from shared memory. An f32 layer (every layer
 // of the f32 models, selective-f32 d0/c0) is the TPU's precision="highest"
 // product: the weight comes as three bf16 planes (hi, mid, lo; hi + mid +
@@ -46,11 +52,14 @@
 // warpgroup splits its register fragment of the f32 activation rows the
 // same way at the A operand, six products hi.hi, mid.hi, lo.hi, hi.mid,
 // mid.mid, hi.lo (the terms of order 2^-24 and below dropped). Epilogue
-// in registers: softplus (beta 100) or ReLU, the tangent times softplus',
-// rounding to the next layer's dtype. The feature blend sums over each
+// in registers: softplus (beta 100) and softplus' from one exponential, or
+// ReLU, the tangent times softplus', rounding to the next layer's dtype
+// (the warp-specialised kernels take the hardware's approximate exp / log
+// / reciprocal where that dtype is bf16). The feature blend sums over each
 // row's listed kNN picks. On the CUDA cores, exact f32: the candidate
-// stage, the heads (N = 1, 3), the embeddings, the blend and the
-// epilogues; one block holds an SM (128 registers a thread, up to ~225 KB
+// stage, the heads (N = 1, 3), the embeddings, the blend and the f32
+// epilogues; one block holds an SM (128 registers a thread in a serial
+// block, 112 a consumer thread in a warp-specialised one; up to ~227 KB
 // of shared memory).
 //
 // Numerics follow the TPU kernels, not the XLA path:
@@ -86,6 +95,28 @@ constexpr int KSF = 16;          // K rows per staged slice of an f32 layer
                                  // (its three planes: 24 KB of a 32 KB slot)
 constexpr int NPAD = 256;        // packed layers' output width
 constexpr int RING = 2;          // staged weight slices in flight
+                                 // (surface_locate's ring)
+// A warp-specialised tile block (field_fused, secant_refine): the four
+// consumer warpgroups, then a producer warpgroup, one thread of which
+// issues the weight copies.
+constexpr int WS_THREADS = TNT + 128;
+// Registers a thread of each role after setmaxnreg. The block is launched
+// at 96 a thread (65,536 / 640 in steps of 8); setmaxnreg.inc takes only
+// what the block's own warps gave back with setmaxnreg.dec, so the
+// producer warpgroup's 128 x (96 - 24) pay for the consumers' 512 x (112 -
+// 96). (A lone producer warp would not do: registers are allocated four
+// warps at a time, so 17 warps cost what 20 do.)
+constexpr int LAUNCH_REGS = 96, PRODUCER_REGS = 24, CONSUMER_REGS = 112;
+static_assert((WS_THREADS - TNT) * (LAUNCH_REGS - PRODUCER_REGS) >=
+                  TNT * (CONSUMER_REGS - LAUNCH_REGS),
+              "the consumers' registers come from the producer's");
+static_assert(WS_THREADS * LAUNCH_REGS <= 65536, "the launch's registers");
+constexpr int RING_MAX = 8;      // its ring: as deep as the shared memory
+                                 // left beside the rest allows, 2..8 slots
+constexpr size_t SLOT_BYTES = (size_t)KS * NPAD * 2;  // a ring slot, 32 KB
+constexpr size_t SLOT_F32_BYTES = (size_t)3 * KSF * NPAD * 2;  // 24 KB: a
+                                 // ring slot where every hidden layer is
+                                 // f32 (three planes of KSF rows)
 constexpr int KL = 32;           // kNN picks listed per sample for the
                                  // feature blend
 constexpr int MAX_LAYERS = 8;    // ops/_build.py MAX_LAYERS
@@ -97,6 +128,29 @@ static_assert(TNT / LPS == TS, "a tile block's candidate pass takes TS");
 constexpr float HALF_PI = 1.57079637f;   // float32(pi / 2)
 
 enum Mode { DISTANCE = 0, DENSITY = 1, DENSITY_NABLA = 2, FULL = 3 };
+
+// Stages of a tile block, timed by the kernels' timing instantiation
+// (template argument PROF; launched with FieldArgs / SecantArgs::prof set,
+// by ops/kernels.py::stage_split alone). Each warpgroup's first thread
+// reads clock64 at every stage boundary and adds the cycles since its
+// previous reading to the stage that just ended; the record of (block,
+// warpgroup) holds the NSTAGE sums, the cycles from the block's start to
+// its end, the block's %globaltimer ns over the same span and the tiles it
+// took (STAGE_REC longs, mirrored by ops/_build.py STAGES).
+enum Stage {
+  ST_CTX = 0,   // the contexts, the samples' points and directions staged
+  ST_CAND,      // the candidate stage (kNN selection, weights, distance)
+  ST_BLEND,     // the feature blend
+  ST_EMB,       // an MLP's first-layer inputs (embeddings)
+  ST_COPY,      // waits for a weight slice to land
+  ST_MMA,       // wgmma issue to completion (the f32 split included)
+  ST_SYNC,      // the block-wide barrier after each slice
+  ST_EPI,       // the epilogues (activation, tangent, stores, the barrier)
+  ST_HEAD,      // the heads (N = 1, 3)
+  ST_OTHER,     // output stores, the secant's bracket steps
+  NSTAGE
+};
+constexpr int STAGE_REC = NSTAGE + 3;
 
 // ---- argument blocks (mirrored by ctypes structures in ops/_build.py)
 struct LayerDesc {
@@ -131,6 +185,8 @@ struct FieldArgs {
                       // by the C entry
   float w1;
   MLPDesc dens, col;
+  long long* prof;    // the timing instantiation's stage record (StageRec
+                      // a warpgroup of a block), else null
 };
 // The density field along R rays grouped into B tiles of T: what
 // secant_refine and surface_locate share.
@@ -148,6 +204,7 @@ struct SecantArgs {
   RayField f;         // out: d_pred (R,)
   const float *d_low, *d_high, *f_low, *f_high, *d_low_w, *d_high_w;
   int n_iters, rebracket, frozen;
+  long long* prof;    // as FieldArgs::prof
 };
 // candidate_field_v3 reads geo (B, 8, C); candidate_field (v2) reads the
 // per-ray pts/ind (B, C, 3) and pp/vn (B, C). v3 writes ds | [ds dh] packed
@@ -198,19 +255,47 @@ __device__ __forceinline__ float ldfeat(const void* feat, int bf, size_t idx) {
   return __ldg(static_cast<const float*>(feat) + idx);
 }
 
-__device__ __forceinline__ float softplus(float x) {  // jax.nn.softplus
-  return fadd(fmaxf(x, 0.f), log1pf(expf(-fabsf(x))));
-}
 __device__ __forceinline__ float sigmoid(float x) {
   return fdiv(1.f, fadd(1.f, expf(-x)));
 }
-__device__ __forceinline__ float softplus100(float x) {
+// softplus with beta 100 (identity above 100 x = 20, as torch's threshold)
+// and its derivative from one exponential e = exp(-|100 x|): h = (max(100
+// x, 0) + log1p(e)) / 100 (jax.nn.softplus's arithmetic, divided: the
+// plain version's bits), g = 1 / (1 + e) for 100 x >= 0, e / (1 + e)
+// below (to a few ulp of sigmoid's 1 / (1 + exp(-100 x)), and 0 where that
+// exponential overflows, as sigmoid gives).
+// ops/kernels.py::softplus100_pair mirrors it.
+__device__ __forceinline__ void softplus100_pair(float x, float& h,
+                                                 float& g) {
   const float bx = fmul(100.f, x);
-  return bx > 20.f ? x : fdiv(softplus(bx), 100.f);
+  if (bx > 20.f) {
+    h = x;
+    g = 1.f;
+    return;
+  }
+  const float e = expf(-fabsf(bx));
+  h = fdiv(fadd(fmaxf(bx, 0.f), log1pf(e)), 100.f);
+  const float r = fdiv(1.f, fadd(1.f, e));
+  g = bx >= 0.f ? r : (e < 2.9387359e-39f ? 0.f : fdiv(e, fadd(1.f, e)));
 }
-__device__ __forceinline__ float softplus100_grad(float x) {
-  const float bx = fmul(100.f, x);
-  return bx > 20.f ? 1.f : sigmoid(bx);
+// The same with the hardware's approximate exp2 / log2 / reciprocal, for
+// outputs rounded to bf16 (8 significant bits) next: relative error below
+// 2^-16 before the rounding. log1p(e) is e (1 - e (1/2 - e/3)) below e =
+// 2^-7, where log2(1 + e) would lose e's low bits.
+__device__ __forceinline__ void softplus100_fast(float x, float& h,
+                                                 float& g) {
+  const float bx = 100.f * x;
+  if (bx > 20.f) {
+    h = x;
+    g = 1.f;
+    return;
+  }
+  const float e = __expf(-fabsf(bx));
+  const float l = e < 0.0078125f ? e * (1.f - e * (0.5f - e * (1.f / 3.f)))
+                                 : __logf(1.f + e);
+  h = (fmaxf(bx, 0.f) + l) * 0.01f;
+  const float r = __fdividef(1.f, 1.f + e);
+  g = bx >= 0.f ? r : e * r;
 }
 
 // Column `blk` (block index) of the tiled-sin embedding of one scalar:
@@ -478,7 +563,6 @@ __device__ __forceinline__ void interp_any(const float* geo, int C, float x0,
   else
     interp_sample<0, OUT>(geo, C, x0, x1, x2, w1, k, want_dh, lane, po, out);
 }
-
 // ---------------------------------------------------------------------------
 // block-level stages (every thread of the block calls them)
 // ---------------------------------------------------------------------------
@@ -549,6 +633,14 @@ __host__ __device__ inline long long tile_blocks(int B, int R) {
 __host__ __device__ inline int block_contexts_max(int B, int R) {
   const int n = R >= TS ? 1 : 1 + (TS - 1 + R - 1) / R;
   return n < B ? n : B;
+}
+// The persistent grid of a warp-specialised tile kernel over nblk tiles:
+// one block an SM of the current device, at most one a tile.
+inline int persistent_grid(long long nblk) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  return (int)(nblk < sms ? nblk : sms > 0 ? sms : 1);
 }
 struct TileRows {
   int R, n;           // rows a context, rows of the call (B R)
@@ -684,6 +776,9 @@ __device__ __forceinline__ void wg_commit() {
 __device__ __forceinline__ void wg_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+__device__ __forceinline__ void wg_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
 // keep reads of the accumulators after the wait
 __device__ __forceinline__ void fence_regs(float (&d)[32]) {
 #pragma unroll
@@ -776,9 +871,20 @@ __device__ __forceinline__ void split_fragment(const ActBuf& X, int kg,
   }
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
                : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// The tile stage's block-wide barrier: the TNT consumer threads (named
+// barrier 1; the whole block where a block has no producer warp).
+__device__ __forceinline__ void tile_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TNT) : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   uint32_t done = 0;
@@ -837,7 +943,7 @@ __device__ void blend_tile(const void* feat, const int* ctx, int fbf, int F,
                            int Fb, const float* sW, int C,
                            unsigned short* idx, int* cnt, float* sFB) {
   list_picks(sW, C, idx, cnt);
-  __syncthreads();
+  tile_sync();
   for (int i = threadIdx.x; i < TS * Fb; i += TNT) {
     const int s = i / Fb, f = i % Fb;
     const float* wr = sW + s * C;
@@ -882,15 +988,34 @@ __host__ __device__ inline size_t act_bytes(const MLPDesc& D, int ldx) {
 
 // Shared memory of a tile block, from its start: the weight ring, the
 // activation region (X, then T with the tangent; the kNN weight rows of
-// the TS samples alias it before the MLPs), two mbarriers, then the
-// kernel's f32 buffers (`rest`).
+// the TS samples alias it before the MLPs), the mbarriers, then the
+// kernel's own buffers (`rest`). A warp-specialised block (ws) has a full
+// and an empty barrier for each of RING_MAX slots and a ring of as many
+// slots, 2..RING_MAX, as fit in SMEM_MAX beside the activations, the
+// barriers and `rest` bytes of the kernel's, of 24 KB where every hidden
+// layer is f32 (a slice's three planes), else 32 KB; otherwise RING slots
+// of 32 KB and two barriers.
 struct TilePlan {
-  size_t ring, xb, act;
+  size_t ring, xb, act, bars, slot;
+  int nring;
+  bool ws;
 };
+// Whether an MLP has a bf16 hidden layer.
+__host__ __device__ inline bool has_bf16_hidden(const MLPDesc& D) {
+  for (int l = 0; l < D.n - 1; ++l)
+    if (D.l[l].bf16) return true;
+  return false;
+}
 __host__ __device__ inline TilePlan tile_plan(const MLPDesc& d,
                                               const MLPDesc* c, int ldx,
-                                              int C, bool tang) {
-  TilePlan p{(size_t)RING * KS * NPAD * 2, act_bytes(d, ldx), 0};
+                                              int C, bool tang,
+                                              bool ws = false,
+                                              size_t rest = 0) {
+  const bool f32_slots =
+      ws && !has_bf16_hidden(d) && !(c && has_bf16_hidden(*c));
+  TilePlan p{0, act_bytes(d, ldx), 0,
+             ws ? (size_t)2 * RING_MAX * sizeof(uint64_t) : 16,
+             f32_slots ? SLOT_F32_BYTES : SLOT_BYTES, RING, ws};
   const size_t tb = tang ? p.xb : 0;
   if (c) {
     const size_t cb = act_bytes(*c, ldx);
@@ -898,14 +1023,20 @@ __host__ __device__ inline TilePlan tile_plan(const MLPDesc& d,
   }
   const size_t wrows = ((size_t)TS * C * 4 + 127) & ~(size_t)127;
   p.act = p.xb + tb > wrows ? p.xb + tb : wrows;
+  if (ws) {
+    const size_t used = p.act + p.bars + rest;
+    const size_t room = used < SMEM_MAX ? (SMEM_MAX - used) / p.slot : 0;
+    p.nring = room < 2 ? 2 : room > (size_t)RING_MAX ? RING_MAX : (int)room;
+  }
+  p.ring = (size_t)p.nring * p.slot;
   return p;
 }
 __host__ __device__ inline size_t tile_plan_bytes(const TilePlan& p) {
-  return p.ring + p.act + 16;
+  return p.ring + p.act + p.bars;
 }
 
 // Whether any hidden layer of D is f32 (the kernels' F32 instantiation).
-inline bool has_f32(const MLPDesc& D) {
+__host__ __device__ inline bool has_f32(const MLPDesc& D) {
   for (int l = 0; l < D.n - 1; ++l)
     if (!D.l[l].bf16) return true;
   return false;
@@ -923,24 +1054,75 @@ inline bool tile_mlp_ok(const MLPDesc& D, int ldx) {
     if (hidden && (L.kp <= 0 || L.kp1 % 16 || L.kp1 > L.kp || L.N > NPAD ||
                    (!L.bf16 && L.kp > ldx)))
       return false;
-    if (!hidden && (L.bf16 ? L.kp < L.K : L.kp != 0)) return false;
+    if (!hidden && ((L.bf16 ? L.kp < L.K : L.kp != 0) || L.N > 3))
+      return false;
   }
   return true;
 }
 
 // The stream of weight slices a block consumes, in order: every slice of
 // the packed layers of mlp[0], then of mlp[1]; `cyclic` repeats it (the
-// secant's density evaluations). seq counts the slices consumed, the
-// same on every thread; slice seq lives in ring buffer seq % RING.
+// secant's density evaluations; a warp-specialised block's tiles). seq
+// counts the slices consumed, the same on every consumer thread; slice seq
+// lives in ring slot seq % nring.
 struct TileMem {
   __nv_bfloat16* ring;
   void *X, *T;
-  uint64_t* bar;
+  uint64_t* bar;      // full: slot i's slice landed (the bulk copy's bytes)
+  uint64_t* empty;    // ws: slot i released by the TNT / 32 consumer warps
   float* rest;
   const MLPDesc* mlp[2];
-  int total, cyclic, ldx;
+  int total, cyclic, ldx, nring;
+  int slot;           // a ring slot's bf16 elements
+  bool ws;
+  bool approx_epi;    // field_fused / secant_refine: the approximate
+                      // epilogue where the output is rounded to bf16
+                      // (surface_locate: the exact one everywhere)
   uint32_t seq;
+  uint32_t stream;    // ws: the slices the block consumes, in all
+  long long* prof;    // the timing instantiation: each warpgroup's running
+                      // stage sums and last reading (shared memory), else
+                      // null
 };
+
+// The stage that ends here (see Stage): a no-op unless m.prof.
+__device__ __forceinline__ void stamp(const TileMem& m, int st) {
+  if (m.prof && (threadIdx.x & 127) == 0) {
+    long long* p = m.prof + (threadIdx.x >> 7) * (NSTAGE + 1);
+    const long long now = clock64();
+    p[st] += now - p[NSTAGE];
+    p[NSTAGE] = now;
+  }
+}
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+// Shared memory of the running stage sums (4 warpgroups).
+constexpr size_t PROF_SMEM = 4 * (NSTAGE + 1) * sizeof(long long);
+// Start the sums (each warpgroup's first thread; before the first stamp).
+__device__ __forceinline__ void prof_begin(const TileMem& m) {
+  if (m.prof && (threadIdx.x & 127) == 0) {
+    long long* p = m.prof + (threadIdx.x >> 7) * (NSTAGE + 1);
+    for (int i = 0; i < NSTAGE; ++i) p[i] = 0;
+    p[NSTAGE] = clock64();
+  }
+}
+// Write the block's record: rec[(block * 4 + warpgroup) * STAGE_REC ...].
+__device__ __forceinline__ void prof_end(const TileMem& m, long long* rec,
+                                         long long c0, long long ns0,
+                                         int tiles) {
+  if (m.prof && (threadIdx.x & 127) == 0) {
+    const long long* p = m.prof + (threadIdx.x >> 7) * (NSTAGE + 1);
+    long long* r = rec + ((size_t)blockIdx.x * 4 + (threadIdx.x >> 7)) *
+                             STAGE_REC;
+    for (int i = 0; i < NSTAGE; ++i) r[i] = p[i];
+    r[NSTAGE] = clock64() - c0;
+    r[NSTAGE + 1] = global_ns() - ns0;
+    r[NSTAGE + 2] = tiles;
+  }
+}
 
 __device__ TileMem tile_carve(unsigned char* smem, const TilePlan& p,
                               const MLPDesc& m0, const MLPDesc* m1,
@@ -950,20 +1132,29 @@ __device__ TileMem tile_carve(unsigned char* smem, const TilePlan& p,
   m.X = smem + p.ring;
   m.T = smem + p.ring + p.xb;
   m.bar = reinterpret_cast<uint64_t*>(smem + p.ring + p.act);
+  m.empty = m.bar + RING_MAX;
   m.rest = reinterpret_cast<float*>(smem + tile_plan_bytes(p));
   m.mlp[0] = &m0;
   m.mlp[1] = m1;
   m.total = mlp_slices(m0) + (m1 ? mlp_slices(*m1) : 0);
-  m.cyclic = cyclic;
+  m.cyclic = cyclic || p.ws;
   m.ldx = ldx;
+  m.nring = p.nring;
+  m.slot = (int)(p.slot / 2);
+  m.ws = p.ws;
+  m.approx_epi = false;
   m.seq = 0;
+  m.stream = 0;
+  m.prof = nullptr;
   return m;
 }
 
-// Thread 0: start loading the slice at stream position q into its buffer.
+// Start loading the slice at stream position q into its ring slot (one
+// thread: block thread 0, or the producer warp's first lane).
 __device__ void start_slice(const TileMem& m, uint32_t q) {
   if (!m.total || (!m.cyclic && q >= (uint32_t)m.total)) return;
   int p = (int)(q % (uint32_t)m.total);
+  const uint32_t slot = q % (uint32_t)m.nring;
   for (int i = 0; i < 2; ++i) {
     if (!m.mlp[i]) continue;
     const MLPDesc& D = *m.mlp[i];
@@ -974,10 +1165,10 @@ __device__ void start_slice(const TileMem& m, uint32_t q) {
         // slice p: ks rows of each of the layer's P planes, consecutive
         const int P = L.bf16 ? 1 : 3, k0 = p * slice_rows(L),
                   ks = min(slice_rows(L), L.kp - k0);
-        bulk_load(m.ring + (q % RING) * KS * NPAD,
+        bulk_load(m.ring + slot * m.slot,
                   static_cast<const __nv_bfloat16*>(L.wp) +
                       (size_t)P * k0 * NPAD,
-                  (uint32_t)(P * ks) * NPAD * 2, m.bar + q % RING);
+                  (uint32_t)(P * ks) * NPAD * 2, m.bar + slot);
         return;
       }
       p -= n;
@@ -986,7 +1177,8 @@ __device__ void start_slice(const TileMem& m, uint32_t q) {
 }
 
 // Barriers and the first RING slices in flight (every thread calls; the
-// caller synchronises before the first layer).
+// caller synchronises before the first layer): a block without a producer
+// warp.
 __device__ void tile_start(const TileMem& m) {
   if (threadIdx.x == 0) {
     for (int i = 0; i < RING; ++i) mbar_init(m.bar + i);
@@ -997,12 +1189,54 @@ __device__ void tile_start(const TileMem& m) {
 
 // Thread 0 waits for the slices started but never consumed (a cyclic
 // stream's next evaluation), so that no bulk copy into the block's shared
-// memory outlives the block.
+// memory outlives the block (a block without a producer warp).
 __device__ void tile_drain(const TileMem& m) {
   if (threadIdx.x != 0 || !m.total) return;
   for (uint32_t q = m.seq; q < m.seq + RING; ++q)
     if (m.cyclic || q < (uint32_t)m.total)
       mbar_wait(m.bar + q % RING, (q / RING) & 1);
+}
+
+// A warp-specialised block's barriers: slot i full once its slice has
+// landed, empty once every consumer warp is done with it; `stream`: the
+// slices the block consumes. Every thread of the block calls; the block
+// synchronises (all WS_THREADS) before the roles split.
+__device__ void ws_start(TileMem& m, uint32_t stream) {
+  m.stream = stream;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < m.nring; ++i) {
+      mbar_init(m.bar + i);
+      mbar_init(m.empty + i, TNT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer warp's first lane: the n slices the consumers will take, in
+// order, slice q into slot q % nring once the consumers have released the
+// slice that slot held (its empty barrier's phase q / nring - 1). Nothing
+// else paces the ring: no block-wide barrier, no consumer thread re-arms a
+// slot.
+__device__ void produce(const TileMem& m, uint32_t n) {
+  const uint32_t nr = (uint32_t)m.nring;
+  for (uint32_t q = 0; q < n; ++q) {
+    if (q >= nr) mbar_wait(m.empty + q % nr, (q / nr - 1) & 1);
+    start_slice(m, q);
+  }
+}
+
+// The roles' register budgets (every thread of the warpgroup executes it).
+__device__ __forceinline__ void producer_regs() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+}
+__device__ __forceinline__ void consumer_regs() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+}
+
+// A consumer warp is done with the slice in slot `slot` (lane 0 arrives).
+__device__ __forceinline__ void release_slot(const TileMem& m, uint32_t slot) {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(m.empty + slot);
 }
 
 // One packed hidden layer on wgmma, in place: reads X (and T) in the
@@ -1020,6 +1254,17 @@ __device__ void tile_drain(const TileMem& m) {
 // larger operand's precision, and over a 256-row layer that bias would
 // build up in one accumulator. F32: the MLP has f32 hidden layers (without,
 // the f32 path is not compiled, and the bf16 kernels keep their registers).
+// A warp-specialised block (m.ws) hands each slot back to its producer warp
+// through the slot's empty barrier, each consumer warp as soon as its
+// products that read the slot are done: a bf16 slice's products stay in
+// flight while the next slice's are issued (wait_group 1), an f32 slice's
+// are waited for before the next split; the consumers meet once a layer,
+// before the epilogue. Without (surface_locate) every slice ends in a
+// block-wide barrier after which thread 0 re-arms the slot.
+// The epilogue: softplus (beta 100) and its derivative from one
+// exponential, with the approximate hardware functions where the output is
+// rounded to bf16 next (m.approx_epi: field_fused and secant_refine), or
+// ReLU.
 template <bool TANG, bool F32>
 __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
                             ActBuf T, int act, ActBuf Xn, ActBuf Tn) {
@@ -1028,6 +1273,8 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
   float acc[32], tac[32];
   const uint32_t sbo_a = (uint32_t)L.kp * 16;   // 8-row group stride
   const int nsl = n_slices(L), rows = slice_rows(L);
+  const uint32_t nr = (uint32_t)m.nring;
+  const bool piped = m.ws && (!F32 || L.bf16);  // bf16 slices overlap
   // the accumulators start at the bias (f32) and the tangent's at 0, so
   // nothing but wgmma touches them until the epilogue
 #pragma unroll
@@ -1037,12 +1284,13 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
     tac[r] = 0.f;
   }
   for (int i = 0; i < nsl; ++i) {
-    const uint32_t buf = m.seq % RING;
-    mbar_wait(m.bar + buf, (m.seq / RING) & 1);
+    const uint32_t buf = m.seq % nr;
+    mbar_wait(m.bar + buf, (m.seq / nr) & 1);
+    stamp(m, ST_COPY);
     const int k0 = i * rows, ks = min(rows, L.kp - k0);
     // this warpgroup's 64 output columns of a plane: 8 groups of 8, each
     // ks / 8 core matrices of 64 elements
-    const __nv_bfloat16* wb = m.ring + buf * KS * NPAD + wg * 64 * ks;
+    const __nv_bfloat16* wb = m.ring + buf * m.slot + wg * 64 * ks;
     if (!F32 || L.bf16) {
       wg_fence();
       for (int kk = 0; kk < ks; kk += 16) {
@@ -1056,7 +1304,12 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
         }
       }
       wg_commit();
-      wg_wait0();
+      if (!piped) {
+        wg_wait0();
+      } else if (i > 0) {
+        wg_wait1();                  // the previous slice's products done
+        release_slot(m, (m.seq - 1) % nr);
+      }
     } else if constexpr (F32) {
       // planes hi, mid, lo of the KSF = 16 rows, KSF * NPAD apart
       const uint64_t b0 = mat_desc(wb, 128, KSF * 16),
@@ -1101,13 +1354,31 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
 #pragma unroll
         for (int r = 0; r < 32; ++r) acc[r] = fadd(acc[r], tac[r]);
       }
+      if (m.ws) release_slot(m, buf);
     }
-    __syncthreads();       // every warpgroup is done with the buffer
-    if (tid == 0) start_slice(m, m.seq + RING);
+    stamp(m, ST_MMA);
+    if (!m.ws) {
+      __syncthreads();       // every warpgroup is done with the buffer
+      if (tid == 0) start_slice(m, m.seq + RING);
+    }
     ++m.seq;
+    stamp(m, ST_SYNC);
+  }
+  if (piped && nsl > 0) {
+    wg_wait0();
+    release_slot(m, (m.seq - 1) % nr);
+    stamp(m, ST_MMA);
+  }
+  // The layer runs in place: every warpgroup reads all of X (T) until its
+  // last product or split, so none stores its outputs before all are done
+  // (without a producer warp the last slice's barrier did that)
+  if (m.ws) {
+    tile_sync();
+    stamp(m, ST_SYNC);
   }
   fence_regs(acc);
   if constexpr (TANG) fence_regs(tac);
+  const bool approx = m.approx_epi && Xn.kp;  // output rounded to bf16
 #pragma unroll
   for (int r = 0; r < 32; r += 2) {
     const int row = warp * 16 + (lane >> 2) + ((r >> 1) & 1) * 8;
@@ -1119,8 +1390,12 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
       const float pre = acc[r + u];
       t[u] = 0.f;
       if (act == ACT_SOFTPLUS) {
-        h[u] = softplus100(pre);
-        if constexpr (TANG) t[u] = fmul(tac[r + u], softplus100_grad(pre));
+        float g;
+        if (approx)
+          softplus100_fast(pre, h[u], g);
+        else
+          softplus100_pair(pre, h[u], g);
+        if constexpr (TANG) t[u] = fmul(tac[r + u], g);
       } else {
         h[u] = fmaxf(pre, 0.f);
       }
@@ -1142,30 +1417,68 @@ __device__ void wgmma_layer(const LayerDesc& L, TileMem& m, ActBuf X,
     }
   }
   fence_proxy();
-  __syncthreads();
+  tile_sync();
+  stamp(m, ST_EPI);
 }
 
-// Output layer (N <= a few columns) of the TS samples: LPS lanes per
-// sample split K, reading X / T in the head's layout.
+// Columns k0 .. k0 + 7 (k0 a multiple of 8) of row s of X as f32: one
+// 16-byte load from a bf16 tile (a core-matrix row), two from f32 rows (an
+// 8-column group stays contiguous under the swizzle).
+__device__ __forceinline__ void load8(const ActBuf& X, int s, int k0,
+                                      float (&x)[8]) {
+  if (X.kp) {
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(X.h() + tile_off(s, k0, X.kp));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  } else {
+    const float* p = X.f() + row_off(s, k0, X.ldx);
+    const float4 a = *reinterpret_cast<const float4*>(p),
+                 b = *reinterpret_cast<const float4*>(p + 4);
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  }
+}
+
+// Output layer (N <= 3 columns, tile_mlp_ok) of the TS samples, reading X
+// / T in the head's layout: each of a row's LPS lanes takes 8-column groups
+// lane, lane + LPS, ... of its input with one load (load8) and every
+// output column (and the tangent) from them.
 __device__ void head_tile(const LayerDesc& L, ActBuf X, ActBuf T, bool tang,
                           bool sigm, float* out, float* tout) {
   const int s = threadIdx.x / LPS, lane = threadIdx.x % LPS;
-  for (int n = 0; n < L.N; ++n) {
-    float a = 0.f;
-    for (int k = lane; k < L.K; k += LPS)
-      a = fmaf(X.get(s, k), ldw(L, k * L.N + n), a);
-    a = gsum(a);
-    const float v = fadd(a, L.b[n]);
-    if (lane == 0) out[s * L.N + n] = sigm ? sigmoid(v) : v;
+  const int N = L.N;
+  float acc[3] = {0.f, 0.f, 0.f}, ta = 0.f;
+  for (int k0 = lane * 8; k0 < L.K; k0 += LPS * 8) {
+    float x[8], t[8];
+    load8(X, s, k0, x);
+    if (tang) load8(T, s, k0, t);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = k0 + j;
+      if (k >= L.K) break;
+#pragma unroll
+      for (int n = 0; n < 3; ++n)
+        if (n < N) acc[n] = fmaf(x[j], ldw(L, k * N + n), acc[n]);
+      if (tang) ta = fmaf(t[j], ldw(L, k * N), ta);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 3; ++n) {
+    if (n >= N) break;
+    const float v = fadd(gsum(acc[n]), L.b[n]);
+    if (lane == 0) out[s * N + n] = sigm ? sigmoid(v) : v;
   }
   if (tang) {
-    float t = 0.f;
-    for (int k = lane; k < L.K; k += LPS)
-      t = fmaf(T.get(s, k), ldw(L, k * L.N), t);
-    t = gsum(t);
-    if (lane == 0) tout[s] = t;
+    ta = gsum(ta);
+    if (lane == 0) tout[s] = ta;
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // Hidden layers and head of an MLP whose first-layer inputs are in X (T),
@@ -1182,6 +1495,7 @@ __device__ void mlp_tile(const MLPDesc& D, TileMem& m, int act, bool sigm,
   }
   const LayerDesc& H = D.l[D.n - 1];
   head_tile(H, X.for_layer(H), T.for_layer(H), TANG, sigm, out, tout);
+  stamp(m, ST_HEAD);
 }
 
 // Zero the pad columns [from, L0.kp) of a first layer's input.
@@ -1229,7 +1543,8 @@ __device__ void density_tile(const MLPDesc& D, TileMem& m, const float* sds,
   // that its products run on every path) reads zeros there
   if (tang && !r0) zero_tail(T, L0, xoff2);
   fence_proxy();
-  __syncthreads();
+  tile_sync();
+  stamp(m, ST_EMB);
   if (tang)
     mlp_tile<true, F32>(D, m, ACT_SOFTPLUS, false, sdens, sdDdh);
   else
@@ -1273,7 +1588,8 @@ __device__ void color_tile(const MLPDesc& Cm, TileMem& m, const float* sds,
                      [&](int s, int j, float v) { X.put(s, j, v); });
   zero_tail(X, L0, xoff2 + 2 * (mft > 0 ? mft : 0) * cd);
   fence_proxy();
-  __syncthreads();
+  tile_sync();
+  stamp(m, ST_EMB);
   mlp_tile<false, F32>(Cm, m, ACT_RELU, true, srgb, nullptr);
 }
 
@@ -1348,7 +1664,7 @@ __device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
   if (tid < TS)
     for (int i = 0; i < 3; ++i)
       t.xyz[tid * 4 + i] = fadd(t.o[tid * 4 + i], fmul(dv, t.r[tid * 4 + i]));
-  __syncthreads();
+  tile_sync();
   {
     constexpr int OUT = ROWS ? PICK_ROWS : PICK_NONE;
     const int s = tid / LPS, lane = tid % LPS;   // TNT / LPS == TS
@@ -1358,7 +1674,7 @@ __device__ void ray_interp_at(const RayField& f, const RayTile& t, float dv) {
                     t.xyz[s * 4 + 2], f.w1, f.k, false, lane, po, r);
     if (lane == 0) t.ds[s] = r.ds;
   }
-  __syncthreads();
+  tile_sync();
 }
 
 // Density minus tau of each owner's ray from t.ds and the kNN weights in
@@ -1368,7 +1684,8 @@ __device__ float ray_density(const RayField& f, const RayTile& t,
                              TileMem& m) {
   blend_tile(f.feat, t.geo.ctx, f.feat_bf16, f.F, f.gd, t.W, f.C, t.idx,
              t.cnt, t.FB);
-  __syncthreads();
+  tile_sync();
+  stamp(m, ST_BLEND);
   density_tile<F32>(f.dens, m, t.ds, t.FB, f.F, f.md, f.mfg, f.gd, f.lowp,
                     false, t.dens, nullptr);
   return threadIdx.x < TS ? fsub(t.dens[threadIdx.x], f.tau) : 0.f;

@@ -29,6 +29,18 @@ KS = 64             # K rows per staged weight slice (csrc KS)
 KSF = 16            # K rows per staged slice of an f32 layer (csrc KSF)
 NPAD = 256          # packed layers' output width, the widest hidden layer
                     # (csrc NPAD)
+# the tile blocks' shared-memory plan (csrc RING_MAX, SLOT_BYTES,
+# SLOT_F32_BYTES, SMEM_MAX, KL, KSEL), mirrored by
+# ops/kernels.py::tile_smem_plan
+RING_MAX = 8        # ... of a warp-specialised block, at most
+SLOT_BYTES = KS * NPAD * 2
+SLOT_F32_BYTES = 3 * KSF * NPAD * 2   # where every hidden layer is f32
+SMEM_MAX = 227 * 1024
+WS_REGS = {"producer": 24, "consumer": 112}  # csrc PRODUCER_REGS,
+                                             # CONSUMER_REGS (setmaxnreg)
+WS_KERNELS = ("field_fused", "secant_refine")   # the warp-specialised ones
+KL = 32             # listed kNN picks a row
+KSEL = 16           # the frozen secant's neighbours, at most
 # field_distance.cu's block plan (csrc DT, DT_L2, K1_LANES, DL, SPT_K1,
 # SPT_LIST, LIST_C, DIST_SMEM), mirrored by
 # ops/kernels.py::distance_block_plan
@@ -40,6 +52,11 @@ DIST_SPT = 8        # samples a thread at most, k = 1
 DIST_SPT_LIST = 2   # and with the list
 LIST_C = 128        # candidates of the list scan, at most
 DIST_SMEM = 64 * 1024   # staged contexts of a block, at most
+# the tile kernels' timing instantiation (csrc/field_common.cuh Stage): a
+# record of len(STAGES) + 3 longs a (block, warpgroup): the cycles of each
+# stage, the block's cycles and %globaltimer ns, its tiles
+STAGES = ("ctx", "cand", "blend", "emb", "copy", "mma", "sync", "epi",
+          "head", "other")
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -84,7 +101,7 @@ class FieldArgs(ctypes.Structure):
                              "md", "mfg", "mft", "mv", "gd", "lowp", "ldx",
                              "nst")]
                 + [("w1", ctypes.c_float), ("dens", MLPDesc),
-                   ("col", MLPDesc)])
+                   ("col", MLPDesc), ("prof", ctypes.c_void_p)])
 
 
 class RayField(ctypes.Structure):
@@ -103,7 +120,8 @@ class SecantArgs(ctypes.Structure):
                    for n in ("d_low", "d_high", "f_low", "f_high", "d_low_w",
                              "d_high_w")]
                 + [(n, ctypes.c_int)
-                   for n in ("n_iters", "rebracket", "frozen")])
+                   for n in ("n_iters", "rebracket", "frozen")]
+                + [("prof", ctypes.c_void_p)])
 
 
 class CandArgs(ctypes.Structure):

@@ -99,6 +99,38 @@ def _emb_cols_wide(x, n_freq: int, dtype):
     return _emb_cols(x, n_freq) if dtype is None else _emb_cols_rec(x, n_freq)
 
 
+def softplus100_pair(x):
+    """The tile kernels' exact epilogue (csrc softplus100_pair) in torch
+    f32: softplus100(x) and softplus100_grad(x) from one exponential e =
+    exp(-|100 x|), h = (max(100 x, 0) + log1p(e)) / 100 (softplus100's own
+    arithmetic), g = 1 / (1 + e) for 100 x >= 0, else e / (1 + e), 0 where
+    sigmoid's exp(-100 x) overflows; above 100 x = 20 h = x, g = 1."""
+    bx = 100.0 * x
+    e = torch.exp(-bx.abs())
+    h = torch.where(bx > 20.0, x, (bx.clamp(min=0.0) + torch.log1p(e)) / 100.0)
+    neg = torch.where(e < 2.9387359e-39, torch.zeros_like(e), e / (1.0 + e))
+    g = torch.where(bx > 20.0, torch.ones_like(x),
+                    torch.where(bx >= 0.0, 1.0 / (1.0 + e), neg))
+    return h, g
+
+
+def softplus100_bf16_form(x):
+    """The algebra of the kernels' epilogue for outputs rounded to bf16
+    (csrc softplus100_fast) with exact exp / log in place of the hardware's
+    approximate ones: log1p(e) as e (1 - e (1 / 2 - e / 3)) below e =
+    2^-7, else log(1 + e); h = (max(100 x, 0) + that) * 0.01, g = r or
+    e r with r = 1 / (1 + e)."""
+    bx = 100.0 * x
+    e = torch.exp(-bx.abs())
+    lg = torch.where(e < 0.0078125, e * (1.0 - e * (0.5 - e / 3.0)),
+                     torch.log(1.0 + e))
+    h = torch.where(bx > 20.0, x, (bx.clamp(min=0.0) + lg) * 0.01)
+    r = 1.0 / (1.0 + e)
+    g = torch.where(bx > 20.0, torch.ones_like(x),
+                    torch.where(bx >= 0.0, r, e * r))
+    return h, g
+
+
 def _cat(parts):
     parts = [p.to(torch.float32) for p in parts if p is not None]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
@@ -299,6 +331,18 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
     if not xyz.is_cuda:
         return field_fused_plain(xyz, geo, feat, w1, dens_ws, col_ws, dirs,
                                  **kw)
+    out, launched = _field_launch(xyz, geo, feat, w1, dens_ws, col_ws, dirs,
+                                  **kw)
+    LAUNCHES["field_fused"][want] += launched
+    return out
+
+
+def _field_launch(xyz, geo, feat, w1, dens_ws, col_ws, dirs, *, k, want,
+                  multires_d, multires_fg, multires_ft, multires_view,
+                  geometry_dim, dtype, prof=None):
+    """Launch field_fused's kernel (prof: the address of the timing
+    instantiation's record buffer, stage_split): (its outputs, whether it
+    launched); counts nothing."""
     from . import _build
 
     _no_grad(xyz, geo, feat, w1, dens_ws, col_ws, dirs)
@@ -312,7 +356,7 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
     n_out = _N_OUT[want]
     out = torch.empty((n_out, B, S), device=xyz.device, dtype=torch.float32)
     if B == 0 or S == 0:
-        return list(out)
+        return list(out), False
     keep = []
     if want == "distance":
         dens_d = col_d = None
@@ -338,10 +382,10 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
         args.dens = dens_d
     if col_d is not None:
         args.col = col_d
+    args.prof = prof
     _build.launch("field_distance" if want == "distance" else "field_fused",
                   args, xyz)
-    LAUNCHES["field_fused"][want] += 1
-    return list(out)
+    return list(out), True
 
 
 # ---------------------------------------------------------------------------
@@ -477,6 +521,19 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
     if not rays_o.is_cuda:
         return secant_refine_plain(rays_o, rays_d, d_low, d_high, f_low,
                                    f_high, geo, feat, w1, dens_ws, **kw)
+    out, launched = _secant_launch(rays_o, rays_d, d_low, d_high, f_low,
+                                   f_high, geo, feat, w1, dens_ws, **kw)
+    LAUNCHES["secant_refine"][secant_mode(d_low_w is not None,
+                                          frozen_knn)] += launched
+    return out
+
+
+def _secant_launch(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
+                   w1, dens_ws, *, n_iters, k, multires_d, multires_fg,
+                   geometry_dim, dtype, logit_tau, d_low_w, d_high_w,
+                   frozen_knn, prof=None):
+    """Launch secant_refine's kernel (prof as _field_launch's): (d_pred,
+    whether it launched); counts nothing."""
     from . import _build
 
     _no_grad(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat, w1,
@@ -491,7 +548,7 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
         raise ValueError("secant_refine: k <= 16")
     out = torch.empty((R,), device=rays_o.device, dtype=torch.float32)
     if R == 0:
-        return out
+        return out, False
     keep = []
     field = _ray_field("secant_refine", rays_o, rays_d, geo, feat, w1,
                        dens_ws, out, k, multires_d, multires_fg,
@@ -505,10 +562,10 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
         f=field, d_low=_ptr(vec[0], keep), d_high=_ptr(vec[1], keep),
         f_low=_ptr(vec[2], keep), f_high=_ptr(vec[3], keep),
         d_low_w=_ptr(wvec[0], keep), d_high_w=_ptr(wvec[1], keep),
-        n_iters=n_iters, rebracket=int(rebracket), frozen=int(frozen_knn))
+        n_iters=n_iters, rebracket=int(rebracket), frozen=int(frozen_knn),
+        prof=prof)
     _build.launch("secant_refine", args, rays_o)
-    LAUNCHES["secant_refine"][secant_mode(rebracket, frozen_knn)] += 1
-    return out
+    return out, True
 
 
 # ---------------------------------------------------------------------------
@@ -993,6 +1050,169 @@ def block_plan(B: int, R: int):
     return ctx, torch.where(live, row, 0), live
 
 
+def tile_blocks(B: int, R: int) -> int:
+    """Row blocks (tiles) of a tile-kernel call (csrc tile_blocks):
+    ceil(R / 64) a context from 64 rows a context, else ceil(B R / 64)."""
+    from ._build import TS
+
+    return B * -(-R // TS) if R >= TS else -(-B * R // TS)
+
+
+def persistent_schedule(B: int, R: int, sms: int):
+    """The warp-specialised tile kernels' persistent grid (csrc
+    persistent_grid and the kernels' tile loop) for B contexts of R rows on
+    a card of `sms` SMs: one list of tiles (block_plan's row blocks) a
+    block, block b taking tiles b, b + grid, ... of the grid's min(tiles,
+    sms) blocks."""
+    n = tile_blocks(B, R)
+    grid = max(min(n, sms), 1)
+    return [list(range(b, n, grid)) for b in range(grid)]
+
+
+def _block_contexts_max(B: int, R: int) -> int:
+    from ._build import TS
+
+    n = 1 if R >= TS else 1 + (TS - 1 + R - 1) // R
+    return min(n, B)
+
+
+def _act_bytes(layers, ldx: int) -> int:
+    """One activation buffer (csrc act_bytes) of an MLP given as [(bf16,
+    kp)] a layer (the head's kp: NPAD in bf16, 0 in f32)."""
+    from ._build import TS
+
+    b = max(TS * kp * 2 if bf16 else TS * ldx * 4 for bf16, kp in layers)
+    return -(-b // 128) * 128
+
+
+def _mlp_meta(layers):
+    """[(bf16, kp)] of _dens_layers / _col_layers' output and the f32 row
+    stride, as _mlp_desc gives them (shapes and dtypes only)."""
+    from ._build import NPAD
+
+    meta, ldx = [], NPAD
+    for i, (w, _, split) in enumerate(layers):
+        bf16 = w.dtype == torch.bfloat16
+        if i < len(layers) - 1:
+            kp = len(_packed_rows(w.shape[0], split)[0])
+            if not bf16:
+                ldx = max(ldx, kp)
+        else:
+            kp = NPAD if bf16 else 0
+        meta.append((bf16, kp))
+    return meta, -(-ldx // 32) * 32
+
+
+def tile_smem_plan(name: str, *args, **kw) -> dict:
+    """The shared-memory plan of a field_fused / secant_refine launch (csrc
+    field_smem / field_staged, secant_smem / secant_staged, tile_plan) from
+    the wrapper's arguments (shapes and dtypes alone; any device): "ws",
+    whether the instantiation is warp-specialised (all but the f32 secant
+    without the frozen selection),
+    "bytes" of a block, "ring" slots (2..RING_MAX where warp-specialised,
+    24 KB each where every hidden layer is f32, else 32 KB; else 2 of 32
+    KB), "staged" contexts a block (0:
+    read from L2), "fits" (bytes <= SMEM_MAX; the C entry refuses the
+    launch otherwise)."""
+    import inspect
+
+    from ._build import (KL, KSEL, RING_MAX, SLOT_BYTES, SLOT_F32_BYTES,
+                         SMEM_MAX, TS)
+
+    fn = {"field_fused": field_fused, "secant_refine": secant_refine}[name]
+    a = inspect.signature(fn).bind(*args, **kw)
+    a.apply_defaults()
+    a = a.arguments
+    gd = a["geometry_dim"]
+    dens = _mlp_meta(_dens_layers(a["dens_ws"], gd))
+    F = a["feat"].shape[-1]
+    C = a["geo"].shape[2]
+    if name == "field_fused":
+        want = a["want"]
+        B, R = a["xyz"].shape[:2]
+        col = (_mlp_meta(_col_layers(a["col_ws"], F - gd, a["multires_d"],
+                                     a["multires_view"]))
+               if want == "full" else None)
+        tang = want in ("density_nabla", "full")
+
+        def rest(nst):
+            return 4 * (TS * 20 + TS * F + TS * (KL // 2 + 1) + TS
+                        + 8 * C * nst)
+    else:
+        B = a["geo"].shape[0]
+        R = a["rays_o"].shape[0] // B
+        col, tang = None, False
+        frozen = (4 * 5 * TS * KSEL + -(-TS * C // 8) * 8
+                  if a["frozen_knn"] else 0)
+
+        def rest(nst):
+            ray = (TS * 14 + TS * F + TS * (KL // 2 + 1) + TS + 8 * C * nst)
+            return 4 * (ray + 2 * TS) + frozen
+    ldx = max(dens[1], col[1] if col else 0)
+    xb = _act_bytes(dens[0], ldx)
+    tb = xb if tang else 0
+    if col:
+        xb = max(xb, _act_bytes(col[0], ldx))
+    act = max(xb + tb, -(-TS * C * 4 // 128) * 128)
+    hidden = [bf16 for m in (dens, col) if m for bf16, _ in m[0][:-1]]
+    # csrc secant_ws: every instantiation but the f32 secant without the
+    # frozen selection (field_fused: every one)
+    f32 = not all(hidden)
+    ws = name == "field_fused" or not f32 or a["frozen_knn"]
+    bars = 2 * RING_MAX * 8 if ws else 16
+    slot = SLOT_F32_BYTES if ws and not any(hidden) else SLOT_BYTES
+
+    def plan(nst):
+        r = rest(nst)
+        room = max(SMEM_MAX - act - bars - r, 0) // slot
+        ring = min(max(room, 2), RING_MAX) if ws else 2
+        return ring, ring * slot + act + bars + r
+    n = _block_contexts_max(B, R)
+    staged = n if plan(n)[1] <= SMEM_MAX else 0
+    ring, nbytes = plan(staged)
+    return {"bytes": nbytes, "ring": ring, "staged": staged,
+            "fits": nbytes <= SMEM_MAX, "ws": ws}
+
+
+def stage_split(name: str, *args, **kw) -> dict:
+    """Run the timing instantiation of `name` ("field_fused" or
+    "secant_refine", CUDA tensors, the wrapper's arguments) once and
+    return where a block's time goes: "share" {stage: share of the
+    warpgroups' cycles} (csrc Stage, _build.STAGES), "cycles_per_tile"
+    {stage: cycles a tile, the mean over warpgroups}, "us_per_tile" (the
+    blocks' %globaltimer span over their tiles), "blocks", "tiles". Not a
+    main-path launch: counts nothing."""
+    import inspect
+
+    from . import _build
+
+    fn = {"field_fused": field_fused, "secant_refine": secant_refine}[name]
+    bound = inspect.signature(fn).bind(*args, **kw)
+    bound.apply_defaults()
+    a = dict(bound.arguments)
+    if name == "field_fused":
+        B, R = a["xyz"].shape[:2]
+        dev, launch = a["xyz"].device, _field_launch
+    else:
+        B = a["geo"].shape[0]
+        R = a["rays_o"].shape[0] // B
+        dev, launch = a["rays_o"].device, _secant_launch
+    n = len(_build.STAGES)
+    rec = torch.zeros((tile_blocks(B, R), 4, n + 3), dtype=torch.int64,
+                      device=dev)
+    pos = list(a)[:len(args)]
+    launch(*[a.pop(p) for p in pos], **a, prof=rec.data_ptr())
+    torch.cuda.synchronize(dev)
+    rec = rec[rec[:, 0, n + 2] > 0].double()
+    tiles = float(rec[:, 0, n + 2].sum())
+    cyc = rec[:, :, :n].sum((0, 1)) / 4 / tiles
+    return {"share": dict(zip(_build.STAGES,
+                              (cyc / cyc.sum()).tolist())),
+            "cycles_per_tile": dict(zip(_build.STAGES, cyc.tolist())),
+            "us_per_tile": float((rec[:, 0, n + 1]).sum()) / tiles / 1e3,
+            "blocks": int(rec.shape[0]), "tiles": int(tiles)}
+
+
 def distance_block_plan(B: int, S: int, C: int, k: int):
     """field_fused(want="distance")'s blocks (csrc/field_distance.cu
     DistPlan and the kernel's rows) for B contexts of S samples, C
@@ -1111,7 +1331,8 @@ def _check_inputs(xyz, geo, feat, dirs):
 
 
 __all__ = ["field_fused", "field_fused_plain", "pack_layer", "split_planes",
-           "block_plan",
+           "block_plan", "tile_blocks", "stage_split", "persistent_schedule",
+           "tile_smem_plan", "softplus100_pair", "softplus100_bf16_form",
            "secant_refine",
            "secant_refine_plain", "secant_pred", "surface_locate",
            "surface_locate_plain", "candidate_field_v3",

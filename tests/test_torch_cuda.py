@@ -200,6 +200,25 @@ def kept_f32(tags, first, head):
     return keep
 
 
+FLAGSHIP_PRECISIONS = {"f32": (None, ()), "bf16": ("bf16", ()),
+                       "bf16_sel_f32": ("bf16", ("d0", "dh", "c0", "ch"))}
+
+
+def flagship_weights(prec, seed=0):
+    """The flagship MLPs (W = 256, dims 32/32, multires 8/2/2/4) in one of
+    FLAGSHIP_PRECISIONS, CPU tensors, with random_context's kw."""
+    dtype, tags = FLAGSHIP_PRECISIONS[prec]
+    inp = random_context(seed=seed, B=1, S=1, C=8, **WIDE)
+
+    def ws(lst, first, head):
+        low = low_precision_mask(lst, dtype, kept_f32(tags, first, head),
+                                 len(first))
+        return [torch.from_numpy(w).to(torch.bfloat16) if lo
+                else torch.from_numpy(w) for w, lo in zip(lst, low)]
+    return (ws(inp["dws"], (0, 1), len(inp["dws"]) - 2),
+            ws(inp["cws"], (0,), len(inp["cws"]) - 2), inp["kw"])
+
+
 def no_tie_mask(xyz, geo, k=8, eps=1e-6):
     """(B, S) samples whose k-th and k+1-th candidate distances are well
     separated (near-ties legitimately select differently)."""
@@ -1139,3 +1158,188 @@ def test_field_fused_launches_on_its_operands_device_and_stream(want,
         assert torch.cuda.current_device() == 0
     assert kernels.LAUNCHES["field_fused"][want] == 1
     assert_field_close(got, ref, mask, want, dt)
+
+
+# ---------------------------------------------------------------------------
+# the warp-specialised tile kernels' persistent grid and shared-memory plan
+# ---------------------------------------------------------------------------
+
+def _sm_count():
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+# tile counts against the persistent grid (one block an SM): below, equal,
+# one above, more than two tiles a block
+GRID_OFFSETS = ("below", "equal", "above", "twice")
+
+
+def _tiles(offset):
+    n = _sm_count()
+    return {"below": n - 1, "equal": n, "above": n + 1,
+            "twice": 2 * n + 5}[offset]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", GRID_OFFSETS)
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("want,dtype", [("density", None),
+                                        ("density", "bf16"),
+                                        ("density_nabla", "bf16"),
+                                        ("full", None), ("full", "bf16")])
+def test_field_fused_persistent_tile_counts_on_card(want, dtype, k, offset):
+    """field_fused at tile counts below, equal to and above the persistent
+    grid and at more than two tiles a block: S = 64 (one tile a context),
+    and S = 100 (two tiles a context, the second ragged) on half as many
+    contexts; every held sample against the plain version, one launch."""
+    _need_card()
+    n = _tiles(offset)
+    for B, S in ((n, 64), (-(-n // 2), 100)):
+        inp = random_context(seed=70 + n + S + k, B=B, S=S, C=96)
+        mask = no_tie_mask(inp["xyz"], inp["geo"], k=k)
+        kernels.reset_launch_counts()
+        got = [o.cpu().numpy() for o in
+               torch_field(inp, want, k, dtype, (), device="cuda")]
+        assert kernels.LAUNCHES["field_fused"][want] == 1
+        ref = [o.cpu().numpy() for o in
+               torch_field(inp, want, k, dtype, (), device="cuda",
+                           plain=True)]
+        assert_field_close(got, ref, mask, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", GRID_OFFSETS)
+@pytest.mark.parametrize("rebracket,frozen", [(True, False), (False, False),
+                                              (False, True), (True, True)])
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+def test_secant_refine_persistent_tile_counts_on_card(dtype, rebracket,
+                                                      frozen, offset):
+    """secant_refine at ray-block counts below, equal to and above the
+    persistent grid and beyond twice it (T = 64 rays a context), every
+    option, against the plain version."""
+    _need_card()
+    B = _tiles(offset)
+    inp = random_context(seed=80 + B, B=B, C=96)
+    br = brackets(81 + B, B * 64)
+    got = torch_secant(inp, br, rebracket, frozen, dtype, "cuda")
+    ref = torch_secant(inp, br, rebracket, frozen, dtype, "cuda", plain=True)
+    assert_roots_close(got.cpu().numpy(), ref.cpu().numpy(), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ties", "pads"])
+@pytest.mark.parametrize("k", [1, 8])
+@pytest.mark.parametrize("want,dtype", [("density", None),
+                                        ("density_nabla", "bf16"),
+                                        ("full", None), ("full", "bf16")])
+@pytest.mark.parametrize("B,S", [(1, 300), (9, 16)])
+def test_field_fused_at_ties_and_pads_on_card(B, S, want, dtype, k, kind):
+    """distance_context's exact ties (duplicate vertices, samples on a
+    vertex) and pads (pad columns, 1e9 sentinels, a context with fewer
+    live candidates than k) through the tile kernel, one context (B = 1)
+    and several a block: the kernel and the plain version pick the same
+    candidates, so every held sample agrees at the tolerances."""
+    _need_card()
+    inp = distance_context(kind, seed=90 + k, B=max(B, 3), S=S, C=96)
+    if B < 3:
+        inp = dict(inp, **{n: inp[n][:B] for n in ("xyz", "dirs", "geo",
+                                                   "feat", "held")})
+    got = [o.cpu().numpy() for o in
+           torch_field(inp, want, k, dtype, (), device="cuda")]
+    ref = [o.cpu().numpy() for o in
+           torch_field(inp, want, k, dtype, (), device="cuda", plain=True)]
+    assert_field_close(got, ref, inp["held"], want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec", ["f32", "bf16", "bf16_sel_f32"])
+def test_smem_plan_mirror_matches_the_c_entries_on_card(prec, monkeypatch):
+    """kernels.tile_smem_plan against the libraries' own `_smem` entries
+    (field_smem / secant_smem) at the flagship width: the same bytes for
+    every mode and the secant, at tile and per-ray shapes."""
+    import ctypes
+
+    from neumesh_tpu_torch.ops import _build
+    _need_card()
+    seen, launch = [], _build.launch
+
+    def probed(name, args, operand):
+        launch(name, args, operand)
+        src, entry = _build.ENTRY[name]
+        fn = getattr(_build._lib(src), entry + "_smem")
+        seen.append(fn(ctypes.addressof(args)))
+    monkeypatch.setattr(_build, "launch", probed)
+    dws, cws, kw = flagship_weights(prec)
+    dws = [w.cuda() for w in dws]
+    cws = [w.cuda() for w in cws]
+    low = torch.bfloat16 if prec != "f32" else None
+    for C, B, S in ((128, 8, 1024), (96, 509, 1), (96, 509, 16),
+                    (70, 3, 37)):
+        for want in ("density", "density_nabla", "full"):
+            F = 64 if want == "full" else 32
+            xyz = torch.rand(B, S, 3, device="cuda")
+            geo = torch.rand(B, 8, C, device="cuda")
+            feat = torch.rand(B, C, F, device="cuda")
+            args = (xyz, geo, feat, 0.1, dws,
+                    cws if want == "full" else None, xyz)
+            call = dict(want=want, dtype=low, **kw)
+            kernels.field_fused(*args, **call)
+            assert seen.pop() == kernels.tile_smem_plan(
+                "field_fused", *args, **call)["bytes"], (C, B, S, want)
+        rays = torch.rand(B * S, 3, device="cuda")
+        d = torch.rand(B * S, device="cuda")
+        sargs = (rays, rays, d, d, d, d, geo, feat[..., :32], 0.1, dws)
+        skw = dict(multires_d=kw["multires_d"], multires_fg=kw["multires_fg"],
+                   geometry_dim=32, dtype=low)
+        kernels.secant_refine(*sargs, **skw)
+        assert seen.pop() == kernels.tile_smem_plan(
+            "secant_refine", *sargs, **skw)["bytes"], (C, B, S)
+
+
+# each warpgroup's epilogue writes a layer's outputs over the inputs that
+# the other warpgroups' products read: at the flagship width with the
+# selective-f32 layers (d0 reads f32 rows and writes a bf16 tile over the
+# same bytes) and several tiles a persistent block, a missing barrier
+# shows as launches that differ, where a 97% share against the plain
+# version could still pass
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("want", ["density", "density_nabla", "full"])
+def test_field_fused_layers_in_place_at_many_tiles_a_block_on_card(want,
+                                                                   seed):
+    """bf16 with f32 d0, dh, c0, ch at W = 256 on 4 x SMs + 3 tiles (S =
+    64): three launches bit-equal, and against the plain version."""
+    _need_card()
+    inp = random_context(seed=100 + seed, B=4 * _sm_count() + 3, S=64, C=96,
+                         **WIDE)
+    runs = [[o.cpu().numpy() for o in
+             torch_field(inp, want, 8, "bf16", SEL_F32, device="cuda")]
+            for _ in range(3)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            np.testing.assert_array_equal(a, b)
+    ref = [o.cpu().numpy() for o in
+           torch_field(inp, want, 8, "bf16", SEL_F32, device="cuda",
+                       plain=True)]
+    assert_field_close(runs[0], ref, no_tie_mask(inp["xyz"], inp["geo"]),
+                       want, "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("frozen", [False, True])
+def test_secant_refine_layers_in_place_at_many_tiles_a_block_on_card(
+        frozen, seed):
+    """The re-bracketing secant, bf16 with f32 d0 and dh at W = 256 on 4 x
+    SMs + 3 ray blocks: three launches bit-equal, and against the plain
+    version."""
+    _need_card()
+    B = 4 * _sm_count() + 3
+    inp = random_context(seed=110 + seed, B=B, C=96, **WIDE)
+    br = brackets(120 + seed, B * 64)
+    runs = [torch_secant(inp, br, True, frozen, "bf16", "cuda",
+                         tags=SEL_F32).cpu().numpy() for _ in range(3)]
+    for other in runs[1:]:
+        np.testing.assert_array_equal(runs[0], other)
+    ref = torch_secant(inp, br, True, frozen, "bf16", "cuda", plain=True,
+                       tags=SEL_F32)
+    assert_roots_close(runs[0], ref.cpu().numpy(), "bf16")

@@ -11,8 +11,9 @@ import torch
 
 from neumesh_tpu.ops.pallas_kernels import field_fused as jax_field
 from neumesh_tpu_torch.ops import kernels
-from test_torch_cuda import (FIELD_CASES, WIDE, assert_distance_close,
-                             assert_field_close, distance_context, kept_f32,
+from test_torch_cuda import (FIELD_CASES, FLAGSHIP_PRECISIONS, WIDE,
+                             assert_distance_close, assert_field_close,
+                             distance_context, flagship_weights, kept_f32,
                              low_precision_mask, no_tie_mask, random_context,
                              torch_distance, torch_field)
 
@@ -189,3 +190,89 @@ def test_split_f32_layers_meet_the_f32_tolerances(want, monkeypatch):
     every = np.ones(inp["xyz"].shape[:2], bool)
     assert_field_close([g.numpy() for g in got], [e.numpy() for e in exact],
                        every, want, None)
+
+
+def _ulps(a, b):
+    """|a - b| in units in the last place of float32 (ordered bit
+    patterns: 0 and -0 one value)."""
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    ia = torch.where(ia < 0, -2 ** 31 - ia, ia)
+    ib = torch.where(ib < 0, -2 ** 31 - ib, ib)
+    return (ia - ib).abs()
+
+
+def _softplus_grid():
+    """A dense float32 grid over 100 x in [-300, 300] (both branches of
+    the threshold at 100 x = 20, exp(-100 x) overflowing below -88.7) and
+    log-spaced magnitudes from 1e-8 to 1e2 of either sign."""
+    mags = torch.logspace(-8, 2, 20001)
+    return torch.cat([torch.linspace(-3, 3, 1200001), mags, -mags,
+                      torch.tensor([0.0, 0.2, -0.2, 0.19999999])])
+
+
+def test_one_exponential_softplus_matches_softplus100():
+    """kernels.softplus100_pair (the tile kernels' exact epilogue: softplus
+    and its derivative from one exp(-|100 x|)) against nn.softplus100 /
+    softplus100_grad: the value bit for bit; the derivative within 3 ulp
+    of sigmoid's 1 / (1 + exp(-100 x)) and within 2 ulp of the float64
+    value (at the float32 100 x) where that is a normal float32, as
+    accurate as sigmoid itself
+    (which errs by up to 2 ulp there: the two forms round differently,
+    so no form with one exponential agrees with it to 1 ulp everywhere);
+    0 where sigmoid's exponential overflows."""
+    from neumesh_tpu_torch.nn import softplus100, softplus100_grad
+    x = _softplus_grid()
+    h, g = kernels.softplus100_pair(x)
+    assert torch.equal(h, softplus100(x))
+    ref = softplus100_grad(x)
+    assert int(_ulps(g, ref).max()) <= 3
+    # the float64 derivative at the float32 product 100 x both forms take
+    bx = 100.0 * x
+    truth = torch.where(bx > 20.0, torch.ones_like(x),
+                        torch.sigmoid(bx.double()).float())
+    normal = truth.abs() >= torch.finfo(torch.float32).tiny
+    assert int(_ulps(g, truth)[normal].max()) <= \
+        int(_ulps(ref, truth)[normal].max()) <= 2
+    over = 100.0 * x < -88.8
+    assert bool(over.any()) and bool((g[over] == 0).all())
+    assert bool((g[100.0 * x > 20.0] == 1).all())
+
+
+def test_bf16_epilogue_form_is_within_its_rounding():
+    """kernels.softplus100_bf16_form (the algebra of the epilogue whose
+    output is rounded to bf16 next: the series for log1p below e = 2^-7,
+    the product 0.01, e r) against the float64 softplus100 and its
+    derivative: relative error below 2^-16, far under bf16's 2^-9."""
+    from neumesh_tpu_torch.nn import softplus100, softplus100_grad
+    x = _softplus_grid()
+    h, g = kernels.softplus100_bf16_form(x)
+    th, tg = softplus100(x.double()), softplus100_grad(x.double())
+    for got, want in ((h, th), (g, tg)):
+        held = want.abs() > 1e-30
+        rel = (got.double() - want).abs()[held] / want.abs()[held]
+        assert float(rel.max()) < 2.0 ** -16
+
+
+@pytest.mark.parametrize("C", [1, 8, 70, 96, 128])
+@pytest.mark.parametrize("want", ["density", "density_nabla", "full"])
+@pytest.mark.parametrize("prec", list(FLAGSHIP_PRECISIONS))
+def test_field_smem_plan_fits_at_flagship_width(prec, want, C):
+    """kernels.tile_smem_plan (the mirror of field_fused.cu's shared-memory
+    plan) at the flagship width for C <= 128 candidates, every mode, in
+    bf16, selective-f32 and f32, at the A/B's tile shape and the render
+    CLI's per-ray ones: every block within the 227 KB a block may use;
+    warp-specialised with a weight ring of 2..8 slots, at least 3 in bf16
+    at the tile shape."""
+    dws, cws, kw = flagship_weights(prec)
+    F = 64 if want == "full" else 32
+    for B, S in ((512, 1024), (512, 512), (4096, 1), (4096, 16),
+                 (4096, 127), (7, 37), (1, 65)):
+        xyz = torch.zeros(B, S, 3)
+        plan = kernels.tile_smem_plan(
+            "field_fused", xyz, torch.zeros(B, 8, C), torch.zeros(B, C, F),
+            0.1, dws, cws if want == "full" else None, xyz, want=want, **kw)
+        assert plan["fits"] and plan["bytes"] <= 227 * 1024, (B, S, plan)
+        assert plan["ws"]
+        assert 2 <= plan["ring"] <= 8
+        if prec == "bf16" and (B, S) == (512, 1024):
+            assert plan["ring"] >= 3 and plan["staged"] == 1

@@ -12,8 +12,8 @@ import torch
 from neumesh_tpu.ops.pallas_kernels import secant_refine as jax_secant
 from neumesh_tpu_torch.ops import kernels
 from test_torch_cuda import (SECANT_CASES, WIDE, assert_roots_close,
-                             brackets, low_precision_mask, random_context,
-                             torch_secant)
+                             brackets, flagship_weights, low_precision_mask,
+                             random_context, torch_secant)
 from test_torch_field_kernel import split_dot
 
 
@@ -91,3 +91,57 @@ def test_secant_through_split_f32_layers_at_one_ray_a_context(
     got = torch_secant(inp, br, rebracket, frozen, None, plain=True)
     assert not torch.equal(got, exact)
     assert_roots_close(got.numpy(), exact.numpy(), None)
+
+
+@pytest.mark.parametrize("sms", [7, 132, 100_000])
+@pytest.mark.parametrize("R", [1, 16, 37, 64, 65, 1024])
+def test_persistent_schedule_covers_every_row_once(R, sms):
+    """kernels.persistent_schedule (the warp-specialised kernels' grid of
+    min(tiles, SMs) blocks, block b taking tiles b, b + grid, ...) with
+    block_plan's rows, for B in {1, 7, 509, 512} contexts of R rows (S or
+    T) and grids smaller and larger than the SM count: every (context,
+    row) computed once by one live row of one tile of one block; every
+    block takes at least one tile, the loads of two blocks differ by at
+    most one tile."""
+    for B in (1, 7, 509, 512):
+        ctx, row, live = kernels.block_plan(B, R)
+        sched = kernels.persistent_schedule(B, R, sms)
+        n = kernels.tile_blocks(B, R)
+        assert n == ctx.shape[0]
+        assert len(sched) == min(n, sms)
+        tiles = [t for blk in sched for t in blk]
+        assert sorted(tiles) == list(range(n))
+        sizes = [len(blk) for blk in sched]
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        order = torch.tensor(tiles)
+        flat = (ctx[order] * R + row[order])[live[order]]
+        assert torch.equal(torch.sort(flat).values, torch.arange(B * R))
+
+
+@pytest.mark.parametrize("C", [1, 8, 70, 96, 128])
+@pytest.mark.parametrize("prec", ["f32", "bf16", "bf16_sel_f32"])
+def test_secant_smem_plan_fits_at_flagship_width(prec, C):
+    """kernels.tile_smem_plan for secant_refine at the flagship width, C
+    <= 128, in bf16, selective-f32 and f32, with and without the frozen
+    selection (whose picks only its instantiations carve), at the serving
+    shape (128 rays a tile) and the per-ray ones (T = 1, 16, 37, 63):
+    within 227 KB; warp-specialised (every instantiation but f32 layers
+    without the frozen selection) with a ring of 2..8 slots, at least 3 in
+    bf16, else the two slots of the serial block."""
+    dws, _, kw = flagship_weights(prec)
+    for frozen in (False, True):
+        for B, T in ((512, 128), (4096, 1), (4096, 16), (64, 37), (3, 63)):
+            rays = torch.zeros(B * T, 3)
+            d = torch.zeros(B * T)
+            plan = kernels.tile_smem_plan(
+                "secant_refine", rays, rays, d, d, d, d,
+                torch.zeros(B, 8, C), torch.zeros(B, C, 32), 0.1, dws,
+                multires_d=kw["multires_d"], multires_fg=kw["multires_fg"],
+                geometry_dim=32, frozen_knn=frozen)
+            assert plan["fits"] and plan["bytes"] <= 227 * 1024, \
+                (B, T, plan)
+            assert plan["ws"] == (frozen or prec == "bf16")
+            assert (2 <= plan["ring"] <= 8 if plan["ws"]
+                    else plan["ring"] == 2)
+            if prec == "bf16":
+                assert plan["ring"] >= 3
