@@ -1,0 +1,7 @@
+"""Device kernels launched a frame, counted in the profiler's trace."""
+
+
+def read(rec):
+    if rec["iters"] <= 0 or rec["launches"] <= 0:
+        return None
+    return rec["launches"] / rec["iters"]
