@@ -24,6 +24,7 @@ from torch import nn
 
 from ..nn import (Linear, get_embedder, maybe_wnorm_apply,
                   maybe_wnorm_linear, softplus100, torch_default_init)
+from ..utils.trace import spanned
 
 
 def _rng(seed_or_rng):
@@ -115,6 +116,7 @@ class ImplicitSurface(nn.Module):
         feat = out[..., 1:] if self.W_geo_feat > 0 else h
         return (sdf, feat) if return_h else sdf
 
+    @spanned("field.nablas")
     def forward_with_nablas(self, x):
         """(sdf (...,), nablas (..., 3), geometry feature (..., F)); the
         nablas are d sdf / d x by autograd, differentiable again when grad

@@ -34,6 +34,7 @@ from ...mesh.grid import MeshGrid
 from ...nn import (Linear, WNLinear, get_embedder, maybe_wnorm_apply,
                    maybe_wnorm_apply_parts, softplus100)
 from ...ops import interp, kernels
+from ...utils.trace import count, span, spanned
 
 
 class NeuMesh(nn.Module):
@@ -366,6 +367,7 @@ class NeuMesh(nn.Module):
     # ------------------------------------------------------------------
     # per-ray candidate contexts
     # ------------------------------------------------------------------
+    @spanned("ctx.build")
     def make_ray_context(self, rays_o, rays_d, near, far, n_probes: int = 8,
                          kp_per_probe=None, max_candidates=None,
                          for_bounds: bool = False):
@@ -417,6 +419,7 @@ class NeuMesh(nn.Module):
     # ------------------------------------------------------------------
     # tile-shared candidate contexts
     # ------------------------------------------------------------------
+    @spanned("ctx.build")
     def make_tile_context(self, rays_o, rays_d, near, far, tile: int,
                           n_probes: int = 16, kp_per_probe=None,
                           max_candidates=None):
@@ -494,6 +497,9 @@ class NeuMesh(nn.Module):
 
     def _flat_cells(self, probes):
         grid = self.mesh_grid.grid
+        # blocks: a copy from pageable host memory waits for the device's
+        # queue
+        count("host_read")
         dims = torch.as_tensor(grid.dims, device=probes.device)
         cell = torch.floor((probes - grid.origin) * grid.inv_h).to(
             torch.int64)
@@ -577,6 +583,7 @@ def _segment_d2(px, py, pz, o, d, lo, hi):
     return ov0 * ov0 + ov1 * ov1 + ov2 * ov2 - (2.0 * t_c - u) * u
 
 
+@spanned("ctx.bounds")
 def candidate_bounded_near_far_tiled(ctx, rays_o, rays_d, near, far,
                                      tile: int,
                                      distance_thresh: float = 0.1):
@@ -611,6 +618,7 @@ def candidate_bounded_near_far_tiled(ctx, rays_o, rays_d, near, far,
     return near_new.reshape(R, 1), far_new.reshape(R, 1)
 
 
+@spanned("ctx.bounds")
 def candidate_bounded_near_far(ctx, rays_o, rays_d, near, far,
                                distance_thresh: float = 0.1):
     """Per-ray near/far tightened to where the ray passes within
@@ -664,7 +672,10 @@ class RayBoundNeuMesh:
         """w1 as a host float, read back from the device once per binding
         (each read waits for the device's queue)."""
         if self._w1 is None:
-            self._w1 = float(self.model.forward_indicator_weight())
+            w1 = self.model.forward_indicator_weight()
+            count("host_read")          # blocks: a read back to the host
+            with span("sync.indicator_weight"):
+                self._w1 = float(w1)
         return self._w1
 
     def _field_weights(self, f32_override=None):
@@ -674,8 +685,12 @@ class RayBoundNeuMesh:
         layer split into its d-embedding / fg row blocks. f32_override
         replaces the tag set (() for the low-precision secant)."""
         key = None if f32_override is None else tuple(f32_override)
-        if key in self._weights:
-            return self._weights[key]
+        if key not in self._weights:
+            self._weights[key] = self._fold_weights(f32_override)
+        return self._weights[key]
+
+    @spanned("weights.fold")
+    def _fold_weights(self, f32_override):
         m = self.model
         dt = m.compute_dtype
         f32 = m.f32_layers if f32_override is None else f32_override
@@ -698,8 +713,7 @@ class RayBoundNeuMesh:
         for p in m.views_linears[1:]:
             cws += [eff(p, "color"), p.b[None]]
         cws += [eff(m.color_linear, "color", "ch"), m.color_linear.b[None]]
-        self._weights[key] = (tuple(dws), tuple(cws))
-        return self._weights[key]
+        return tuple(dws), tuple(cws)
 
     def _scan_ctx_slice(self, geo, feat=None):
         """(geo, feat) cut to the scan_candidates nearest prefix when the

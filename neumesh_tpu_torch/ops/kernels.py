@@ -26,25 +26,25 @@ import math
 import torch
 
 from ..nn import softplus100, softplus100_grad
+from ..utils import trace
 
 _N_OUT = {"distance": 1, "density": 1, "density_nabla": 4, "full": 7}
 _CAND_MODES = ("ds_feat", "ds_nofeat", "ds_dh_feat", "ds_dh_nofeat")
 
-# launches of each kernel per mode, counted where the kernel is launched
+# launches of each kernel per mode, counted where the kernel is launched:
+# views of the counters "launch.<kernel>.<mode>" of utils.trace
 LAUNCHES = {
-    "field_fused": {w: 0 for w in _N_OUT},
-    "secant_refine": {"plain": 0, "rebracket": 0, "frozen": 0,
-                      "frozen_rebracket": 0},
-    "surface_locate": {"bf16": 0, "f32": 0},
-    "candidate_field_v3": {m: 0 for m in _CAND_MODES},
-    "candidate_field": {m: 0 for m in _CAND_MODES},
-}
+    name: trace.CounterView(f"launch.{name}.", modes) for name, modes in (
+        ("field_fused", _N_OUT),
+        ("secant_refine", ("plain", "rebracket", "frozen",
+                           "frozen_rebracket")),
+        ("surface_locate", ("bf16", "f32")),
+        ("candidate_field_v3", _CAND_MODES),
+        ("candidate_field", _CAND_MODES))}
 
 
 def reset_launch_counts() -> None:
-    for modes in LAUNCHES.values():
-        for m in modes:
-            modes[m] = 0
+    trace.reset("launch.")
 
 
 def secant_mode(rebracket: bool, frozen: bool) -> str:
@@ -333,7 +333,7 @@ def field_fused(xyz, geo, feat, w1, dens_ws=(), col_ws=None, dirs=None, *,
                                  **kw)
     out, launched = _field_launch(xyz, geo, feat, w1, dens_ws, col_ws, dirs,
                                   **kw)
-    LAUNCHES["field_fused"][want] += launched
+    trace.count(f"launch.field_fused.{want}", launched)
     return out
 
 
@@ -523,8 +523,8 @@ def secant_refine(rays_o, rays_d, d_low, d_high, f_low, f_high, geo, feat,
                                    f_high, geo, feat, w1, dens_ws, **kw)
     out, launched = _secant_launch(rays_o, rays_d, d_low, d_high, f_low,
                                    f_high, geo, feat, w1, dens_ws, **kw)
-    LAUNCHES["secant_refine"][secant_mode(d_low_w is not None,
-                                          frozen_knn)] += launched
+    trace.count("launch.secant_refine."
+                + secant_mode(d_low_w is not None, frozen_knn), launched)
     return out
 
 
@@ -701,7 +701,8 @@ def surface_locate(rays_o, rays_d, near, far, geo, feat, w1, dens_ws, *,
     args, _keep = _locate_args(rays_o, rays_d, near, far, geo, feat, w1,
                                dens_ws, out, **kw)
     _build.launch("surface_locate", args, rays_o)
-    LAUNCHES["surface_locate"]["f32" if dtype is None else "bf16"] += 1
+    trace.count("launch.surface_locate." + ("f32" if dtype is None
+                                             else "bf16"))
     return out[0], out[1] > 0.5, out[2] > 0.5, out[3] > 0.5
 
 
@@ -783,8 +784,8 @@ def candidate_field_v3(xyz, geo, feat, w1, *, k: int = 8,
             out_feat=_ptr(feats, keep), B=B, S=S, C=C, F=F, k=k,
             want_dh=int(want_dh), want_feat=int(want_feat), w1=float(w1))
         _build.launch("candidate_field_v3", args, xyz)
-        LAUNCHES["candidate_field_v3"][candidate_mode(want_dh,
-                                                      want_feat)] += 1
+        trace.count("launch.candidate_field_v3."
+                    + candidate_mode(want_dh, want_feat))
     return (packed[..., 0:1], packed[..., 1:4] if want_dh else None, feats)
 
 
@@ -841,7 +842,8 @@ def candidate_field(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
             out_feat=_ptr(feats, keep), B=R, S=S, C=C, F=F, k=k,
             want_dh=int(want_dh), want_feat=int(want_feat), w1=float(w1))
         _build.launch("candidate_field", args, xyz)
-        LAUNCHES["candidate_field"][candidate_mode(want_dh, want_feat)] += 1
+        trace.count("launch.candidate_field."
+                    + candidate_mode(want_dh, want_feat))
     return ds, dh, feats
 
 
@@ -941,6 +943,7 @@ def _pack_index(shapes, device):
     return torch.cat(parts).to(device), tuple(dims)
 
 
+@trace.spanned("weights.pack")
 def _pack(layers):
     """Hidden layers [(w (K, N), split)], all bf16 or all f32, in the tile
     stage's layout -> (packed bf16, [(offset, kp1, kp)] per layer; offset

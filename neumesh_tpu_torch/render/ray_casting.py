@@ -11,6 +11,7 @@ from .. import resolve_device, set_fp32_precision
 from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.kernels import secant_pred
 from ..ops.rays import block_order_indices, get_rays, near_far_from_sphere
+from ..utils.trace import count, count_device, span, spanned
 
 
 def run_secant_method(f_low, f_high, d_low, d_high, rays_o, rays_d,
@@ -46,61 +47,67 @@ def root_finding_surface_points(surface_query_fn, rays_o, rays_d, near, far,
     every hit, as the JAX package does. Returns (d_pred (R,), pt_pred (R, 3), mask, mask_sign_change)."""
     R = rays_o.shape[0]
     dev = rays_o.device
-    t = torch.linspace(0.0, 1.0, N_steps, device=dev)
-    d_proposal = near[..., None] * (1 - t) + far[..., None] * t
-    p_proposal = rays_o[:, None, :] + d_proposal[..., None] * rays_d[:, None, :]
-    val = surface_query_fn(p_proposal) - logit_tau             # (R, N_steps)
+    with span("surface.scan"):
+        t = torch.linspace(0.0, 1.0, N_steps, device=dev)
+        d_proposal = near[..., None] * (1 - t) + far[..., None] * t
+        p_proposal = (rays_o[:, None, :]
+                      + d_proposal[..., None] * rays_d[:, None, :])
+        val = surface_query_fn(p_proposal) - logit_tau         # (R, N_steps)
 
-    mask_0_not_occupied = val[..., 0] > 0
-    sign_matrix = torch.cat(
-        [torch.sign(val[..., :-1] * val[..., 1:]),
-         torch.ones((R, 1), device=dev)], dim=-1)
-    cost_matrix = sign_matrix * torch.arange(
-        N_steps, 0, -1, device=dev, dtype=torch.float32)
-    values = torch.amin(cost_matrix, dim=-1)
-    indices = torch.argmin(cost_matrix, dim=-1)     # first minimum
-    mask_sign_change = values < 0
-    idx1 = torch.clamp(indices + 1, max=N_steps - 1)
-    f_high = torch.gather(val, -1, indices[:, None])[:, 0]
-    d_high = torch.gather(d_proposal, -1, indices[:, None])[:, 0]
-    f_low = torch.gather(val, -1, idx1[:, None])[:, 0]
-    d_low = torch.gather(d_proposal, -1, idx1[:, None])[:, 0]
-    mask = mask_sign_change & (f_high > 0) & mask_0_not_occupied
+        mask_0_not_occupied = val[..., 0] > 0
+        sign_matrix = torch.cat(
+            [torch.sign(val[..., :-1] * val[..., 1:]),
+             torch.ones((R, 1), device=dev)], dim=-1)
+        cost_matrix = sign_matrix * torch.arange(
+            N_steps, 0, -1, device=dev, dtype=torch.float32)
+        values = torch.amin(cost_matrix, dim=-1)
+        indices = torch.argmin(cost_matrix, dim=-1)     # first minimum
+        mask_sign_change = values < 0
+        idx1 = torch.clamp(indices + 1, max=N_steps - 1)
+        f_high = torch.gather(val, -1, indices[:, None])[:, 0]
+        d_high = torch.gather(d_proposal, -1, indices[:, None])[:, 0]
+        f_low = torch.gather(val, -1, idx1[:, None])[:, 0]
+        d_low = torch.gather(d_proposal, -1, idx1[:, None])[:, 0]
+        mask = mask_sign_change & (f_high > 0) & mask_0_not_occupied
 
     do_rebracket = refine_query_fn is not None and rebracket
     fold = do_rebracket and method == "secant" and secant_override is not None
     step = (far - near) / max(N_steps - 1, 1)
-    if do_rebracket and not fold:
-        d_high_w = torch.maximum(d_high - 0.5 * step, near)
-        d_low_w = torch.minimum(d_low + 0.5 * step, far)
-        f_high_r = refine_query_fn(
-            rays_o + d_high_w[..., None] * rays_d) - logit_tau
-        f_low_r = refine_query_fn(
-            rays_o + d_low_w[..., None] * rays_d) - logit_tau
-        ok = (f_high_r > 0) & (f_low_r < 0)
-        f_high = torch.where(ok, f_high_r, f_high)
-        f_low = torch.where(ok, f_low_r, f_low)
-        d_high = torch.where(ok, d_high_w, d_high)
-        d_low = torch.where(ok, d_low_w, d_low)
+    with span("surface.secant"):
+        if do_rebracket and not fold:
+            d_high_w = torch.maximum(d_high - 0.5 * step, near)
+            d_low_w = torch.minimum(d_low + 0.5 * step, far)
+            f_high_r = refine_query_fn(
+                rays_o + d_high_w[..., None] * rays_d) - logit_tau
+            f_low_r = refine_query_fn(
+                rays_o + d_low_w[..., None] * rays_d) - logit_tau
+            ok = (f_high_r > 0) & (f_low_r < 0)
+            f_high = torch.where(ok, f_high_r, f_high)
+            f_low = torch.where(ok, f_low_r, f_low)
+            d_high = torch.where(ok, d_high_w, d_high)
+            d_low = torch.where(ok, d_low_w, d_low)
 
-    if method == "secant" and secant_override is not None:
-        kw = {}
-        if fold:
-            kw["d_high_w"] = torch.maximum(d_high - 0.5 * step, near)
-            kw["d_low_w"] = torch.minimum(d_low + 0.5 * step, far)
-        d_pred = secant_override(f_low, f_high, d_low, d_high,
-                                 N_secant_steps, logit_tau, **kw)
-    elif method == "secant":
-        secant_fn = (refine_query_fn if refine_query_fn is not None
-                     else surface_query_fn)
-        d_pred = run_secant_method(f_low, f_high, d_low, d_high, rays_o,
-                                   rays_d, secant_fn, N_secant_steps,
-                                   logit_tau)
-    else:
-        d_pred = torch.ones_like(near)
+        if method != "secant":
+            d_pred = torch.ones_like(near)
+        else:
+            count("secant.rays_refined", R)
+            count_device("secant.rays_bracketed", mask)
+            if secant_override is not None:
+                kw = {}
+                if fold:
+                    kw["d_high_w"] = torch.maximum(d_high - 0.5 * step, near)
+                    kw["d_low_w"] = torch.minimum(d_low + 0.5 * step, far)
+                d_pred = secant_override(f_low, f_high, d_low, d_high,
+                                         N_secant_steps, logit_tau, **kw)
+            else:
+                secant_fn = (refine_query_fn if refine_query_fn is not None
+                             else surface_query_fn)
+                d_pred = run_secant_method(f_low, f_high, d_low, d_high,
+                                           rays_o, rays_d, secant_fn,
+                                           N_secant_steps, logit_tau)
 
-    d_out, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask,
-                                 mask_0_not_occupied, far, fill_inf)
+        d_out, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask,
+                                     mask_0_not_occupied, far, fill_inf)
     return d_out, pt_pred, mask, mask_sign_change
 
 
@@ -215,13 +222,17 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     if (ray_casting_algo == "root_finding" and scan_mode == "distance"
             and model.use_pallas and model.use_fused_locate
             and hasattr(bound, "fused_locate")):
-        d_pred, mask, _, val0_pos = bound.fused_locate(
-            rays_o, rays_d, cfgs["near"], cfgs["far"],
-            n_steps=cfgs.get("N_steps", 24),
-            n_secant=cfgs.get("N_secant_steps", 6),
-            logit_tau=cfgs.get("logit_tau", 0.0))
-        d_pred, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask, val0_pos,
-                                      cfgs["far"], cfgs.get("fill_inf", True))
+        with span("surface.secant"):
+            d_pred, mask, _, val0_pos = bound.fused_locate(
+                rays_o, rays_d, cfgs["near"], cfgs["far"],
+                n_steps=cfgs.get("N_steps", 24),
+                n_secant=cfgs.get("N_secant_steps", 6),
+                logit_tau=cfgs.get("logit_tau", 0.0))
+            count("secant.rays_refined", R)
+            count_device("secant.rays_bracketed", mask)
+            d_pred, pt_pred = _hit_points(rays_o, rays_d, d_pred, mask,
+                                          val0_pos, cfgs["far"],
+                                          cfgs.get("fill_inf", True))
     elif ray_casting_algo == "root_finding":
         # an unbound model re-brackets whatever its secant_rebracket says,
         # as the JAX package does
@@ -238,46 +249,51 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     else:
         raise NotImplementedError(ray_casting_algo)
 
-    if shade_composite > 0:
-        from .volume import _render_core, root_anchored_depths
-        win = (shade_window if shade_window
-               else torch.clamp(6.0 / bound.forward_s(), 0.02, 0.5))
-        d_shade = root_anchored_depths(near[:, None], far[:, None], d_pred,
-                                       mask, shade_composite, win,
-                                       shade_win_frac)
-        color = _render_core(
-            bound, rays_o, rays_d, near[:, None], far[:, None],
-            white_bkgd=False, perturb=False, generator=None,
-            N_samples=shade_composite, N_importance=0, N_upsample_iters=1,
-            phi_s_base=256.0, reuse_upsample_sdf=False,
-            color_topk=shade_topk, detailed_output=False,
-            d_all_override=d_shade)["rgb"]
-        if calc_normal:
-            _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
+    with span("surface.shade"):
+        if shade_composite > 0:
+            from .volume import _render_core, root_anchored_depths
+            win = (shade_window if shade_window
+                   else torch.clamp(6.0 / bound.forward_s(), 0.02, 0.5))
+            d_shade = root_anchored_depths(near[:, None], far[:, None],
+                                           d_pred, mask, shade_composite,
+                                           win, shade_win_frac)
+            color = _render_core(
+                bound, rays_o, rays_d, near[:, None], far[:, None],
+                white_bkgd=False, perturb=False, generator=None,
+                N_samples=shade_composite, N_importance=0,
+                N_upsample_iters=1,
+                phi_s_base=256.0, reuse_upsample_sdf=False,
+                color_topk=shade_topk, detailed_output=False,
+                d_all_override=d_shade)["rgb"]
+            if calc_normal:
+                _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
+            else:
+                nablas = torch.zeros_like(pt_pred)[:, None, :]
+        elif hasattr(bound, "forward_full"):
+            _, color, nablas = bound.forward_full(pt_pred[:, None, :],
+                                                  rays_d[:, None, :])
+            color = color[:, 0]
         else:
-            nablas = torch.zeros_like(pt_pred)[:, None, :]
-    elif hasattr(bound, "forward_full"):
-        _, color, nablas = bound.forward_full(pt_pred[:, None, :],
-                                              rays_d[:, None, :])
-        color = color[:, 0]
-    else:
-        _, color = bound.forward(pt_pred[:, None, :], rays_d[:, None, :])
-        _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
-        color = color[:, 0]
-    color = torch.where(mask[:, None], color, torch.zeros_like(color))
-    nablas = nablas[:, 0]
+            _, color = bound.forward(pt_pred[:, None, :],
+                                     rays_d[:, None, :])
+            _, nablas = bound.forward_with_nablas(pt_pred[:, None, :])
+            color = color[:, 0]
+        color = torch.where(mask[:, None], color, torch.zeros_like(color))
+        nablas = nablas[:, 0]
 
-    extras = {"implicit_nablas": nablas, "mask_surface": mask}
-    if calc_normal:
-        normals = nablas / torch.clamp(
-            torch.linalg.vector_norm(nablas, dim=-1, keepdim=True), min=1e-12)
-        extras["normals_surface"] = torch.where(mask[:, None], normals,
-                                                torch.zeros_like(normals))
+        extras = {"implicit_nablas": nablas, "mask_surface": mask}
+        if calc_normal:
+            normals = nablas / torch.clamp(
+                torch.linalg.vector_norm(nablas, dim=-1, keepdim=True),
+                min=1e-12)
+            extras["normals_surface"] = torch.where(mask[:, None], normals,
+                                                    torch.zeros_like(normals))
     return (color.reshape(shape + (3,)), d_pred.reshape(shape),
             {k: v.reshape(shape + v.shape[1:]) for k, v in extras.items()})
 
 
 @torch.no_grad()
+@spanned("render.frame")
 def render_surface_image(model, c2w, K, H: int, W: int, *,
                          ray_tile: int = 128, rayschunk: int = 0,
                          N_steps: int = 128, N_secant_steps: int = 8,
@@ -291,9 +307,6 @@ def render_surface_image(model, c2w, K, H: int, W: int, *,
     kwargs go to surface_render. Returns (rgb (H, W, 3), depth (H, W),
     {"normals_surface" (H, W, 3), "mask_surface" (H, W)})."""
     dev = resolve_device(device)
-    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
-    K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
-    rays_o, rays_d = get_rays(c2w, K, H, W)
     bh = max(1, int(np.sqrt(ray_tile // 2)))
     bw = ray_tile // bh
     while bh > 1 and (H % bh or W % bw):
@@ -302,16 +315,22 @@ def render_surface_image(model, c2w, K, H: int, W: int, *,
     if ray_tile <= 1 or H % bh or W % bw:
         raise ValueError(f"ray_tile={ray_tile}: no pixel block of that many "
                          f"rays divides {H}x{W}")
-    perm, inv = block_order_indices(H, W, bh, bw)
-    perm = torch.as_tensor(perm, device=dev)
-    inv = torch.as_tensor(inv, device=dev)
-    ro, rd = rays_o[perm], rays_d[perm]
-    n = H * W
-    chunk = -(-(rayschunk or n) // ray_tile) * ray_tile
-    pad = (-n) % chunk
-    if pad:
-        ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
-        rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
+    with span("render.rays"):
+        # blocks: c2w, K, perm and inv are copies from pageable host memory
+        count("host_read", 4)
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
+        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+        rays_o, rays_d = get_rays(c2w, K, H, W)
+        perm, inv = block_order_indices(H, W, bh, bw)
+        perm = torch.as_tensor(perm, device=dev)
+        inv = torch.as_tensor(inv, device=dev)
+        ro, rd = rays_o[perm], rays_d[perm]
+        n = H * W
+        chunk = -(-(rayschunk or n) // ray_tile) * ray_tile
+        pad = (-n) % chunk
+        if pad:
+            ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
+            rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
     cfgs = {"N_steps": N_steps, "N_secant_steps": N_secant_steps,
             "fill_inf": False}
     outs = [surface_render(model, ro[i:i + chunk], rd[i:i + chunk],
@@ -323,8 +342,9 @@ def render_surface_image(model, c2w, K, H: int, W: int, *,
     def frame(parts):
         return torch.cat(parts, 0)[:n][inv].reshape(H, W, *parts[0].shape[1:])
 
-    rgb = frame([o[0] for o in outs])
-    depth = frame([o[1] for o in outs])
-    extras = {k: frame([o[2][k] for o in outs])
-              for k in ("normals_surface", "mask_surface")}
+    with span("render.assemble"):
+        rgb = frame([o[0] for o in outs])
+        depth = frame([o[1] for o in outs])
+        extras = {k: frame([o[2][k] for o in outs])
+                  for k in ("normals_surface", "mask_surface")}
     return rgb, depth, extras

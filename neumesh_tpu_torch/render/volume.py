@@ -24,9 +24,11 @@ from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.alpha import alpha_to_w, cdf_Phi_s, sdf_to_alpha
 from ..ops.rays import (block_order_indices, get_rays, near_far_from_sphere,
                         rand, sample_pdf)
+from ..utils.trace import count, span, spanned
 from .ray_casting import root_finding_surface_points
 
 
+@spanned("ctx.bounds")
 def compute_bounded_near_far(model, rays_o, rays_d, near, far,
                              sample_grid: int = 256,
                              distance_thresh: float = 0.1):
@@ -196,6 +198,7 @@ def _unflat(ret, prefix):
     return {k: v.reshape(prefix + v.shape[1:]) for k, v in ret.items()}
 
 
+@spanned("volume.root")
 def _root_anchored(model, bound, rays_o, rays_d, near, far, root_steps,
                    root_secant, root_n_fine, root_window, root_win_frac):
     """Sorted depths concentrated around the first located crossing: a
@@ -252,70 +255,71 @@ def _render_core(model, rays_o, rays_d, near, far, *, calc_normal=False,
                                       generator, N_samples, N_importance,
                                       N_upsample_iters, phi_s_base)
 
-    nablas = None
-    if calc_normal:
-        sdf, nablas = model.forward_with_nablas(at(d_all))
-    elif reuse_upsample_sdf and sdf_up is not None:
-        # inference only: the up-sampling densities carry no gradient
-        sdf = sdf_up
-    else:
-        sdf = model.forward_density_only(at(d_all))
-
-    d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
-    cdf, alpha = sdf_to_alpha(sdf, model.forward_s())
-    w = alpha_to_w(alpha)
-    view_dirs = rays_d if use_view_dirs else None
-    use_topk = (color_topk and not detailed_output
-                and not random_color_direction
-                and color_topk < d_mid.shape[-1])
-    if use_topk:
-        # radiance only at the color_topk highest-visibility midpoints,
-        # the selected mass renormalised to the ray's total
-        order = torch.sort(-w.detach(), dim=-1,
-                           stable=True).indices[..., :color_topk]
-        d_sel = torch.gather(d_mid, -1, order)
-        w_sel = torch.gather(w, -1, order)
-        pts = at(d_sel)
-        sdf_mid, rad = model.forward(pts, _dirs(view_dirs, pts))
-        renorm = (torch.sum(w, -1, keepdim=True)
-                  / (torch.sum(w_sel, -1, keepdim=True) + 1e-10))
-        rgb = torch.sum(w_sel[..., None] * rad, dim=-2) * renorm
-        dirs_mid = None
-    else:
-        pts = at(d_mid)
-        if random_color_direction:
-            # the view-independence trick of texture painting
-            rnd = rand(pts.shape, generator, dev)
-            dirs_mid = rnd / torch.linalg.vector_norm(rnd, dim=-1,
-                                                      keepdim=True)
-        else:
-            dirs_mid = _dirs(view_dirs, pts)
-        sdf_mid, rad = model.forward(pts, dirs_mid)
-        rgb = torch.sum(w[..., None] * rad, dim=-2)
-    depth = torch.sum(w / (torch.sum(w, -1, keepdim=True) + 1e-10) * d_mid,
-                      dim=-1)
-    acc = torch.sum(w, dim=-1)
-    if white_bkgd:
-        rgb = rgb + (1.0 - acc[..., None])
-    ret = {"rgb": rgb, "depth_volume": depth, "mask_volume": acc}
-    if calc_normal:
-        normals = nablas / torch.clamp(
-            torch.linalg.vector_norm(nablas, dim=-1, keepdim=True),
-            min=1e-12)
-        n_pts = min(w.shape[-1], normals.shape[-2])
-        ret["normals_volume"] = torch.sum(
-            normals[..., :n_pts, :] * w[..., :n_pts, None], dim=-2)
-    if detailed_output:
+    with span("volume.shade"):
+        nablas = None
         if calc_normal:
-            ret["implicit_nablas"] = nablas
-        ret.update(implicit_surface=sdf, radiance=rad, alpha=alpha, cdf=cdf,
-                   visibility_weights=w, d_final=d_mid)
-        if samples_output:
-            # the per-sample buffers of distillation
-            ret.update(xyz=pts, density=sdf_mid[..., None], colors=rad)
-            if dirs_mid is not None:
-                ret["dirs"] = dirs_mid
-    return ret
+            sdf, nablas = model.forward_with_nablas(at(d_all))
+        elif reuse_upsample_sdf and sdf_up is not None:
+            # inference only: the up-sampling densities carry no gradient
+            sdf = sdf_up
+        else:
+            sdf = model.forward_density_only(at(d_all))
+
+        d_mid = 0.5 * (d_all[..., 1:] + d_all[..., :-1])
+        cdf, alpha = sdf_to_alpha(sdf, model.forward_s())
+        w = alpha_to_w(alpha)
+        view_dirs = rays_d if use_view_dirs else None
+        use_topk = (color_topk and not detailed_output
+                    and not random_color_direction
+                    and color_topk < d_mid.shape[-1])
+        if use_topk:
+            # radiance only at the color_topk highest-visibility midpoints,
+            # the selected mass renormalised to the ray's total
+            order = torch.sort(-w.detach(), dim=-1,
+                               stable=True).indices[..., :color_topk]
+            d_sel = torch.gather(d_mid, -1, order)
+            w_sel = torch.gather(w, -1, order)
+            pts = at(d_sel)
+            sdf_mid, rad = model.forward(pts, _dirs(view_dirs, pts))
+            renorm = (torch.sum(w, -1, keepdim=True)
+                      / (torch.sum(w_sel, -1, keepdim=True) + 1e-10))
+            rgb = torch.sum(w_sel[..., None] * rad, dim=-2) * renorm
+            dirs_mid = None
+        else:
+            pts = at(d_mid)
+            if random_color_direction:
+                # the view-independence trick of texture painting
+                rnd = rand(pts.shape, generator, dev)
+                dirs_mid = rnd / torch.linalg.vector_norm(rnd, dim=-1,
+                                                          keepdim=True)
+            else:
+                dirs_mid = _dirs(view_dirs, pts)
+            sdf_mid, rad = model.forward(pts, dirs_mid)
+            rgb = torch.sum(w[..., None] * rad, dim=-2)
+        depth = torch.sum(w / (torch.sum(w, -1, keepdim=True) + 1e-10) * d_mid,
+                          dim=-1)
+        acc = torch.sum(w, dim=-1)
+        if white_bkgd:
+            rgb = rgb + (1.0 - acc[..., None])
+        ret = {"rgb": rgb, "depth_volume": depth, "mask_volume": acc}
+        if calc_normal:
+            normals = nablas / torch.clamp(
+                torch.linalg.vector_norm(nablas, dim=-1, keepdim=True),
+                min=1e-12)
+            n_pts = min(w.shape[-1], normals.shape[-2])
+            ret["normals_volume"] = torch.sum(
+                normals[..., :n_pts, :] * w[..., :n_pts, None], dim=-2)
+        if detailed_output:
+            if calc_normal:
+                ret["implicit_nablas"] = nablas
+            ret.update(implicit_surface=sdf, radiance=rad, alpha=alpha,
+                       cdf=cdf, visibility_weights=w, d_final=d_mid)
+            if samples_output:
+                # the per-sample buffers of distillation
+                ret.update(xyz=pts, density=sdf_mid[..., None], colors=rad)
+                if dirs_mid is not None:
+                    ret["dirs"] = dirs_mid
+        return ret
 
 
 def _dirs(view_dirs, pts):
@@ -328,32 +332,35 @@ def _upsample(model, at, near, far, perturb, generator, N_samples,
     hierarchical up-sampling -> (sorted depths, their densities)."""
     dens_fn = getattr(model, "forward_density_only_nograd",
                       model.forward_density_only)
-    _t = _linspace(N_samples, near.device)
-    d = near * (1 - _t) + far * _t
-    sdf = dens_fn(at(d))
+    with span("volume.coarse"):
+        _t = _linspace(N_samples, near.device)
+        d = near * (1 - _t) + far * _t
+        sdf = dens_fn(at(d))
     n_per = N_importance // N_upsample_iters
-    for i in range(N_upsample_iters):
-        prev_sdf, next_sdf = sdf[..., :-1], sdf[..., 1:]
-        prev_z, next_z = d[..., :-1], d[..., 1:]
-        mid_sdf = (prev_sdf + next_sdf) * 0.5
-        dot_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
-        prev_dot = torch.cat([torch.zeros_like(dot_val[..., :1]),
-                              dot_val[..., :-1]], dim=-1)
-        dot_val = torch.clamp(torch.minimum(prev_dot, dot_val), -10.0, 0.0)
-        dist = next_z - prev_z
-        prev_esti = mid_sdf - dot_val * dist * 0.5
-        next_esti = mid_sdf + dot_val * dist * 0.5
-        s_i = phi_s_base * (2 ** i)
-        prev_cdf = cdf_Phi_s(prev_esti, s_i)
-        next_cdf = cdf_Phi_s(next_esti, s_i)
-        alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
-        d_fine = sample_pdf(d, alpha_to_w(alpha), n_per, det=not perturb,
-                            generator=generator)
-        sdf_fine = dens_fn(at(d_fine))
-        d = torch.cat([d, d_fine], dim=-1)
-        sdf = torch.cat([sdf, sdf_fine], dim=-1)
-        d, order = torch.sort(d, dim=-1, stable=True)
-        sdf = torch.gather(sdf, -1, order)
+    with span("volume.upsample"):
+        for i in range(N_upsample_iters):
+            prev_sdf, next_sdf = sdf[..., :-1], sdf[..., 1:]
+            prev_z, next_z = d[..., :-1], d[..., 1:]
+            mid_sdf = (prev_sdf + next_sdf) * 0.5
+            dot_val = (next_sdf - prev_sdf) / (next_z - prev_z + 1e-5)
+            prev_dot = torch.cat([torch.zeros_like(dot_val[..., :1]),
+                                  dot_val[..., :-1]], dim=-1)
+            dot_val = torch.clamp(torch.minimum(prev_dot, dot_val), -10.0,
+                                  0.0)
+            dist = next_z - prev_z
+            prev_esti = mid_sdf - dot_val * dist * 0.5
+            next_esti = mid_sdf + dot_val * dist * 0.5
+            s_i = phi_s_base * (2 ** i)
+            prev_cdf = cdf_Phi_s(prev_esti, s_i)
+            next_cdf = cdf_Phi_s(next_esti, s_i)
+            alpha = (prev_cdf - next_cdf + 1e-5) / (prev_cdf + 1e-5)
+            d_fine = sample_pdf(d, alpha_to_w(alpha), n_per,
+                                det=not perturb, generator=generator)
+            sdf_fine = dens_fn(at(d_fine))
+            d = torch.cat([d, d_fine], dim=-1)
+            sdf = torch.cat([sdf, sdf_fine], dim=-1)
+            d, order = torch.sort(d, dim=-1, stable=True)
+            sdf = torch.gather(sdf, -1, order)
     return d, sdf
 
 
@@ -380,7 +387,9 @@ def volume_render(model, rays_o, rays_d, *, rayschunk: int = 0,
                 ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
                 rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
             outs.append(volume_render_rays(model, ro, rd, **kwargs))
-        ret = {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
+        with span("render.assemble"):
+            ret = {k: torch.cat([o[k] for o in outs], 0)[:n]
+                   for k in outs[0]}
     else:
         ret = volume_render_rays(model, rays_o, rays_d, **kwargs)
     ret = {k: v.reshape(shape + v.shape[1:]) for k, v in ret.items()}
@@ -388,6 +397,7 @@ def volume_render(model, rays_o, rays_d, *, rayschunk: int = 0,
 
 
 @torch.no_grad()
+@spanned("render.frame")
 def render_image(model, c2w, K, H: int, W: int, *, block=(8, 16),
                  device="cuda", **kwargs):
     """One frame: camera rays -> block_h x block_w pixel-block order (tile
@@ -395,15 +405,20 @@ def render_image(model, c2w, K, H: int, W: int, *, block=(8, 16),
     raster order. c2w (4, 4), K (3|4, 3|4). Returns (rgb (H, W, 3),
     depth (H, W), extras)."""
     dev = resolve_device(device)
-    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
-    K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
-    rays_o, rays_d = get_rays(c2w, K, H, W)
-    perm, inv = block_order_indices(H, W, *block)
-    perm = torch.as_tensor(perm, device=dev)
-    inv = torch.as_tensor(inv, device=dev)
-    rgb, depth, ret = volume_render(model, rays_o[perm], rays_d[perm],
-                                    device=device, **kwargs)
-    ret = {k: v[inv].reshape(H, W, *v.shape[1:]) for k, v in ret.items()}
+    with span("render.rays"):
+        # blocks: c2w, K, perm and inv are copies from pageable host memory
+        count("host_read", 4)
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
+        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+        rays_o, rays_d = get_rays(c2w, K, H, W)
+        perm, inv = block_order_indices(H, W, *block)
+        perm = torch.as_tensor(perm, device=dev)
+        inv = torch.as_tensor(inv, device=dev)
+        rays_o, rays_d = rays_o[perm], rays_d[perm]
+    rgb, depth, ret = volume_render(model, rays_o, rays_d, device=device,
+                                    **kwargs)
+    with span("render.assemble"):
+        ret = {k: v[inv].reshape(H, W, *v.shape[1:]) for k, v in ret.items()}
     return ret["rgb"], ret["depth_volume"], ret
 
 

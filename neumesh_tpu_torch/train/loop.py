@@ -47,6 +47,7 @@ from ..parallel import (ShardedGenerator, all_reduce_grads, broadcast_params,
 from ..utils.checkpoints import CheckpointIO
 from ..utils.logger import Logger
 from ..utils.print_fn import log
+from ..utils.trace import count, span, spanned
 from .optimizers import current_lr, get_optimizer
 from .pretrain import maybe_pretrain_siren
 
@@ -84,38 +85,43 @@ def build_train_step(trainer, opt, render_kwargs_train, N_rays, H, W,
     device = trainer.model.device
     params = dict(trainer.model.named_parameters())
 
+    @spanned("train.step")
     def train_step(model_input, ground_truth, generator, select_inds=None):
         _set_matmul_precision(matmul_precision, device)
         opt.zero_grad()
-        if painting:
-            ret = trainer.render_and_loss_painting(
-                model_input, ground_truth, render_kwargs_train,
-                generator=generator)
-        else:
-            ret = trainer.render_and_loss(
-                model_input, ground_truth, render_kwargs_train, N_rays, H,
-                W, generator=generator, select_inds=select_inds)
+        with span("train.forward"):
+            if painting:
+                ret = trainer.render_and_loss_painting(
+                    model_input, ground_truth, render_kwargs_train,
+                    generator=generator)
+            else:
+                ret = trainer.render_and_loss(
+                    model_input, ground_truth, render_kwargs_train, N_rays,
+                    H, W, generator=generator, select_inds=select_inds)
         total = ret["losses"]["total"]
-        if debug_nans and not bool(torch.isfinite(total)):
-            raise FloatingPointError(
-                f"non-finite total loss {float(total.detach())}")
-        total.backward()
-        if grad_mask is not None:
-            with torch.no_grad():
-                for name, m in grad_mask.items():
-                    if params[name].grad is not None:
-                        params[name].grad.mul_(m)
+        if debug_nans:
+            count("host_read")          # blocks: a read back to the host
+            if not bool(torch.isfinite(total)):
+                raise FloatingPointError(
+                    f"non-finite total loss {float(total.detach())}")
         scalars = {k: v.detach() for k, v in ret["losses"].items()}
-        if dist.is_initialized():
-            # each rank's terms average to the global batch's
-            all_reduce_grads([p for _, p in opt.params])
-            keys = list(scalars)
-            mean = global_sum(torch.stack([scalars[k] for k in keys])) \
-                / dist.process_count()
-            scalars = dict(zip(keys, mean))
+        with span("train.backward"):
+            total.backward()
+            if grad_mask is not None:
+                with torch.no_grad():
+                    for name, m in grad_mask.items():
+                        if params[name].grad is not None:
+                            params[name].grad.mul_(m)
+            if dist.is_initialized():
+                # each rank's terms average to the global batch's
+                all_reduce_grads([p for _, p in opt.params])
+                keys = list(scalars)
+                mean = global_sum(torch.stack([scalars[k] for k in keys])) \
+                    / dist.process_count()
+                scalars = dict(zip(keys, mean))
         scalars["psnr"] = ret["extras"]["psnr"].detach()
         scalars.update(ret["extras"].get("scalars", {}))
-        with torch.no_grad():
+        with span("train.grad_norm"), torch.no_grad():
             scalars["grad_norm"] = torch.sqrt(sum(
                 torch.sum(p.grad * p.grad) for _, p in opt.params
                 if p.grad is not None))

@@ -22,6 +22,8 @@ from typing import Callable
 
 import torch
 
+from ..utils.trace import spanned
+
 
 def _f32(x):
     return torch.as_tensor(x, dtype=torch.float32)
@@ -108,6 +110,7 @@ class Adam:
             p.grad = None
 
     @torch.no_grad()
+    @spanned("train.adam")
     def step(self) -> None:
         f = float(self.factor_fn(self.count * self.step_scale))
         t = self.count + 1

@@ -21,6 +21,7 @@ from ..ops import rays as rays_ops
 from ..ops.metrics import psnr
 from ..parallel import dist, global_sum
 from ..render.volume import volume_render_rays
+from ..utils.trace import span, spanned
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "float32": None, "f32": None}
@@ -96,20 +97,21 @@ class Trainer:
         render's perturbations. A parallel.ShardedGenerator draws them at
         the global batch's shape and keeps this rank's rays (N_rays is
         then the global count a view)."""
-        rays_o, rays_d, select_inds = rays_ops.get_rays(
-            model_input["c2w"], model_input["intrinsics"], H, W,
-            N_rays=N_rays, generator=generator, select_inds=select_inds)
         w = self.loss_weights
         use_distill = w["distill_density"] > 0 or w["distill_color"] > 0
         use_eikonal = w["eikonal"] > 0
-        extras = volume_render_rays(
-            self.model, rays_o, rays_d, detailed_output=True,
-            samples_output=use_distill,
-            calc_normal=use_eikonal or render_kwargs_train.get(
-                "calc_normal", False),
-            generator=generator,
-            **{k: v for k, v in render_kwargs_train.items()
-               if k not in ("calc_normal", "rayschunk", "batched")})
+        with span("train.render"):
+            rays_o, rays_d, select_inds = rays_ops.get_rays(
+                model_input["c2w"], model_input["intrinsics"], H, W,
+                N_rays=N_rays, generator=generator, select_inds=select_inds)
+            extras = volume_render_rays(
+                self.model, rays_o, rays_d, detailed_output=True,
+                samples_output=use_distill,
+                calc_normal=use_eikonal or render_kwargs_train.get(
+                    "calc_normal", False),
+                generator=generator,
+                **{k: v for k, v in render_kwargs_train.items()
+                   if k not in ("calc_normal", "rayschunk", "batched")})
         target_rgb = _take(ground_truth["rgb"], select_inds)
         target_mask = None
         if w["mask"] > 0:
@@ -139,12 +141,13 @@ class Trainer:
               if k not in ("calc_normal", "rayschunk", "batched")}
 
         def render_group(suffix, samples_output, random_direction):
-            extras = volume_render_rays(
-                self.model, model_input["rays_o_" + suffix][:, None, :],
-                model_input["rays_d_" + suffix][:, None, :],
-                detailed_output=True, samples_output=samples_output,
-                random_color_direction=random_direction,
-                generator=generator, **kw)
+            with span("train.render"):
+                extras = volume_render_rays(
+                    self.model, model_input["rays_o_" + suffix][:, None, :],
+                    model_input["rays_d_" + suffix][:, None, :],
+                    detailed_output=True, samples_output=samples_output,
+                    random_color_direction=random_direction,
+                    generator=generator, **kw)
             return (extras["rgb"], ground_truth["rgb_" + suffix][:, None, :],
                     model_input["mask_" + suffix][:, None], extras)
 
@@ -160,6 +163,7 @@ class Trainer:
             extras, mask=torch.cat([mask_p, mask_b], 0),
             use_distill_loss=True)
 
+    @spanned("train.teacher")
     def _teacher(self, xyz, dirs):
         """Teacher (sdf, radiance) at the distillation samples, without
         gradient, in f32."""
@@ -172,6 +176,7 @@ class Trainer:
                     sdf, rad = self.teacher_model.forward(xyz, dirs)
         return sdf.float(), rad.float()
 
+    @spanned("train.loss")
     def compute_loss(self, rgb, target_rgb, extras: dict, mask=None,
                      mask_ignore=None, use_eikonal_loss: bool = False,
                      use_distill_loss: bool = False,

@@ -3,7 +3,7 @@ neumesh_tpu/train/loop.py's debug_nans and profile_dir), through the
 port's main_function on the CPU with a tiny NeuMesh: with debug_nans a
 non-finite loss raises FloatingPointError (and anomaly detection is off
 again afterwards); with profile_dir the run writes a torch.profiler
-Chrome trace."""
+Chrome trace that holds the program's nm.* spans."""
 import json
 import math
 import os
@@ -73,3 +73,6 @@ def test_profile_dir_writes_a_chrome_trace(scene):
         trace = json.load(f)
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("aten::" in n for n in names), sorted(names)[:20]
+    # the program's own spans (utils/trace.py)
+    assert {"nm.train.step", "nm.train.forward", "nm.train.backward",
+            "nm.train.adam", "nm.ctx.build"} <= names
