@@ -136,26 +136,28 @@ class TextureEditableNeuMesh(nn.Module):
         return self.main_model.make_ray_context(rays_o, rays_d, near, far,
                                                 **kw)
 
-    def bind_rays(self, rays_o, rays_d, near, far, n_probes: int = 8):
+    def bind_rays(self, rays_o, rays_d, near, far, n_probes: int = 8,
+                  w1=None):
         """Per-ray binding: geometry and base colour from the main model's
         candidate cache; the edit masks and transferred features are
         gathered into the same per-ray cache, so the blend runs as batched
         products. None without a candidate grid."""
         bound = self.main_model.bind_rays(rays_o, rays_d, near, far,
-                                          n_probes)
+                                          n_probes, w1)
         if bound is None:
             return None
         return RayBoundTextureEditable(self, bound)
 
     def bind_rays_tiled(self, rays_o, rays_d, near, far, tile: int,
-                        max_candidates=None):
+                        max_candidates=None, w1=None):
         """Tile-shared binding: the main model's tile contexts drive the
         scan and secant (texture edits never move the surface), the edit
         caches ride the same tile ids. Returns (bound, near, far) or
         None."""
         tb = self.main_model.bind_rays_tiled(rays_o, rays_d, near, far,
                                              tile=tile,
-                                             max_candidates=max_candidates)
+                                             max_candidates=max_candidates,
+                                             w1=w1)
         if tb is None:
             return None
         bound, near_b, far_b = tb

@@ -164,6 +164,23 @@ class NeuMesh(nn.Module):
             return torch.sigmoid(self.indicator_weight_raw[0])
         return torch.tensor(0.1, device=self.device)
 
+    def read_indicator_weight(self) -> float:
+        """w1 read back to the host; the read waits for the device's
+        queue."""
+        w1 = self.forward_indicator_weight()
+        count("host_read")          # blocks: a read back to the host
+        with span("sync.indicator_weight"):
+            return float(w1)
+
+    def frame_indicator_weight(self):
+        """w1 on the host for every binding of one frame, read where they
+        will use it (use_pallas with a candidate grid), else None. A frame
+        entry calls it before its first launch, while the queue is
+        empty."""
+        if self.use_pallas and self.mesh_grid.grid is not None:
+            return self.read_indicator_weight()
+        return None
+
     # ------------------------------------------------------------------
     # MLPs on interpolated inputs (plain torch, outside any kernel)
     # ------------------------------------------------------------------
@@ -407,14 +424,16 @@ class NeuMesh(nn.Module):
             ids = torch.gather(ids, -1, order)[:, :max_candidates]
         return self._pack_ctx(ids)
 
-    def bind_rays(self, rays_o, rays_d, near, far, n_probes: int = 8):
+    def bind_rays(self, rays_o, rays_d, near, far, n_probes: int = 8,
+                  w1=None):
         """A per-ray candidate binding of (R, 3) rays: RayBoundNeuMesh, or
-        None without a grid."""
+        None without a grid. w1: the indicator weight already on the host
+        (None: the binding reads it when its kernels first need it)."""
         ctx = self.make_ray_context(rays_o.reshape(-1, 3),
                                     rays_d.reshape(-1, 3),
                                     near.reshape(-1, 1), far.reshape(-1, 1),
                                     n_probes)
-        return None if ctx is None else RayBoundNeuMesh(self, ctx)
+        return None if ctx is None else RayBoundNeuMesh(self, ctx, w1)
 
     # ------------------------------------------------------------------
     # tile-shared candidate contexts
@@ -532,11 +551,11 @@ class NeuMesh(nn.Module):
         return ctx
 
     def bind_rays_tiled(self, rays_o, rays_d, near, far, tile: int,
-                        max_candidates=None):
+                        max_candidates=None, w1=None):
         """One tile-shared candidate cache over [near, far], near/far
         tightened from the same candidate geometry. Returns
         (TileBoundNeuMesh, near, far), or None for tile <= 1 or a ray count
-        that is not a tile multiple."""
+        that is not a tile multiple. w1 as in bind_rays."""
         if self.mesh_grid.grid is None or tile <= 1:
             return None
         # the tile's union covers tile * n_probes staggered depths, so the
@@ -554,7 +573,7 @@ class NeuMesh(nn.Module):
             max_candidates=max_candidates)
         near_new, far_new = candidate_bounded_near_far_tiled(
             ctx, ro, rd, nr, fr, tile)
-        return (TileBoundNeuMesh(self, ctx, tile),
+        return (TileBoundNeuMesh(self, ctx, tile, w1),
                 near_new.reshape(near.shape), far_new.reshape(far.shape))
 
 
@@ -652,11 +671,11 @@ class RayBoundNeuMesh:
     3) of the R bound rays is answered from each ray's (C, ...) context,
     by the fused kernels with use_pallas, else by the context math."""
 
-    def __init__(self, model: NeuMesh, ctx: dict):
+    def __init__(self, model: NeuMesh, ctx: dict, w1=None):
         self.model = model
         self.ctx = ctx
         self._weights = {}
-        self._w1 = None
+        self._w1 = w1
 
     def _flat(self, x):
         """(R, S, d) -> (contexts, samples per context, d)."""
@@ -669,13 +688,10 @@ class RayBoundNeuMesh:
         return self.model.forward_s()
 
     def _indicator_weight(self) -> float:
-        """w1 as a host float, read back from the device once per binding
-        (each read waits for the device's queue)."""
+        """w1 as a host float: the one the binding was made with, else read
+        back from the device once per binding."""
         if self._w1 is None:
-            w1 = self.model.forward_indicator_weight()
-            count("host_read")          # blocks: a read back to the host
-            with span("sync.indicator_weight"):
-                self._w1 = float(w1)
+            self._w1 = self.model.read_indicator_weight()
         return self._w1
 
     def _field_weights(self, f32_override=None):
@@ -902,8 +918,8 @@ class TileBoundNeuMesh(RayBoundNeuMesh):
     rays share one (C, ...) candidate set; a sample query (R, S, 3) is
     answered as (R // tile, tile * S) samples per tile."""
 
-    def __init__(self, model: NeuMesh, ctx: dict, tile: int):
-        super().__init__(model, ctx)
+    def __init__(self, model: NeuMesh, ctx: dict, tile: int, w1=None):
+        super().__init__(model, ctx, w1)
         self.tile = tile
 
     def _flat(self, x):

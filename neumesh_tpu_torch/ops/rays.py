@@ -185,3 +185,23 @@ def block_order_indices(H: int, W: int, block_h: int = 8,
     inv = np.empty_like(perm)
     inv[perm] = np.arange(H * W)
     return perm, inv
+
+
+def block_order(H: int, W: int, block_h: int = 8, block_w: int = 16,
+                device=None) -> torch.Tensor:
+    """block_order_indices' perm as a tensor built on `device`: the pixel
+    indices of an H x W frame in block_h x block_w block order."""
+    if H % block_h or W % block_w:
+        raise ValueError(f"{block_h}x{block_w} blocks do not tile {H}x{W}")
+    return torch.arange(H * W, device=device).view(
+        H // block_h, block_h, W // block_w, block_w).permute(
+        0, 2, 1, 3).reshape(-1)
+
+
+def raster_order(x: torch.Tensor, H: int, W: int, block_h: int = 8,
+                 block_w: int = 16) -> torch.Tensor:
+    """(H*W, ...) rows in block_order -> (H, W, ...) in raster order: the
+    gather by block_order_indices' inv, as a view and one copy."""
+    rest = x.shape[1:]
+    return x.reshape(H // block_h, W // block_w, block_h, block_w,
+                     *rest).transpose(1, 2).reshape(H, W, *rest)

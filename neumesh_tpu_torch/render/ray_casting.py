@@ -4,13 +4,15 @@ DVR-style root finding and sphere tracing, composed into surface_render
 render_surface_image. Sign convention: (+) outside, (-) inside."""
 from __future__ import annotations
 
-import numpy as np
+import math
+
 import torch
 
 from .. import resolve_device, set_fp32_precision
 from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.kernels import secant_pred
-from ..ops.rays import block_order_indices, get_rays, near_far_from_sphere
+from ..ops.rays import (block_order, get_rays, near_far_from_sphere,
+                        raster_order)
 from ..utils.trace import count, count_device, span, spanned
 
 
@@ -147,7 +149,7 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
                    scan_mode: str = "density", tile_max_candidates=None,
                    shade_composite: int = 0, shade_topk: int = 0,
                    shade_win_frac: float = 0.5, shade_window: float = 0.0,
-                   device="cuda", **not_used_kwargs):
+                   indicator_weight=None, device="cuda", **not_used_kwargs):
     """Cast (..., 3) rays to the zero level set, then shade once per ray.
 
     ray_tile > 1 dividing the ray count binds tile-shared candidate
@@ -162,7 +164,9 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     0 by the volume renderer's root-anchored tail (density at
     shade_composite depths around the root, colour at the shade_topk
     highest-visibility midpoints) with normals from one forward_with_nablas
-    query. Keywords of the volume renderer that do not apply here are
+    query. indicator_weight, w1 already read to the host (the frame entry
+    reads it once a frame), goes to the binding, which otherwise reads its
+    own. Keywords of the volume renderer that do not apply here are
     accepted and ignored. Returns (rgb (..., 3), depth (...),
     {"implicit_nablas", "mask_surface", "normals_surface" (calc_normal)})."""
     dev = resolve_device(device)
@@ -181,7 +185,8 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     if ray_tile > 1 and R % ray_tile == 0:
         tb = model.bind_rays_tiled(rays_o, rays_d, near[:, None],
                                    far[:, None], tile=ray_tile,
-                                   max_candidates=tile_max_candidates)
+                                   max_candidates=tile_max_candidates,
+                                   w1=indicator_weight)
         if tb is not None:
             bound, near_b, far_b = tb
             near, far = near_b[:, 0], far_b[:, 0]
@@ -194,7 +199,7 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
                 pre_ctx, rays_o, rays_d, near[:, None], far[:, None])
             near, far = near_b[:, 0], far_b[:, 0]
             bound = model.bind_rays(rays_o, rays_d, near[:, None],
-                                    far[:, None])
+                                    far[:, None], w1=indicator_weight)
     for key, v in (("near", near), ("far", far)):
         cfgs[key] = torch.broadcast_to(torch.as_tensor(
             cfgs.get(key, v), dtype=torch.float32, device=rays_o.device),
@@ -292,6 +297,23 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
             {k: v.reshape(shape + v.shape[1:]) for k, v in extras.items()})
 
 
+def frame_rays(model, c2w, K, H: int, W: int, block, device):
+    """A frame entry's host work, all of it before the frame's first
+    launch: c2w and K copied from pageable host memory, w1 read back once
+    for every binding of the frame (None where they do not use it), then
+    the rays of the H x W pixels in block_h x block_w block order, built on
+    the device. The contexts' dims are the frame's only later host read.
+    Returns (rays_o, rays_d (H*W, 3), w1)."""
+    count("host_read", 2)
+    c2w = torch.as_tensor(c2w, dtype=torch.float32).to(device)
+    K = torch.as_tensor(K, dtype=torch.float32).to(device)
+    w1 = getattr(model, "frame_indicator_weight", lambda: None)()
+    rays_o, rays_d, _ = get_rays(c2w, K, H, W,
+                                 select_inds=block_order(H, W, *block,
+                                                         device))
+    return rays_o, rays_d, w1
+
+
 @torch.no_grad()
 @spanned("render.frame")
 def render_surface_image(model, c2w, K, H: int, W: int, *,
@@ -307,7 +329,7 @@ def render_surface_image(model, c2w, K, H: int, W: int, *,
     kwargs go to surface_render. Returns (rgb (H, W, 3), depth (H, W),
     {"normals_surface" (H, W, 3), "mask_surface" (H, W)})."""
     dev = resolve_device(device)
-    bh = max(1, int(np.sqrt(ray_tile // 2)))
+    bh = max(1, math.isqrt(ray_tile // 2))
     bw = ray_tile // bh
     while bh > 1 and (H % bh or W % bw):
         bh //= 2
@@ -316,15 +338,7 @@ def render_surface_image(model, c2w, K, H: int, W: int, *,
         raise ValueError(f"ray_tile={ray_tile}: no pixel block of that many "
                          f"rays divides {H}x{W}")
     with span("render.rays"):
-        # blocks: c2w, K, perm and inv are copies from pageable host memory
-        count("host_read", 4)
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
-        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
-        rays_o, rays_d = get_rays(c2w, K, H, W)
-        perm, inv = block_order_indices(H, W, bh, bw)
-        perm = torch.as_tensor(perm, device=dev)
-        inv = torch.as_tensor(inv, device=dev)
-        ro, rd = rays_o[perm], rays_d[perm]
+        ro, rd, w1 = frame_rays(model, c2w, K, H, W, (bh, bw), dev)
         n = H * W
         chunk = -(-(rayschunk or n) // ray_tile) * ray_tile
         pad = (-n) % chunk
@@ -336,11 +350,11 @@ def render_surface_image(model, c2w, K, H: int, W: int, *,
     outs = [surface_render(model, ro[i:i + chunk], rd[i:i + chunk],
                            calc_normal=True, ray_tile=ray_tile,
                            scan_mode=scan_mode, ray_casting_cfgs=cfgs,
-                           device=device, **kwargs)
+                           indicator_weight=w1, device=device, **kwargs)
             for i in range(0, n + pad, chunk)]
 
     def frame(parts):
-        return torch.cat(parts, 0)[:n][inv].reshape(H, W, *parts[0].shape[1:])
+        return raster_order(torch.cat(parts, 0)[:n], H, W, bh, bw)
 
     with span("render.assemble"):
         rgb = frame([o[0] for o in outs])

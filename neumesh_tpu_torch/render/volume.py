@@ -16,16 +16,14 @@ Two sampling structures:
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import resolve_device, set_fp32_precision
 from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.alpha import alpha_to_w, cdf_Phi_s, sdf_to_alpha
-from ..ops.rays import (block_order_indices, get_rays, near_far_from_sphere,
-                        rand, sample_pdf)
-from ..utils.trace import count, span, spanned
-from .ray_casting import root_finding_surface_points
+from ..ops.rays import near_far_from_sphere, rand, raster_order, sample_pdf
+from ..utils.trace import span, spanned
+from .ray_casting import frame_rays, root_finding_surface_points
 
 
 @spanned("ctx.bounds")
@@ -105,14 +103,16 @@ def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 0,
                        root_anchored: bool = False, root_steps: int = 16,
                        root_secant: int = 3, root_n_fine: int = 48,
                        root_window: float = 0.0, root_win_frac: float = 0.5,
-                       **not_used_kwargs):
+                       indicator_weight=None, **not_used_kwargs):
     """Render one chunk of (..., N, 3) rays (rays in tile order for
     ray_tile > 1); leading batch dims are flattened into the ray axis and
     restored on every output. rays_d need not be normalised. ray_tile > 1
     dividing the ray count binds tile-shared contexts; otherwise (ray_tile
     0, or the tiled binding unavailable) per-ray contexts after the
     closed-form bounded near/far. `generator` draws the perturbed
-    up-sampling and the random colour directions.
+    up-sampling and the random colour directions. indicator_weight, w1
+    already read to the host (the frame entry reads it once a frame), goes
+    to the binding, which otherwise reads its own.
 
     Returns {"rgb" (..., 3), "depth_volume" (...), "mask_volume" (...)},
     with calc_normal "normals_volume" (..., 3), the weight-summed unit
@@ -148,7 +148,8 @@ def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 0,
     tb = None
     if ray_tile > 1 and hasattr(model, "bind_rays_tiled"):
         tb = model.bind_rays_tiled(rays_o, rays_d, near, far, tile=ray_tile,
-                                   max_candidates=tile_max_candidates)
+                                   max_candidates=tile_max_candidates,
+                                   w1=indicator_weight)
     if tb is not None:
         bound, near_t, far_t = tb
         if bounded_near_far:
@@ -185,7 +186,8 @@ def volume_render_rays(model, rays_o, rays_d, *, ray_tile: int = 0,
                 near, far = compute_bounded_near_far(model, rays_o, rays_d,
                                                      near, far)
         near, far = bypass(near, far)
-        bound = model.bind_rays(rays_o, rays_d, near, far, n_probes=8)
+        bound = model.bind_rays(rays_o, rays_d, near, far, n_probes=8,
+                                w1=indicator_weight)
         bound = model if bound is None else bound
     else:
         # a model without a mesh (NeuS): the sphere bounds
@@ -406,19 +408,11 @@ def render_image(model, c2w, K, H: int, W: int, *, block=(8, 16),
     depth (H, W), extras)."""
     dev = resolve_device(device)
     with span("render.rays"):
-        # blocks: c2w, K, perm and inv are copies from pageable host memory
-        count("host_read", 4)
-        c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=dev)
-        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
-        rays_o, rays_d = get_rays(c2w, K, H, W)
-        perm, inv = block_order_indices(H, W, *block)
-        perm = torch.as_tensor(perm, device=dev)
-        inv = torch.as_tensor(inv, device=dev)
-        rays_o, rays_d = rays_o[perm], rays_d[perm]
+        rays_o, rays_d, w1 = frame_rays(model, c2w, K, H, W, block, dev)
     rgb, depth, ret = volume_render(model, rays_o, rays_d, device=device,
-                                    **kwargs)
+                                    indicator_weight=w1, **kwargs)
     with span("render.assemble"):
-        ret = {k: v[inv].reshape(H, W, *v.shape[1:]) for k, v in ret.items()}
+        ret = {k: raster_order(v, H, W, *block) for k, v in ret.items()}
     return ret["rgb"], ret["depth_volume"], ret
 
 

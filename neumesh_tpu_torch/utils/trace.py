@@ -21,7 +21,10 @@ Spans (each "nm." + name):
   render.frame, render.rays, render.assemble       the frame entries
   ctx.build, ctx.bounds, weights.fold               contexts and weights
   weights.pack                                      a kernel call's weights
-  sync.indicator_weight                             a bound model's w1 read
+  sync.indicator_weight                             w1 read to the host: once
+                                                    a frame in render.rays, or
+                                                    once a binding outside a
+                                                    frame entry
   volume.coarse, volume.upsample, volume.root, volume.shade
   surface.scan, surface.secant, surface.shade
   train.step, train.forward, train.render, train.loss, train.backward,

@@ -1343,3 +1343,122 @@ def test_secant_refine_layers_in_place_at_many_tiles_a_block_on_card(
     ref = torch_secant(inp, br, True, frozen, "bf16", "cuda", plain=True,
                        tags=SEL_F32)
     assert_roots_close(runs[0], ref.cpu().numpy(), "bf16")
+
+
+# ---------------------------------------------------------------------------
+# the frame entries against the assembly they replaced
+# ---------------------------------------------------------------------------
+
+def numpy_assembled_frame(model, kind, c2w, K, H, W, block, *, device,
+                          ray_tile=128, rayschunk=0, N_steps=128,
+                          N_secant_steps=8, scan_mode="density", **kw):
+    """One frame assembled as the frame entries once did it: raster rays
+    gathered by block_order_indices' numpy perm (tables copied to the
+    device), the chunks rendered, their rows gathered back by its inv.
+    kind "surface" (render_surface_image's knobs) or "volume"
+    (render_image's). Returns {name: (H, W, ...)}."""
+    from neumesh_tpu_torch.ops.rays import block_order_indices, get_rays
+    from neumesh_tpu_torch.render.ray_casting import surface_render
+    from neumesh_tpu_torch.render.volume import volume_render
+    c2w = torch.as_tensor(np.asarray(c2w, np.float32), device=device)
+    K = torch.as_tensor(np.asarray(K, np.float32), device=device)
+    rays_o, rays_d = get_rays(c2w, K, H, W)
+    perm, inv = block_order_indices(H, W, *block)
+    perm = torch.as_tensor(perm, device=device)
+    inv = torch.as_tensor(inv, device=device)
+    ro, rd = rays_o[perm], rays_d[perm]
+    n = H * W
+    if kind == "volume":
+        _, _, ret = volume_render(model, ro, rd, device=device,
+                                  ray_tile=ray_tile, rayschunk=rayschunk,
+                                  **kw)
+        return {k: v[inv].reshape(H, W, *v.shape[1:])
+                for k, v in ret.items()}
+    chunk = -(-(rayschunk or n) // ray_tile) * ray_tile
+    pad = (-n) % chunk
+    if pad:
+        ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
+        rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
+    cfgs = {"N_steps": N_steps, "N_secant_steps": N_secant_steps,
+            "fill_inf": False}
+    outs = [surface_render(model, ro[i:i + chunk], rd[i:i + chunk],
+                           calc_normal=True, ray_tile=ray_tile,
+                           scan_mode=scan_mode, ray_casting_cfgs=cfgs,
+                           device=device, **kw)
+            for i in range(0, n + pad, chunk)]
+
+    def frame(parts):
+        return torch.cat(parts, 0)[:n][inv].reshape(H, W,
+                                                     *parts[0].shape[1:])
+
+    got = {"rgb": frame([o[0] for o in outs]),
+           "depth": frame([o[1] for o in outs])}
+    for k in ("normals_surface", "mask_surface"):
+        got[k] = frame([o[2][k] for o in outs])
+    return got
+
+
+def entry_frame(model, kind, c2w, K, H, W, block, *, device, **kw):
+    """The same frame through render_surface_image or render_image ->
+    {name: (H, W, ...)}."""
+    from neumesh_tpu_torch.render.ray_casting import render_surface_image
+    from neumesh_tpu_torch.render.volume import render_image
+    if kind == "volume":
+        _, _, ret = render_image(model, c2w, K, H, W, block=block,
+                                 device=device, **kw)
+        return ret
+    rgb, depth, extras = render_surface_image(model, c2w, K, H, W,
+                                              device=device, **kw)
+    return {"rgb": rgb, "depth": depth, **extras}
+
+
+def assert_frames_equal(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k], want[k]), k
+
+
+# the serving knobs of the surface preview (800 x 600, every layer in bf16)
+# and of the f32 quality render (400 x 300, two chunks), at the flagship
+# widths on a 163,842-vertex icosphere
+CARD_FRAMES = {
+    "surface": (600, 800, (8, 16), dict(
+        compute_dtype=torch.bfloat16, f32_layers=()), dict(
+        ray_tile=128, tile_max_candidates=128, scan_mode="distance",
+        N_steps=16, N_secant_steps=3, rayschunk=0,
+        obj_bounding_radius=1.0)),
+    "volume": (300, 400, (4, 16), dict(compute_dtype=None), dict(
+        ray_tile=128, tile_max_candidates=128, N_samples=64,
+        N_importance=64, N_upsample_iters=4, reuse_upsample_sdf=True,
+        detailed_output=False, rayschunk=60032, obj_bounding_radius=1.0)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(CARD_FRAMES))
+def test_frame_entry_matches_the_numpy_assembly_on_card(kind):
+    """Rays built in block order on the device and rows restored by a view:
+    the frame bit-equal to the one assembled by numpy tables and gathers."""
+    _need_card()
+    from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
+    from neumesh_tpu_torch.mesh.grid import MeshGrid
+    from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+    H, W, block, prec, kw = CARD_FRAMES[kind]
+    model = NeuMesh(MeshGrid(icosphere_mesh(0.5, 7), device="cuda"),
+                    device="cuda", use_pallas=True, D_density=3, D_color=4,
+                    W=256, geometry_dim=32, color_dim=32, multires_d=8,
+                    multires_fg=2, multires_ft=2, multires_view=4,
+                    enable_nablas_input=True, learn_indicator_weight=True,
+                    speed_factor=10.0, tile_kp_per_probe=8,
+                    tile_cell_budget=64, scan_knn_k=1, **prec).init(0)
+    c2w = np.eye(4, dtype=np.float32)
+    c2w[2, 3] = -2.5
+    f = 1446.0 * W / 800
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float32)
+    want = numpy_assembled_frame(model, kind, c2w, K, H, W, block,
+                                 device="cuda", **kw)
+    got = entry_frame(model, kind, c2w, K, H, W, block, device="cuda", **kw)
+    assert_frames_equal(got, want)
+    if kind == "surface":
+        assert 0.1 < float(got["mask_surface"].float().mean()) < 0.9

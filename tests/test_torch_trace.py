@@ -129,7 +129,7 @@ CASES = {
     "surface": (lambda m: surface_frame(m),
                 FRAME | {"surface.scan", "surface.secant", "surface.shade"},
                 {"ctx.build": "render.frame",
-                 "sync.indicator_weight": "surface.scan",
+                 "sync.indicator_weight": "render.rays",
                  "surface.secant": "render.frame",
                  "surface.shade": "render.frame"},
                 {"render.frame": 1, "ctx.build": 1}),
@@ -137,8 +137,9 @@ CASES = {
         lambda m: volume_frame(m),
         FRAME | {"volume.coarse", "volume.upsample", "volume.shade"},
         {"ctx.build": "render.frame", "ctx.bounds": "render.frame",
+         "sync.indicator_weight": "render.rays",
          "volume.upsample": "render.frame", "volume.shade": "render.frame"},
-        {"render.frame": 1, "ctx.build": 2, "sync.indicator_weight": 2,
+        {"render.frame": 1, "ctx.build": 2, "sync.indicator_weight": 1,
          "render.assemble": 2}),
     "neus_train_step": (
         lambda m: neus_step(),
@@ -179,13 +180,52 @@ def test_pack_and_teacher_spans():
 
 @pytest.mark.parametrize("chunks", [1, 2])
 def test_host_read_one_per_binding(chunks, mesh_model):
-    """Per frame: the four copies of c2w, K and the block permutation;
-    per binding (chunk): the candidate grid's dims copied to the device
-    and the indicator weight read back."""
+    """Per frame: the copies of c2w and K and the indicator weight read
+    back once for every binding; per binding (chunk): the candidate grid's
+    dims copied to the device."""
     trace.reset()
     spans = traced(lambda: surface_frame(mesh_model, H * W // chunks))
-    assert sum(n == "sync.indicator_weight" for n, _ in spans) == chunks
-    assert trace.counters()["host_read"] == 4 + 2 * chunks
+    assert sum(n == "sync.indicator_weight" for n, _ in spans) == 1
+    assert trace.counters()["host_read"] == 3 + chunks
+
+
+@pytest.mark.parametrize("kind", ["surface", "volume"])
+def test_host_reads_fall_before_the_frames_launches(kind, monkeypatch,
+                                                    mesh_model):
+    """Each span's host_read increments: render.rays holds the frame's
+    three (c2w, K, w1), before any stage launches; ctx.build one per
+    binding (the grid's dims); no scan, secant, sampling or shading span
+    holds one. A surface frame reads 4 times, a volume frame of two chunks
+    5."""
+    real = torch.profiler.record_function
+    seen = []
+
+    class Watched:
+        def __init__(self, name):
+            self.name, self.inner = name[len(trace.PREFIX):], real(name)
+
+        def __enter__(self):
+            self.before = trace.COUNTS.get("host_read", 0)
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            out = self.inner.__exit__(*exc)
+            seen.append((self.name,
+                         trace.COUNTS.get("host_read", 0) - self.before))
+            return out
+
+    monkeypatch.setattr(torch.profiler, "record_function", Watched)
+    frame = surface_frame if kind == "surface" else volume_frame
+    with profile(activities=[ProfilerActivity.CPU]):
+        frame(mesh_model)
+    reads = {}
+    for name, n in seen:
+        reads.setdefault(name, []).append(n)
+    assert reads["render.rays"] == [3]
+    assert reads["ctx.build"] == [1] * (1 if kind == "surface" else 2)
+    assert reads["render.frame"] == [4 if kind == "surface" else 5]
+    stages = [n for n in reads if n.startswith(("surface.", "volume."))]
+    assert stages and all(set(reads[n]) == {0} for n in stages), reads
 
 
 def test_secant_counts_the_chunks_rays(mesh_model):
