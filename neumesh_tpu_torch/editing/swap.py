@@ -7,7 +7,7 @@ onto the main one by ARAP (mesh/arap.py). The transfer maps the main
 masked vertices by T_r_m, finds their Kc nearest reference masked
 vertices (the host library's KD-tree, cpp/native.py) and writes the
 inverse-distance weighted average of the reference colour codes into
-edit_color_features.
+edit_color_features (span edit.transfer).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from ..cpp import native
 from ..mesh.arap import arap
 from ..mesh.triangle_mesh import TriangleMesh, load_mesh
 from ..utils.print_fn import log
+from ..utils.trace import spanned
 from .align import estimate_transform_from_corr
 from .editable import EditingParams
 from .renderer_base import TextureEditableRenderer
@@ -107,6 +108,7 @@ class TextureSwappingRender(TextureEditableRenderer):
             T_r_m_list.append(np.asarray(T_r_m))
         return np.stack(T_r_m_list)
 
+    @spanned("edit.transfer")
     def transfer(self, main_primitive, main_params, ref_primitive,
                  ref_params, T_r_m, Kc: int = 4):
         t0 = time.perf_counter()

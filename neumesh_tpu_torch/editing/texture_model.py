@@ -17,6 +17,17 @@ fused_locate and forward_density_only_nograd (the up-sampling density on
 field_fused) to the main model's bound view. The bound view has NO
 forward_full on purpose: the surface renderer would shade with it and
 skip the blend.
+
+The bound shade holds (tiles, samples, candidates) temporaries, a dozen
+of them live at once in the context math and the blend; it runs over
+slices of whole tiles, each at most SLICE_ELEMS elements a temporary
+(per-tile math, so a slice gives the bits the whole chunk gives).
+
+Spans: edit.shade (the blended shade, bound and per sample),
+edit.ref_color (each reference's colour); counters edit.samples_shaded
+(samples shaded, from the shapes) and edit.samples_painted (samples with
+a positive paint weight, summed over the references; a device count,
+under a profiler only).
 """
 from __future__ import annotations
 
@@ -25,6 +36,11 @@ from typing import List, Optional
 import numpy as np
 import torch
 from torch import nn
+
+from ..utils.trace import count, count_device, span, spanned
+
+# elements of one (tiles, samples, candidates) temporary of a shade slice
+SLICE_ELEMS = 1 << 28
 
 
 class TextureEditableNeuMesh(nn.Module):
@@ -72,6 +88,10 @@ class TextureEditableNeuMesh(nn.Module):
     def secant_rebracket(self):
         return self.main_model.secant_rebracket
 
+    def frame_indicator_weight(self):
+        """The main model's w1 read once for every binding of a frame."""
+        return self.main_model.frame_indicator_weight()
+
     def edit_features(self, i: int) -> torch.Tensor:
         return getattr(self, f"edit_color_features_{i}")
 
@@ -97,9 +117,11 @@ class TextureEditableNeuMesh(nn.Module):
         return self.main_model.forward_with_nablas(xyz)
 
     # ---- blended colour, per sample ----------------------------------------
+    @spanned("edit.shade")
     def forward(self, xyz, view_dirs):
         """(sdf (...), rgb (..., 3)) with the kNN through the mesh grid."""
         main = self.main_model
+        count("edit.samples_shaded", xyz.numel() // 3)
         ds, indices, weights = main.compute_distance(xyz)
         if main.enable_nablas_input:
             sdf, nabla, d_emb = main._density_and_nabla(xyz, indices,
@@ -115,16 +137,18 @@ class TextureEditableNeuMesh(nn.Module):
             paint_w = torch.sum(weights * m_at, dim=-1)
             unpaint_w = torch.sum(weights * (1.0 - m_at), dim=-1)
             paint_region = paint_w > 0
+            count_device("edit.samples_painted", paint_region)
             sum_w = paint_w + unpaint_w
             paint_w = paint_w / sum_w
             unpaint_w = unpaint_w / sum_w
             ref_weights = weights * m_at
             ref_weights = ref_weights / (
                 torch.sum(ref_weights, dim=-1, keepdim=True) + 1e-8)
-            ref_dir, ref_nabla = self._ref_frame(i, view_dirs, nabla)
-            ref_color = ref_model.forward_color(
-                ds, ref_dir, self.edit_features(i), indices, ref_weights,
-                nabla=ref_nabla)
+            with span("edit.ref_color"):
+                ref_dir, ref_nabla = self._ref_frame(i, view_dirs, nabla)
+                ref_color = ref_model.forward_color(
+                    ds, ref_dir, self.edit_features(i), indices,
+                    ref_weights, nabla=ref_nabla)
             mixed = (blend * unpaint_w[..., None]
                      + ref_color * paint_w[..., None])
             blend = torch.where(paint_region[..., None], mixed, blend)
@@ -206,44 +230,61 @@ class RayBoundTextureEditable(nn.Module):
         return self.bound.fused_locate(*args, **kwargs)
 
     # ---- blended colour on the context math
+    @spanned("edit.shade")
     def forward(self, xyz, view_dirs):
         """(sdf (R, S), rgb (R, S, 3)): density, nablas and base colour by
         the main model's context math, the reference colours from the
-        cached edit features."""
-        ed = self.editable
-        main = ed.main_model
+        cached edit features; over slices of whole contexts where one
+        (contexts, samples, candidates) temporary of the whole would pass
+        SLICE_ELEMS."""
         b = self.bound
         x, v = b._flat(xyz), b._flat(view_dirs)
+        B, S = x.shape[:2]
+        count("edit.samples_shaded", B * S)
+        step = max(1, SLICE_ELEMS // (S * b.ctx["ids"].shape[1]))
+        parts = [self._shade(x[a:a + step], v[a:a + step], slice(a, a + step))
+                 for a in range(0, B, step)]
+        return (b._unflat(torch.cat([p[0] for p in parts])),
+                b._unflat(torch.cat([p[1] for p in parts])))
+
+    def _shade(self, x, v, rows: slice):
+        """The blended shade of the contexts `rows`: x, v (n, S, 3) ->
+        (sdf (n, S), rgb (n, S, 3))."""
+        ed = self.editable
+        main = ed.main_model
+        ctx = {k: t[rows] if torch.is_tensor(t) else t
+               for k, t in self.bound.ctx.items()}
         if main.enable_nablas_input:
             density, nabla, d_emb, W, ft = main._ctx_density_and_nabla(
-                b.ctx, x, with_ft=True)
+                ctx, x, with_ft=True)
         else:
-            ds, W = main._ctx_distance_parts(b.ctx, x)
-            feats = main._ctx_interp_feats(b.ctx, W)
+            ds, W = main._ctx_distance_parts(ctx, x)
+            feats = main._ctx_interp_feats(ctx, W)
             density, d_emb = main._density_from_interp(
                 ds, feats[..., :main.geometry_dim])
             ft = feats[..., main.geometry_dim:]
             nabla = None
-        sdf = density[..., 0]
         blend = main._color_from_interp(d_emb, v, ft, nabla)
         for i, ref_model in enumerate(ed.ref_models):
-            Wm = W * self._masks[i][:, None, :]                # (B, S, C)
+            Wm = W * self._masks[i][rows, None, :]             # (n, S, C)
             paint_w = torch.sum(Wm, dim=-1)
             paint_region = paint_w > 0
+            count_device("edit.samples_painted", paint_region)
             # the weights sum to 1: the unpaint share is the complement
             W_ref = Wm / (torch.sum(Wm, dim=-1, keepdim=True) + 1e-8)
-            ref_dir, ref_nabla = ed._ref_frame(i, v, nabla)
-            dt = ref_model.compute_dtype
-            ef = self._efeat[i]
-            if dt is None:
-                ft_ref = torch.matmul(W_ref, ef)
-            else:
-                # operands rounded to the compute dtype, f32 accumulation
-                ft_ref = torch.matmul(W_ref.to(dt).to(torch.float32),
-                                      ef.to(dt).to(torch.float32))
-            ref_color = ref_model._color_from_interp(d_emb, ref_dir, ft_ref,
-                                                     ref_nabla)
+            with span("edit.ref_color"):
+                ref_dir, ref_nabla = ed._ref_frame(i, v, nabla)
+                dt = ref_model.compute_dtype
+                ef = self._efeat[i][rows]
+                if dt is None:
+                    ft_ref = torch.matmul(W_ref, ef)
+                else:
+                    # operands rounded to the compute dtype, f32 accumulation
+                    ft_ref = torch.matmul(W_ref.to(dt).to(torch.float32),
+                                          ef.to(dt).to(torch.float32))
+                ref_color = ref_model._color_from_interp(d_emb, ref_dir,
+                                                         ft_ref, ref_nabla)
             mixed = (blend * (1.0 - paint_w)[..., None]
                      + ref_color * paint_w[..., None])
             blend = torch.where(paint_region[..., None], mixed, blend)
-        return b._unflat(sdf), b._unflat(blend)
+        return density[..., 0], blend

@@ -29,6 +29,10 @@ Spans (each "nm." + name):
   surface.scan, surface.secant, surface.shade
   train.step, train.forward, train.render, train.loss, train.backward,
   train.grad_norm, train.adam, train.teacher, field.nablas
+  edit.shade, edit.ref_color                       the texture-edited shade
+                                                    and each reference's
+                                                    colour in it
+  edit.transfer                                     a swap's code transfer
 Counters:
   host_read               each call that makes the host wait for the
                           device's queue: a read back to the host, or a
@@ -37,6 +41,9 @@ Counters:
   secant.rays_refined     rays handed to the secant (host)
   secant.rays_bracketed   of those, the rays with a bracket (device)
   launch.<kernel>.<mode>  kernel launches (ops.kernels.LAUNCHES)
+  edit.samples_shaded     samples the texture-edited shade answers (host)
+  edit.samples_painted    of those, the samples with a positive paint
+                          weight, summed over the references (device)
 """
 from __future__ import annotations
 

@@ -59,6 +59,28 @@ def volume_frame(model):
                         **VOL)
 
 
+def edited(model):
+    """The model with the cap facing the camera (vertices within 60
+    degrees of -z) swapped from its antipode, turned 180 degrees about x:
+    the texture-swapping editable, its codes moved by the swap's
+    transfer."""
+    from neumesh_tpu_torch.editing.editable import (EditablePrimitive,
+                                                    EditingParams)
+    from neumesh_tpu_torch.editing.swap import TextureSwappingRender
+    from neumesh_tpu_torch.editing.texture_model import \
+        TextureEditableNeuMesh
+
+    v = np.asarray(model.mesh_grid.mesh.vertices)
+    cos_z = v[:, 2] / np.linalg.norm(v, axis=-1)
+    T = np.diag([1.0, -1.0, -1.0, 1.0])
+    main = EditablePrimitive(model, [EditingParams(cos_z <= -0.5)])
+    ref = EditablePrimitive(model, [EditingParams(cos_z >= 0.5)])
+    TextureSwappingRender().transfer(main, main.get_editing_params(0), ref,
+                                     ref.get_editing_params(0), T, Kc=4)
+    return TextureEditableNeuMesh(model, [model], main.get_editing_masks(),
+                                  [T], [main.edit_color_features])
+
+
 def neus_step():
     from neumesh_tpu_torch.config import ConfigDict
     from neumesh_tpu_torch.train.loop import build_train_step
@@ -141,6 +163,14 @@ CASES = {
          "volume.upsample": "render.frame", "volume.shade": "render.frame"},
         {"render.frame": 1, "ctx.build": 2, "sync.indicator_weight": 1,
          "render.assemble": 2}),
+    "volume_texture_swapped": (
+        lambda m: volume_frame(edited(m)),
+        FRAME | {"volume.coarse", "volume.upsample", "volume.shade",
+                 "edit.transfer", "edit.shade", "edit.ref_color"},
+        {"ctx.build": "render.frame", "sync.indicator_weight": "render.rays",
+         "edit.shade": "volume.shade", "edit.ref_color": "edit.shade"},
+        {"render.frame": 1, "ctx.build": 2, "sync.indicator_weight": 1,
+         "edit.transfer": 1, "edit.shade": 2, "edit.ref_color": 2}),
     "neus_train_step": (
         lambda m: neus_step(),
         {"train.step", "train.forward", "train.render", "train.loss",
@@ -226,6 +256,25 @@ def test_host_reads_fall_before_the_frames_launches(kind, monkeypatch,
     assert reads["render.frame"] == [4 if kind == "surface" else 5]
     stages = [n for n in reads if n.startswith(("surface.", "volume."))]
     assert stages and all(set(reads[n]) == {0} for n in stages), reads
+
+
+def test_edited_frame_reads_the_host_as_the_unedited_frame(mesh_model):
+    """The editable hands the frame's w1 read to the main model, so an
+    edited volume frame reads the host as often as the unedited one; its
+    shade counts every sample it answers and, under a profiler, the
+    painted ones."""
+    editable = edited(mesh_model)
+    reads = []
+    for model in (mesh_model, editable):
+        trace.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            volume_frame(model)
+        reads.append(trace.counters()["host_read"])
+    got = trace.counters()
+    assert reads == [5, 5]
+    # two chunks of 128 rays, 31 midpoints a ray
+    assert got["edit.samples_shaded"] == H * W * 31
+    assert 0 < got["edit.samples_painted"] < got["edit.samples_shaded"]
 
 
 def test_secant_counts_the_chunks_rays(mesh_model):
