@@ -32,6 +32,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     csrc/field_distance.cu) also timed and held at k = 8 on the serving
     scan's inputs and at the per-ray shapes made from them (4,096 contexts
     of 96 candidates, S = 1, 16, 128), beside its instruction floor.
+    field_fused_edit (on no structure: the edited renders of phase 8) at
+    the swap cell's shapes (EDIT_CELL_B = 469 contexts of S = 16,256
+    samples, C = 128, one rotated reference; edit_cell_call), held
+    against its plain version on every EDIT_CELL_EVERY-th context, the
+    painted counts of both compared; kernel ms, the plain version's
+    scaled from those contexts, bound.
     Then the stage split (kernels.stage_split, the tile kernels' timing
     instantiation, launched nowhere else but ab_field_kernels.py): the
     share of a block's cycles and the microseconds a tile of each stage
@@ -114,7 +120,8 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     the first step's calls recorded); the editing gate on the swap,
     printed beside the JAX package's GATES_r05/editing_gate_sphere.json
     (qualities, not held). Checks: every recorded call against its plain
-    version; a 64x64 crop of each edited render through the plain
+    version (the surface swaps' edited shade is field_fused_edit, asserted
+    launched); a 64x64 crop of each edited render through the plain
     versions >= 55 dB; the surface swaps' depth and hit mask equal to the
     unedited render's, their rgb within the f32 tolerance on the rays
     whose tile candidates hold no edited vertex; after painting every
@@ -161,8 +168,8 @@ Prints the card line, one {"cli": {...}} line, one {"training": {...}}
 line, one {"pipeline": {...}} line, one {"editing": {...}} line, one
 {"parallel": {...}} line, one {"host_geometry": {...}} line, one
 {"kernels": [...]} line (each row with its design, "ws_wgmma" (the
-warp-specialised persistent tile kernels: field_fused's MLP modes and
-secant_refine), "wgmma", "simt" or "thread_scan" (the distance row, with its instruction floor floor_ms and
+warp-specialised persistent tile kernels: field_fused's MLP modes,
+field_fused_edit and secant_refine), "wgmma", "simt" or "thread_scan" (the distance row, with its instruction floor floor_ms and
 timed_shapes: the serving scan at k = 1 and 8, the swap's scan, the
 per-ray shapes), bound_ms at the tensor-core rates beside
 bound_cuda_core_ms, the bound
@@ -203,8 +210,9 @@ TOL = {"f32": dict(atol=2e-5, rtol=1e-4, frac=0.99),
 # surface_locate: share of rays whose mask bits agree with the plain version
 LOCATE_MASK_AGREE = {"bf16": 0.999, "f32": 1.0}
 
-KERNELS = ("field_fused", "secant_refine", "surface_locate",
-           "candidate_field_v3", "candidate_field")
+KERNELS = ("field_fused", "field_fused_edit", "secant_refine",
+           "surface_locate", "candidate_field_v3", "candidate_field")
+FE = ("field_fused_edit", "full")
 # a row's design: its kernel runs the tensor-core tile stage, every hidden
 # MLP layer on wgmma (f32 ones as the bf16 split; "wgmma"), or it has no
 # MLP and everything runs on the CUDA cores ("simt")
@@ -212,7 +220,7 @@ WGMMA_ROWS = {("field_fused", m) for m in ("density", "density_nabla",
                                             "full")} | \
     {("secant_refine", m) for m in ("plain", "rebracket", "frozen",
                                     "frozen_rebracket")} | \
-    {("surface_locate", m) for m in ("bf16", "f32")}
+    {("surface_locate", m) for m in ("bf16", "f32")} | {FE}
 FD = ("field_fused", "distance")
 # a row's design beside WGMMA_ROWS: the distance mode's own kernel, a thread
 # a sample scanning shared-memory candidates (csrc/field_distance.cu); the
@@ -236,6 +244,9 @@ SPLIT_ROWS = (("field_fused", "density", "serving_bf16:bf16"),
 SOURCES = {
     "field_fused": ("neumesh_tpu_torch/csrc/field_fused.cu",
                     "neumesh_tpu/ops/pallas_kernels.py:645"),
+    # no TPU kernel: the JAX package's edited shade is plain jnp
+    "field_fused_edit": ("neumesh_tpu_torch/csrc/field_fused_edit.cu",
+                         "neumesh_tpu/editing/texture_model.py:200"),
     "secant_refine": ("neumesh_tpu_torch/csrc/secant_refine.cu",
                       "neumesh_tpu/ops/pallas_kernels.py:1128"),
     "surface_locate": ("neumesh_tpu_torch/csrc/surface_locate.cu",
@@ -332,16 +343,24 @@ CLI_SIDE, CLI_VIEWS = 128, 2
 TRAIN_ITERS, TRAIN_WARMUP, TRAIN_REL, TRAIN_RENDER_SIDE = 20, 3, 1e-4, 64
 # rows of a kernel's block: of one or (the tile kernels below 64 rows a
 # context) several contexts
-BLOCK_ROWS = {"field_fused": 64, "secant_refine": 64, "surface_locate": 64,
-              "candidate_field_v3": 32, "candidate_field": 32}
+BLOCK_ROWS = {"field_fused": 64, "field_fused_edit": 64, "secant_refine": 64,
+              "surface_locate": 64, "candidate_field_v3": 32,
+              "candidate_field": 32}
 # crops through the plain versions: least PSNR of rgb (and of the surface
 # normals, peak-to-peak 2) kernel vs plain, by the structure's model dtype
 CROP_PSNR = {"bf16": 30.0, "f32": 55.0}
+# field_fused_edit's row at the swap cell's shapes: one 60,032-ray chunk of
+# 128-ray tiles (469 contexts), the plain version on every 15th context;
+# the share by which the kernel's painted count may differ from the plain
+# version's (a kNN near-tie may move a pick onto or off an edited vertex)
+EDIT_CELL_B, EDIT_CELL_EVERY, PAINTED_TOL = 469, 15, 1e-4
 # the structure whose per-frame count a kernel's `launches` reports: the
 # volume serving structure for the kernels of the first slice (as that
 # slice printed it), the structure that brought each later kernel onto a
-# path; candidate_field (v2) is on none
-LAUNCHES_OF = {"field_fused": "serving_bf16", "secant_refine": "serving_bf16",
+# path; candidate_field (v2) is on none, field_fused_edit on the edited
+# renders alone (phase 8's cases)
+LAUNCHES_OF = {"field_fused": "serving_bf16", "field_fused_edit": None,
+               "secant_refine": "serving_bf16",
                "surface_locate": "surface_locate",
                "candidate_field_v3": "nonablas_surface",
                "candidate_field": None}
@@ -423,6 +442,8 @@ def mode_of(name, kw):
     from neumesh_tpu_torch.ops import kernels
     if name == "field_fused":
         return kw.get("want", "density")
+    if name == "field_fused_edit":
+        return "full"
     if name == "secant_refine":
         return kernels.secant_mode(kw.get("d_low_w") is not None,
                                    kw.get("frozen_knn", False))
@@ -521,6 +542,22 @@ def field_work(args, kw):
     return bf, tc, cc, nbytes
 
 
+def edit_work(args, kw):
+    """field_work's `full` (its seven output planes four) and, a reference,
+    its colour MLP, the blend of its cd + 1 edit columns over the k picks
+    and its rows and weights read."""
+    bf, tc, cc, nbytes = field_work(args, dict(kw, want="full"))
+    xyz, refs = args[0], args[7]
+    n = float(xyz.shape[0] * xyz.shape[1])
+    k = kw.get("k", 8)
+    for r in refs:
+        b2, t2, c2 = _mlp_flops(r.col_ws)
+        bf, tc = bf + n * b2, tc + n * t2
+        cc += n * (c2 + 2 * k * r.rows.shape[-1])
+        nbytes += _nbytes([r.rows, *r.col_ws])
+    return bf, tc, cc, nbytes - n * 4 * 3
+
+
 def secant_work(args, kw):
     rays_o, geo, feat, dens_ws = args[0], args[6], args[7], args[9]
     R = rays_o.shape[0]
@@ -583,6 +620,8 @@ def kernel_bound(name, args, kw, f32_tc_rate=H100_F32_SPLIT_FLOPS):
     layers, the yardstick before they moved to the tensor cores."""
     if name == "field_fused":
         bf, tc, cc, nbytes = field_work(args, kw)
+    elif name == "field_fused_edit":
+        bf, tc, cc, nbytes = edit_work(args, kw)
     elif name == "secant_refine":
         bf, tc, cc, nbytes = secant_work(args, kw)
     elif name == "surface_locate":
@@ -907,6 +946,86 @@ def time_kernels(timed, rows):
                                   if c["variant"] == var)
 
 
+def edit_cell_call(rec, models):
+    """field_fused_edit's (args, kw) at the swap cell's shapes, from the
+    reference f32 structure's `full` call (S = 16,256, C = 128): its
+    contexts repeated to EDIT_CELL_B, one reference with the same model's
+    f32 colour weights, edit rows [codes m, m] of each context's own colour
+    codes under m = its candidates at x > 0, and the swap cell's rotation,
+    the 180-degree turn about x."""
+    import torch
+    from neumesh_tpu_torch.ops import kernels
+    a, kw = rec["reference_f32"][(FF, "full")]
+    rep = torch.arange(EDIT_CELL_B, device=DEV) % a[0].shape[0]
+    xyz, geo, feat, dirs = (t[rep].contiguous()
+                            for t in (a[0], a[1], a[2], a[6]))
+    kw = {k: v for k, v in kw.items() if k != "want"}
+    mask = (geo[:, 0] > 0).float()[..., None]
+    rows = torch.cat([feat[..., kw["geometry_dim"]:] * mask, mask], -1)
+    rot = torch.diag(torch.tensor([1.0, -1.0, -1.0], device=DEV))
+    ref = kernels.EditRef(rows.contiguous(),
+                          fold_weights(models["vol_f32"], None)[1], rot,
+                          None, kw["multires_ft"], kw["multires_view"])
+    return (xyz, geo, feat, a[3], a[4], a[5], dirs, [ref]), kw
+
+
+def edit_cell_row(rec, models):
+    """field_fused_edit's row at the swap cell's shapes (edit_cell_call):
+    the kernel on all EDIT_CELL_B contexts, its outputs on every
+    EDIT_CELL_EVERY-th context held against the plain version of those
+    contexts at the f32 tolerance, and their painted counts (kernel and
+    plain version on those contexts) compared; kernel ms, the plain
+    version's ms on those contexts scaled to all of them, the bound."""
+    import torch
+    from neumesh_tpu_torch.ops import kernels
+    a, kw = edit_cell_call(rec, models)
+    sub = torch.arange(0, EDIT_CELL_B, EDIT_CELL_EVERY, device=DEV)
+    a_sub = (*(t[sub].contiguous() for t in a[:3]), *a[3:6],
+             a[6][sub].contiguous(),
+             [r._replace(rows=r.rows[sub].contiguous()) for r in a[7]])
+    got = [g[sub] for g in kernels.field_fused_edit(*a, **kw)]
+    want = kernels.field_fused_edit_plain(*a_sub, **kw)
+    painted = [torch.zeros(1, dtype=torch.int64, device=DEV)
+               for _ in range(2)]
+    kernels.field_fused_edit(*a_sub, painted=painted[0], **kw)
+    kernels.field_fused_edit_plain(*a_sub, painted=painted[1], **kw)
+    torch.cuda.synchronize()
+    err, share, ok, _ = check_outputs(*FE, "f32", got, want)
+    n_k, n_p = int(painted[0]), int(painted[1])
+    held = got[0].numel()
+    log(f"[check] field_fused_edit/full swap_cell (f32, {len(sub)} of "
+        f"{EDIT_CELL_B} contexts held): max|err| {err:.3e}, within tol "
+        f"{share:.5f}, painted {n_k} kernel / {n_p} plain of {held} "
+        f"({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"field_fused_edit at the swap cell's shapes "
+                             f"disagrees with its plain version: {share:.4f}"
+                             " within tol")
+    if not 0 < n_p < held or abs(n_k - n_p) > PAINTED_TOL * n_p:
+        raise AssertionError(f"field_fused_edit painted {n_k}, plain {n_p} "
+                             f"of {held} samples")
+    tol = TOL["f32"]
+    n_plain = len(sub)
+    del got, want
+    torch.cuda.empty_cache()
+    bound, by = kernel_bound(FE[0], a, kw)
+    return {"checks": [{"variant": "swap_cell", "max_abs_err": err,
+                        "frac_within_tol": share, "atol": tol["atol"],
+                        "rtol": tol["rtol"], "min_frac": tol["frac"],
+                        "contexts_held": n_plain,
+                        "painted_kernel": n_k, "painted_plain": n_p,
+                        "samples_held": held}],
+            "ms": cuda_ms(lambda: kernels.field_fused_edit(*a, **kw),
+                          reps=3),
+            "plain_ms": cuda_ms(lambda: kernels.field_fused_edit_plain(
+                *a_sub, **kw), reps=1) * EDIT_CELL_B / n_plain,
+            "plain_ms_from": f"{n_plain} of {EDIT_CELL_B} contexts, scaled",
+            "bound_ms": bound, "bound_by": by,
+            "bound_cuda_core_ms": cuda_core_bound(FE[0], a, kw),
+            "shapes": _shape_note(FE[0], a), "timed_variant": "swap_cell",
+            "max_abs_err": err}
+
+
 def run_stage_split(variants):
     """{"kernel/mode variant": kernels.stage_split(...)} of SPLIT_ROWS on
     their recorded inputs; each row's shares finite and summing to 1."""
@@ -1021,7 +1140,7 @@ def profile_frame(fn):
             continue
         # no kernel's symbol contains another's ("candidate_field_kernel"
         # is not in "candidate_field_v3_kernel", "field_fused_kernel" not in
-        # "field_distance_kernel")
+        # "field_distance_kernel" nor "field_fused_edit_kernel")
         key = next((k for k in PROFILE_KEYS if k + "_kernel" in ev.key),
                    "other")
         by[key] += us / 1e3
@@ -1032,9 +1151,11 @@ def profile_frame(fn):
 
 
 def _shape_note(name, a):
-    if name == "field_fused" or name == "candidate_field_v3":
+    if name in ("field_fused", "field_fused_edit", "candidate_field_v3"):
         B, S, _ = a[0].shape
-        return {"B": B, "S": S, "C": a[1].shape[2], "F": a[2].shape[-1]}
+        return {"B": B, "S": S, "C": a[1].shape[2], "F": a[2].shape[-1],
+                **({"refs": len(a[7])} if name == "field_fused_edit"
+                   else {})}
     if name == "candidate_field":
         R, S, _ = a[0].shape
         return {"R": R, "S": S, "C": a[1].shape[1], "F": a[5].shape[-1]}
@@ -1824,13 +1945,13 @@ def gate_train_stats(lines):
 
 def live_rows(tag, name, a):
     """() or (mask,): the surface modes shade every ray with one field_fused
-    call and discard the missed rays' values, which they evaluate at the
+    (edited: field_fused_edit) call and discard the missed rays' values, which they evaluate at the
     placeholder point (1, 1, 1), outside the unit bounding sphere. On
     trained weights that point sits far from every candidate, where the f32
     nabla is ill-conditioned: kernel, plain version on the card and plain
     version on the CPU disagree there by up to ~5e-4 alike. Those rows are
     reported beside the check; the hit rows are held to the tolerance."""
-    if not tag.startswith("surface") or name != "field_fused":
+    if not tag.startswith("surface") or name not in (FF, FE[0]):
         return ()
     return (~(a[0] == 1.0).all(-1),)
 
@@ -2064,10 +2185,11 @@ EDIT_CASES = {
     "swap_volume": ("swap", [], {}, EDIT_VIEWS, {(FF, "density")}, True),
     "swap_surface": ("swap", SURF_FLAGS, dict(use_pallas=True), EDIT_VIEWS,
                      {(FF, "distance"), (SR, "rebracket"),
-                      (FF, "density_nabla")}, True),
+                      (FF, "density_nabla"), FE}, True),
     "swap_locate": ("swap", SURF_FLAGS,
                     dict(use_pallas=True, use_fused_locate=True), EDIT_VIEWS,
-                    {("surface_locate", "f32"), (FF, "density_nabla")}, True),
+                    {("surface_locate", "f32"), (FF, "density_nabla"), FE},
+                    True),
     "swap_arap": ("swap", ["--use_arap"], {}, "1", {(FF, "density")}, False),
     "fill": ("fill", [], {}, "1", {(FF, "density")}, False),
     "geometry": ("geometry", [], {}, "1", {(FF, "density")}, False),
@@ -2232,7 +2354,8 @@ def surface_checks(tag, edited, plain, flags, n_views):
     """The surface swap against the same mode unedited: depth and hit mask
     equal; on the rays whose tile candidates hold no edited vertex the rgb
     within the f32 tolerance on >= 99% of them (the unedited render shades
-    with one `full` launch, the editable on the context math: a kNN
+    with one `full` launch, the editable with use_pallas and nablas input
+    with one field_fused_edit launch, else on the context math: a kNN
     near-tie may resolve differently on the two routes, so the largest
     difference is reported, not held); the edit engaged on the others."""
     import torch
@@ -3275,6 +3398,8 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
     variants, timed = kernel_variants(rec, models)
     rows = check_kernels(variants)
     time_kernels(timed, rows)
+    with torch.no_grad():
+        rows[FE] = edit_cell_row(rec, models)
     split = run_stage_split(variants)
     rows[FD]["floor_ms"] = distance_floor_ms(rec["serving_bf16"][FD][0])
     rows[FD]["timed_shapes"] = distance_shapes(*rec["serving_bf16"][FD])
@@ -3412,6 +3537,8 @@ def run_all(tmp, name, card, build_s, host_build_s, t_start) -> int:
             "on_path": (kname, mode) in on_path,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            **({"plain_ms_from": row["plain_ms_from"]}
+               if "plain_ms_from" in row else {}),
             "bound_by": row["bound_by"],
             "bound_cuda_core_ms": row["bound_cuda_core_ms"],
             "library_ms": None,

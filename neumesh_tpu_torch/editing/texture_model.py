@@ -18,16 +18,28 @@ field_fused) to the main model's bound view. The bound view has NO
 forward_full on purpose: the surface renderer would shade with it and
 skip the blend.
 
-The bound shade holds (tiles, samples, candidates) temporaries, a dozen
-of them live at once in the context math and the blend; it runs over
-slices of whole tiles, each at most SLICE_ELEMS elements a temporary
-(per-tile math, so a slice gives the bits the whole chunk gives).
+The bound shade (RayBoundTextureEditable.forward) takes one of two
+routes:
+  - the fused route, where the main model has use_pallas and nablas input
+    (the condition of the unedited bound forward's `full` launch), every
+    reference has nablas input and there are at most EDIT_REFS
+    references: one ops/kernels.py::field_fused_edit call a chunk (the
+    field_fused_edit kernel on the card, its plain version on the CPU),
+    on the main model's folded weights and evaluation contexts, each
+    reference's colour weights folded as the main model's and its edit
+    rows [codes times mask, mask] gathered once a binding;
+  - else the context math in plain torch (_shade): the bound shade holds
+    (tiles, samples, candidates) temporaries, a dozen of them live at once
+    in the context math and the blend, so it runs over slices of whole
+    tiles, each at most SLICE_ELEMS elements a temporary (per-tile math,
+    so a slice gives the bits the whole chunk gives).
 
 Spans: edit.shade (the blended shade, bound and per sample),
-edit.ref_color (each reference's colour); counters edit.samples_shaded
-(samples shaded, from the shapes) and edit.samples_painted (samples with
-a positive paint weight, summed over the references; a device count,
-under a profiler only).
+edit.ref_color (each reference's colour on the context math); counters
+edit.samples_shaded (samples shaded, from the shapes) and
+edit.samples_painted (samples with a positive paint weight, summed over
+the references; a device count, under a profiler only: on the fused route
+the kernel adds it up).
 """
 from __future__ import annotations
 
@@ -37,7 +49,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..utils.trace import count, count_device, span, spanned
+from ..models.neumesh.model import fold_color_weights
+from ..ops import kernels
+from ..ops._build import EDIT_REFS
+from ..utils.trace import count, count_device, enabled, span, spanned
 
 # elements of one (tiles, samples, candidates) temporary of a shade slice
 SLICE_ELEMS = 1 << 28
@@ -206,6 +221,7 @@ class RayBoundTextureEditable(nn.Module):
             ef = editable.edit_features(i)
             ef_ext = torch.cat([ef, ef.new_zeros((1, ef.shape[-1]))], 0)
             self._efeat.append(ef_ext[ids])                    # (B, C, F)
+        self._refs = None    # the fused route's references, once built
 
     # ---- geometry: the main model's bound view, kernels included
     def forward_s(self):
@@ -229,23 +245,83 @@ class RayBoundTextureEditable(nn.Module):
     def fused_locate(self, *args, **kwargs):
         return self.bound.fused_locate(*args, **kwargs)
 
-    # ---- blended colour on the context math
+    # ---- blended colour: one fused launch, or the context math
     @spanned("edit.shade")
     def forward(self, xyz, view_dirs):
-        """(sdf (R, S), rgb (R, S, 3)): density, nablas and base colour by
-        the main model's context math, the reference colours from the
-        cached edit features; over slices of whole contexts where one
-        (contexts, samples, candidates) temporary of the whole would pass
+        """(sdf (R, S), rgb (R, S, 3)): one field_fused_edit call on the
+        fused route; else density, nablas and base colour by the main
+        model's context math, the reference colours from the cached edit
+        features, over slices of whole contexts where one (contexts,
+        samples, candidates) temporary of the whole would pass
         SLICE_ELEMS."""
         b = self.bound
         x, v = b._flat(xyz), b._flat(view_dirs)
         B, S = x.shape[:2]
         count("edit.samples_shaded", B * S)
+        if self._fused_route():
+            sdf, rgb = self._fused_shade(x, v)
+            return b._unflat(sdf), b._unflat(rgb)
         step = max(1, SLICE_ELEMS // (S * b.ctx["ids"].shape[1]))
         parts = [self._shade(x[a:a + step], v[a:a + step], slice(a, a + step))
                  for a in range(0, B, step)]
         return (b._unflat(torch.cat([p[0] for p in parts])),
                 b._unflat(torch.cat([p[1] for p in parts])))
+
+    def _fused_route(self) -> bool:
+        ed = self.editable
+        main = ed.main_model
+        return (main.use_pallas and main.enable_nablas_input
+                and len(ed.ref_models) <= EDIT_REFS
+                and all(r.enable_nablas_input for r in ed.ref_models))
+
+    def _fused_shade(self, x, v):
+        """x, v (B, S, 3) -> (sdf (B, S), rgb (B, S, 3)) by one
+        field_fused_edit call on the main model's evaluation contexts."""
+        b = self.bound
+        m = b.model
+        dws, cws = b._field_weights()
+        geo, feat = b._eval_ctx_slice()
+        painted = (torch.zeros(1, dtype=torch.int64, device=x.device)
+                   if enabled() else None)
+        out = kernels.field_fused_edit(
+            x, geo, feat, b._indicator_weight(), dws, cws, v,
+            self._edit_refs(),
+            multires_d=m.embed_fn_d.multires,
+            multires_fg=m.embed_fn_fg.multires,
+            multires_ft=m.embed_fn_ft.multires,
+            multires_view=m.embed_fn_view.multires,
+            geometry_dim=m.geometry_dim, dtype=m.compute_dtype,
+            painted=painted)
+        if painted is not None:
+            count_device("edit.samples_painted", painted)
+        return out[0], torch.stack(out[1:4], dim=-1)
+
+    def _edit_refs(self):
+        """The fused route's references (kernels.EditRef) at the candidates
+        of the evaluation contexts (_eval_ctx_slice), built once a binding:
+        each reference's edit rows, its transferred codes (rounded to its
+        compute dtype) times its edit mask, then the mask; its colour
+        weights folded as the main model's; its rotation, _ref_frame's
+        image of the axes (the one definition of the reference frame)."""
+        if self._refs is None:
+            ed = self.editable
+            C = self.bound._eval_ctx_slice()[0].shape[2]
+            eye = torch.eye(3, device=ed.device)
+            self._refs = []
+            for i, ref in enumerate(ed.ref_models):
+                dt = ref.compute_dtype
+                ef = self._efeat[i][:, :C]
+                if dt is not None:
+                    ef = ef.to(dt).to(torch.float32)
+                mask = self._masks[i][:, :C, None]
+                with span("weights.fold"):
+                    cws = fold_color_weights(ref)
+                rot = ed._ref_frame(i, eye, None)[0].t().contiguous()
+                self._refs.append(kernels.EditRef(
+                    torch.cat([ef * mask, mask], -1).contiguous(), cws, rot,
+                    dt, ref.embed_fn_ft.multires,
+                    ref.embed_fn_view.multires))
+        return self._refs
 
     def _shade(self, x, v, rows: slice):
         """The blended shade of the contexts `rows`: x, v (n, S, 3) ->

@@ -666,6 +666,33 @@ def candidate_bounded_near_far(ctx, rays_o, rays_d, near, far,
     return near_new, far_new
 
 
+def _folder(m: NeuMesh, f32):
+    """eff(linear, *tags): the layer's weight-norm folded (in, out) weight,
+    cast to m.compute_dtype unless one of its tags is in f32."""
+    dt = m.compute_dtype
+
+    def eff(lin, *tags):
+        w = lin.weight()
+        if dt is None or any(t in f32 for t in tags):
+            return w.contiguous()
+        return w.to(dt).contiguous()
+    return eff
+
+
+def fold_color_weights(m: NeuMesh, f32=None):
+    """The colour MLP's half of RayBoundNeuMesh._fold_weights: (w0, b0,
+    [Wi, bi]..., wh, bh), the weights folded and cast to m.compute_dtype
+    but the layers tagged in f32 (m.f32_layers by default: 'color', 'c0',
+    'ch'), the biases (1, out) f32."""
+    eff = _folder(m, m.f32_layers if f32 is None else f32)
+    c0 = m.views_linears[0]
+    cws = [eff(c0, "color", "c0"), c0.b[None]]
+    for p in m.views_linears[1:]:
+        cws += [eff(p, "color"), p.b[None]]
+    cws += [eff(m.color_linear, "color", "ch"), m.color_linear.b[None]]
+    return tuple(cws)
+
+
 class RayBoundNeuMesh:
     """A NeuMesh bound to per-ray candidate caches: a sample query (R, S,
     3) of the R bound rays is answered from each ray's (C, ...) context,
@@ -708,15 +735,8 @@ class RayBoundNeuMesh:
     @spanned("weights.fold")
     def _fold_weights(self, f32_override):
         m = self.model
-        dt = m.compute_dtype
         f32 = m.f32_layers if f32_override is None else f32_override
-
-        def eff(lin, *tags):
-            w = lin.weight()
-            if dt is None or any(t in f32 for t in tags):
-                return w.contiguous()
-            return w.to(dt).contiguous()
-
+        eff = _folder(m, f32)
         p0 = m.pts_linears[0]
         w0 = eff(p0, "density", "d0")
         dws = [w0[:m.input_ch_d], w0[m.input_ch_d:], p0.b[None]]
@@ -724,12 +744,7 @@ class RayBoundNeuMesh:
             dws += [eff(p, "density"), p.b[None]]
         dws += [eff(m.density_linear, "density", "dh"),
                 m.density_linear.b[None]]
-        c0 = m.views_linears[0]
-        cws = [eff(c0, "color", "c0"), c0.b[None]]
-        for p in m.views_linears[1:]:
-            cws += [eff(p, "color"), p.b[None]]
-        cws += [eff(m.color_linear, "color", "ch"), m.color_linear.b[None]]
-        return tuple(dws), tuple(cws)
+        return tuple(dws), fold_color_weights(m, f32)
 
     def _scan_ctx_slice(self, geo, feat=None):
         """(geo, feat) cut to the scan_candidates nearest prefix when the

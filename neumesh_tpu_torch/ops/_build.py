@@ -38,9 +38,12 @@ SLOT_F32_BYTES = 3 * KSF * NPAD * 2   # where every hidden layer is f32
 SMEM_MAX = 227 * 1024
 WS_REGS = {"producer": 24, "consumer": 112}  # csrc PRODUCER_REGS,
                                              # CONSUMER_REGS (setmaxnreg)
-WS_KERNELS = ("field_fused", "secant_refine")   # the warp-specialised ones
+# the warp-specialised kernels
+WS_KERNELS = ("field_fused", "field_fused_edit", "secant_refine")
 KL = 32             # listed kNN picks a row
 KSEL = 16           # the frozen secant's neighbours, at most
+EDIT_REFS = 4       # field_fused_edit's references, at most (csrc MAX_REFS)
+EDIT_ROW = 36       # its per-row floats (csrc EDIT_ROW)
 # field_distance.cu's block plan (csrc DT, DT_L2, K1_LANES, DL, SPT_K1,
 # SPT_LIST, LIST_C, DIST_SMEM), mirrored by
 # ops/kernels.py::distance_block_plan
@@ -64,12 +67,14 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build",
                          "neumesh_tpu_torch")
 SOURCES = {"field_fused": "field_fused.cu",
            "field_distance": "field_distance.cu",
+           "field_fused_edit": "field_fused_edit.cu",
            "secant_refine": "secant_refine.cu",
            "surface_locate": "surface_locate.cu",
            "candidate_field": "candidate_field.cu"}
 # kernel -> (library built from SOURCES, C entry point)
 ENTRY = {"field_fused": ("field_fused", "nm_field_fused"),
          "field_distance": ("field_distance", "nm_field_distance"),
+         "field_fused_edit": ("field_fused_edit", "nm_field_fused_edit"),
          "secant_refine": ("secant_refine", "nm_secant_refine"),
          "surface_locate": ("surface_locate", "nm_surface_locate"),
          "candidate_field_v3": ("candidate_field", "nm_candidate_field_v3"),
@@ -102,6 +107,18 @@ class FieldArgs(ctypes.Structure):
                              "nst")]
                 + [("w1", ctypes.c_float), ("dens", MLPDesc),
                    ("col", MLPDesc), ("prof", ctypes.c_void_p)])
+
+
+class EditRef(ctypes.Structure):
+    _fields_ = ([("rows", ctypes.c_void_p), ("rot", ctypes.c_void_p)]
+                + [(n, ctypes.c_int) for n in ("cd", "lowp", "mft", "mv")]
+                + [("col", MLPDesc)])
+
+
+class EditArgs(ctypes.Structure):
+    _fields_ = [("f", FieldArgs), ("ref", EditRef * EDIT_REFS),
+                ("nref", ctypes.c_int), ("pad", ctypes.c_int),
+                ("painted", ctypes.c_void_p)]
 
 
 class RayField(ctypes.Structure):

@@ -8,6 +8,9 @@ versions.
   surface_locate      <- ::_locate_kernel (csrc/surface_locate.cu)
   candidate_field_v3  <- ::_v3_kernel (csrc/candidate_field.cu)
   candidate_field     <- ::_kernel, v2 (csrc/candidate_field.cu)
+  field_fused_edit    <- none: the JAX package's edited shade
+                         (editing/texture_model.py) is plain jnp
+                         (csrc/field_fused_edit.cu)
 
 A wrapper launches its CUDA kernel for CUDA tensors (or raises) and uses
 the plain version only for CPU tensors; nothing falls back. The plain
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -36,6 +40,7 @@ _CAND_MODES = ("ds_feat", "ds_nofeat", "ds_dh_feat", "ds_dh_nofeat")
 LAUNCHES = {
     name: trace.CounterView(f"launch.{name}.", modes) for name, modes in (
         ("field_fused", _N_OUT),
+        ("field_fused_edit", ("full",)),
         ("secant_refine", ("plain", "rebracket", "frozen",
                            "frozen_rebracket")),
         ("surface_locate", ("bf16", "f32")),
@@ -385,6 +390,160 @@ def _field_launch(xyz, geo, feat, w1, dens_ws, col_ws, dirs, *, k, want,
     args.prof = prof
     _build.launch("field_distance" if want == "distance" else "field_fused",
                   args, xyz)
+    return list(out), True
+
+
+# ---------------------------------------------------------------------------
+# field_fused_edit
+# ---------------------------------------------------------------------------
+
+class EditRef(NamedTuple):
+    """A reference of field_fused_edit. rows (B, C, cd + 1) f32: each
+    candidate's transferred colour codes (rounded to `dtype` where it is
+    set) times its edit mask, then the mask; col_ws: its colour MLP in
+    field_fused's col_ws layout; rot (3, 3) f32 main -> reference rotation
+    on the samples' device; dtype, multires_ft, multires_view: its colour
+    MLP's."""
+    rows: torch.Tensor
+    col_ws: tuple
+    rot: torch.Tensor
+    dtype: Optional[torch.dtype] = None
+    multires_ft: int = 2
+    multires_view: int = 4
+
+
+def _rotated(rot, v):
+    """[v0, v1, v2] (each (..., 1)) rotated by rot (3, 3): row j is
+    (rot[j, 0] v0 + rot[j, 1] v1) + rot[j, 2] v2, the kernel's order."""
+    return [rot[j, 0] * v[0] + rot[j, 1] * v[1] + rot[j, 2] * v[2]
+            for j in range(3)]
+
+
+def field_fused_edit_plain(xyz, geo, feat, w1, dens_ws, col_ws, dirs, refs,
+                           *, k: int = 8, multires_d: int = 8,
+                           multires_fg: int = 2, multires_ft: int = 2,
+                           multires_view: int = 4, geometry_dim: int = 32,
+                           dtype=None, painted=None):
+    """Plain PyTorch version of field_fused_edit (same signature)."""
+    if dtype is not None:
+        feat = feat.to(dtype)
+    x0, x1, x2 = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
+    ds, W, dh = _interp_distance(x0, x1, x2, geo, w1, k, True)
+    feats = _feat_dot(W, feat)
+    dens, d_emb, dDdh = _density_mlp(ds, feats[..., :geometry_dim], dens_ws,
+                                     multires_d, multires_fg, dtype, True)
+    rgb = _color_mlp([dDdh * h for h in dh], d_emb, dirs,
+                     feats[..., geometry_dim:], col_ws, multires_ft,
+                     multires_view, dtype)
+    vdir = [dirs[..., i:i + 1] for i in range(3)]
+    for r in refs:
+        cd = r.rows.shape[-1] - 1
+        Wr = W if r.dtype is None else W.to(r.dtype).to(torch.float32)
+        pw = W @ r.rows[..., cd:]
+        ft = (Wr @ r.rows[..., :cd]) / (pw + 1e-8)
+        ref = _color_mlp([dDdh * h for h in _rotated(r.rot, dh)], d_emb,
+                         torch.cat(_rotated(r.rot, vdir), -1), ft, r.col_ws,
+                         r.multires_ft, r.multires_view, r.dtype)
+        hit = pw > 0
+        rgb = torch.where(hit, rgb * (1.0 - pw) + ref * pw, rgb)
+        if painted is not None:
+            painted += hit.sum()
+    return [dens[..., 0], rgb[..., 0], rgb[..., 1], rgb[..., 2]]
+
+
+def field_fused_edit(xyz, geo, feat, w1, dens_ws, col_ws, dirs, refs, *,
+                     k: int = 8, multires_d: int = 8, multires_fg: int = 2,
+                     multires_ft: int = 2, multires_view: int = 4,
+                     geometry_dim: int = 32, dtype=None, painted=None):
+    """The texture-edited shade of (B, S, 3) samples and view directions:
+    field_fused(want="full")'s arguments and a list of at most EDIT_REFS
+    EditRef. Each reference's colour is decoded from its rows blended by
+    the kNN weights (ft_r = sum W codes m / (sum W m + 1e-8)) at the
+    rotated view direction and nabla, and mixed in where the paint weight
+    p = sum W m is positive: rgb (1 - p) + rgb_r p, reference after
+    reference. painted: an optional int64 tensor the samples with p > 0
+    are added to (summed over the references). Returns [sdf, r, g, b],
+    (B, S) f32 each."""
+    from ._build import EDIT_REFS
+
+    if len(refs) > EDIT_REFS:
+        raise ValueError(f"field_fused_edit: {len(refs)} references, at "
+                         f"most {EDIT_REFS}")
+    kw = dict(k=k, multires_d=multires_d, multires_fg=multires_fg,
+              multires_ft=multires_ft, multires_view=multires_view,
+              geometry_dim=geometry_dim, dtype=dtype, painted=painted)
+    if not xyz.is_cuda:
+        return field_fused_edit_plain(xyz, geo, feat, w1, dens_ws, col_ws,
+                                      dirs, refs, **kw)
+    out, launched = _edit_launch(xyz, geo, feat, w1, dens_ws, col_ws, dirs,
+                                 refs, **kw)
+    trace.count("launch.field_fused_edit.full", launched)
+    return out
+
+
+def _edit_launch(xyz, geo, feat, w1, dens_ws, col_ws, dirs, refs, *, k,
+                 multires_d, multires_fg, multires_ft, multires_view,
+                 geometry_dim, dtype, painted):
+    """Launch field_fused_edit's kernel: (its outputs, whether it
+    launched); counts nothing."""
+    from . import _build
+
+    _no_grad(xyz, geo, feat, w1, dens_ws, col_ws, dirs,
+             *[(r.rows, r.rot, *r.col_ws) for r in refs])
+    B, S, _ = xyz.shape
+    C = geo.shape[2]
+    if dtype is not None:
+        feat = feat.to(dtype)
+    feat = feat.contiguous()
+    F = feat.shape[-1]
+    _check_inputs(xyz, geo, feat, dirs)
+    out = torch.empty((4, B, S), device=xyz.device, dtype=torch.float32)
+    if B == 0 or S == 0:
+        return list(out), False
+    keep = []
+    args = _build.EditArgs()
+    dens_d, ldx = _mlp_desc(_dens_layers(dens_ws, geometry_dim), keep)
+    col_d, ldx_c = _mlp_desc(_col_layers(col_ws, F - geometry_dim,
+                                         multires_d, multires_view), keep)
+    ldx = max(ldx, ldx_c)
+    for i, r in enumerate(refs):
+        cd = r.rows.shape[-1] - 1
+        if (r.rows.dtype != torch.float32 or r.rows.device != xyz.device
+                or tuple(r.rows.shape[:2]) != (B, C)):
+            raise ValueError(f"field_fused_edit: reference {i} rows "
+                             f"{tuple(r.rows.shape)} {r.rows.dtype} on "
+                             f"{r.rows.device}, want ({B}, {C}, cd + 1) "
+                             f"float32 on {xyz.device}")
+        if (r.rot.shape != (3, 3) or r.rot.dtype != torch.float32
+                or r.rot.device != xyz.device):
+            raise ValueError(f"field_fused_edit: reference {i} rotation "
+                             f"{tuple(r.rot.shape)} {r.rot.dtype} on "
+                             f"{r.rot.device}")
+        ref_d, ldx_r = _mlp_desc(_col_layers(r.col_ws, cd, multires_d,
+                                             r.multires_view), keep)
+        ldx = max(ldx, ldx_r)
+        er = args.ref[i]
+        er.rows = _ptr(r.rows.contiguous(), keep)
+        er.rot = _ptr(r.rot.contiguous(), keep)
+        er.cd, er.lowp = cd, int(r.dtype is not None)
+        er.mft, er.mv = r.multires_ft, r.multires_view
+        er.col = ref_d
+    if painted is not None and (painted.dtype != torch.int64
+                                or painted.device != xyz.device):
+        raise ValueError("field_fused_edit: painted must be int64 on the "
+                         "samples' device")
+    args.f = _build.FieldArgs(
+        xyz=_ptr(xyz.contiguous(), keep), dirs=_ptr(dirs.contiguous(), keep),
+        geo=_ptr(geo.contiguous(), keep), feat=_ptr(feat, keep),
+        out=out.data_ptr(), feat_bf16=int(feat.dtype == torch.bfloat16),
+        B=B, S=S, C=C, F=F, k=k, mode=list(_N_OUT).index("full"),
+        md=multires_d, mfg=multires_fg, mft=multires_ft, mv=multires_view,
+        gd=geometry_dim, lowp=int(dtype is not None), ldx=ldx, w1=float(w1))
+    args.f.dens = dens_d
+    args.f.col = col_d
+    args.nref = len(refs)
+    args.painted = _ptr(painted, keep)
+    _build.launch("field_fused_edit", args, xyz)
     return list(out), True
 
 
@@ -1107,22 +1266,25 @@ def _mlp_meta(layers):
 
 
 def tile_smem_plan(name: str, *args, **kw) -> dict:
-    """The shared-memory plan of a field_fused / secant_refine launch (csrc
-    field_smem / field_staged, secant_smem / secant_staged, tile_plan) from
-    the wrapper's arguments (shapes and dtypes alone; any device): "ws",
+    """The shared-memory plan of a field_fused / field_fused_edit /
+    secant_refine launch (csrc field_smem / field_staged, edit_smem /
+    edit_staged, secant_smem / secant_staged, tile_plan) from the wrapper's
+    arguments (shapes and dtypes alone; any device): "ws",
     whether the instantiation is warp-specialised (all but the f32 secant
     without the frozen selection),
     "bytes" of a block, "ring" slots (2..RING_MAX where warp-specialised,
-    24 KB each where every hidden layer is f32, else 32 KB; else 2 of 32
-    KB), "staged" contexts a block (0:
-    read from L2), "fits" (bytes <= SMEM_MAX; the C entry refuses the
-    launch otherwise)."""
+    24 KB each where every hidden layer of the density and (main) colour
+    MLPs is f32, else 32 KB; else 2 of 32 KB), "staged" contexts a block
+    (0: read from L2), "fits" (bytes <= SMEM_MAX, and field_fused_edit's
+    reference MLPs within the activation buffers and the ring's slots; the
+    C entry refuses the launch otherwise)."""
     import inspect
 
-    from ._build import (KL, KSEL, RING_MAX, SLOT_BYTES, SLOT_F32_BYTES,
-                         SMEM_MAX, TS)
+    from ._build import (EDIT_ROW, KL, KSEL, RING_MAX, SLOT_BYTES,
+                         SLOT_F32_BYTES, SMEM_MAX, TS)
 
-    fn = {"field_fused": field_fused, "secant_refine": secant_refine}[name]
+    fn = {"field_fused": field_fused, "field_fused_edit": field_fused_edit,
+          "secant_refine": secant_refine}[name]
     a = inspect.signature(fn).bind(*args, **kw)
     a.apply_defaults()
     a = a.arguments
@@ -1130,16 +1292,23 @@ def tile_smem_plan(name: str, *args, **kw) -> dict:
     dens = _mlp_meta(_dens_layers(a["dens_ws"], gd))
     F = a["feat"].shape[-1]
     C = a["geo"].shape[2]
-    if name == "field_fused":
-        want = a["want"]
+    refs = []
+    if name != "secant_refine":
+        edit = name == "field_fused_edit"
+        want = "full" if edit else a["want"]
         B, R = a["xyz"].shape[:2]
         col = (_mlp_meta(_col_layers(a["col_ws"], F - gd, a["multires_d"],
                                      a["multires_view"]))
                if want == "full" else None)
         tang = want in ("density_nabla", "full")
+        if edit:
+            refs = [_mlp_meta(_col_layers(r.col_ws, r.rows.shape[-1] - 1,
+                                          a["multires_d"], r.multires_view))
+                    for r in a["refs"]]
+        row = EDIT_ROW if edit else 20
 
         def rest(nst):
-            return 4 * (TS * 20 + TS * F + TS * (KL // 2 + 1) + TS
+            return 4 * (TS * row + TS * F + TS * (KL // 2 + 1) + TS
                         + 8 * C * nst)
     else:
         B = a["geo"].shape[0]
@@ -1151,7 +1320,7 @@ def tile_smem_plan(name: str, *args, **kw) -> dict:
         def rest(nst):
             ray = (TS * 14 + TS * F + TS * (KL // 2 + 1) + TS + 8 * C * nst)
             return 4 * (ray + 2 * TS) + frozen
-    ldx = max(dens[1], col[1] if col else 0)
+    ldx = max([dens[1], col[1] if col else 0] + [m[1] for m in refs])
     xb = _act_bytes(dens[0], ldx)
     tb = xb if tang else 0
     if col:
@@ -1159,11 +1328,15 @@ def tile_smem_plan(name: str, *args, **kw) -> dict:
     act = max(xb + tb, -(-TS * C * 4 // 128) * 128)
     hidden = [bf16 for m in (dens, col) if m for bf16, _ in m[0][:-1]]
     # csrc secant_ws: every instantiation but the f32 secant without the
-    # frozen selection (field_fused: every one)
+    # frozen selection (field_fused, field_fused_edit: every one)
     f32 = not all(hidden)
-    ws = name == "field_fused" or not f32 or a["frozen_knn"]
+    ws = name != "secant_refine" or not f32 or a["frozen_knn"]
     bars = 2 * RING_MAX * 8 if ws else 16
     slot = SLOT_F32_BYTES if ws and not any(hidden) else SLOT_BYTES
+    refs_ok = all(_act_bytes(m[0], ldx) <= xb
+                  and not (slot == SLOT_F32_BYTES
+                           and any(bf16 for bf16, _ in m[0][:-1]))
+                  for m in refs)
 
     def plan(nst):
         r = rest(nst)
@@ -1174,7 +1347,7 @@ def tile_smem_plan(name: str, *args, **kw) -> dict:
     staged = n if plan(n)[1] <= SMEM_MAX else 0
     ring, nbytes = plan(staged)
     return {"bytes": nbytes, "ring": ring, "staged": staged,
-            "fits": nbytes <= SMEM_MAX, "ws": ws}
+            "fits": nbytes <= SMEM_MAX and refs_ok, "ws": ws}
 
 
 def stage_split(name: str, *args, **kw) -> dict:
@@ -1333,7 +1506,8 @@ def _check_inputs(xyz, geo, feat, dirs):
         raise TypeError(f"field kernels: feat dtype {feat.dtype}")
 
 
-__all__ = ["field_fused", "field_fused_plain", "pack_layer", "split_planes",
+__all__ = ["field_fused", "field_fused_plain", "field_fused_edit",
+           "field_fused_edit_plain", "EditRef", "pack_layer", "split_planes",
            "block_plan", "tile_blocks", "stage_split", "persistent_schedule",
            "tile_smem_plan", "softplus100_pair", "softplus100_bf16_form",
            "secant_refine",

@@ -30,8 +30,8 @@ Spans (each "nm." + name):
   train.step, train.forward, train.render, train.loss, train.backward,
   train.grad_norm, train.adam, train.teacher, field.nablas
   edit.shade, edit.ref_color                       the texture-edited shade
-                                                    and each reference's
-                                                    colour in it
+                                                    and, on its context math,
+                                                    each reference's colour
   edit.transfer                                     a swap's code transfer
 Counters:
   host_read               each call that makes the host wait for the

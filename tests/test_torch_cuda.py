@@ -294,6 +294,85 @@ def assert_field_close(got, want, mask, mode, dtype):
             assert share >= 0.97, (i, share)
 
 
+def edit_inputs(seed=0, B=3, S=75, C=70, n_refs=1, clean=(), rotate=True,
+                **ctx):
+    """random_context's inputs and n_refs references of field_fused_edit:
+    each an edit mask on about a third of the candidates (none in the
+    contexts `clean`), transferred codes, a colour MLP of its own (another
+    random_context's) and a random rotation (the identity without
+    `rotate`)."""
+    inp = random_context(seed=seed, B=B, S=S, C=C, **ctx)
+    rng = np.random.default_rng(seed + 100)
+    cd = inp["feat"].shape[-1] - inp["kw"]["geometry_dim"]
+    refs = []
+    for r in range(n_refs):
+        mask = (rng.random((B, C)) < 0.35).astype(np.float32)
+        mask[list(clean)] = 0.0
+        rot, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        other = random_context(seed=seed + 10 + r, B=1, S=1, C=8, **ctx)
+        refs.append(dict(codes=rng.normal(size=(B, C, cd)).astype(np.float32),
+                         mask=mask, cws=other["cws"],
+                         rot=(rot if rotate else np.eye(3)).astype(
+                             np.float32)))
+    inp["refs"] = refs
+    return inp
+
+
+def edit_subset(inp, ctxs):
+    """edit_inputs' inputs of the contexts `ctxs` alone."""
+    out = dict(inp, refs=[dict(r, codes=r["codes"][ctxs], mask=r["mask"][ctxs])
+                          for r in inp["refs"]])
+    for k in ("xyz", "dirs", "geo", "feat"):
+        out[k] = inp[k][ctxs]
+    return out
+
+
+def torch_edit(inp, dtype, tags=(), device="cpu", plain=False,
+               painted=None):
+    """field_fused_edit (or its plain version) on edit_inputs' `inp` as
+    torch tensors: [sdf, r, g, b]."""
+    def t(a):
+        return torch.from_numpy(a).to(device)
+
+    def ws(lst, first, head):
+        low = low_precision_mask(lst, dtype, kept_f32(tags, first, head),
+                                 len(first))
+        return [t(w).to(torch.bfloat16) if lo else t(w)
+                for w, lo in zip(lst, low)]
+
+    low = None if dtype is None else torch.bfloat16
+    refs = []
+    for r in inp["refs"]:
+        codes = t(r["codes"])
+        if low is not None:
+            codes = codes.to(low).to(torch.float32)
+        m = t(r["mask"])[..., None]
+        refs.append(kernels.EditRef(
+            torch.cat([codes * m, m], -1), tuple(ws(r["cws"], (0,),
+                                                    len(r["cws"]) - 2)),
+            t(r["rot"]), low,
+            inp["kw"]["multires_ft"], inp["kw"]["multires_view"]))
+    fn = kernels.field_fused_edit_plain if plain else kernels.field_fused_edit
+    return fn(t(inp["xyz"]), t(inp["geo"]), t(inp["feat"]), inp["w1"],
+              ws(inp["dws"], (0, 1), len(inp["dws"]) - 2),
+              ws(inp["cws"], (0,), len(inp["cws"]) - 2), t(inp["dirs"]),
+              refs, k=8, dtype=low, painted=painted, **inp["kw"])
+
+
+def assert_edit_close(got, want, mask, dtype):
+    """field_fused_edit's [sdf, r, g, b] at the `full` mode's tolerances:
+    f32 2e-5 + 1e-4 rel on the no-tie samples, bf16 2e-3 on >= 97% of the
+    values of each output."""
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if dtype is None:
+            np.testing.assert_allclose(g[mask], w[mask], atol=2e-5,
+                                       rtol=1e-4)
+        else:
+            share = float((np.abs(g - w) <= 2e-3).mean())
+            assert share >= 0.97, (i, share)
+
+
 def assert_roots_close(got, want, dtype):
     """f32: 2e-5 + 1e-4 rel on >= 99% of rays (a kNN near-tie can move a
     root); bf16: 2e-3 on >= 97%."""
@@ -949,6 +1028,62 @@ def test_field_fused_selective_f32_at_per_ray_shapes_on_card(want, S):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("prec", list(FLAGSHIP_PRECISIONS))
+def test_field_fused_edit_at_the_swap_cells_shapes_on_card(prec):
+    """The swap cell's chunk: 469 tile contexts of 128 rays x 127 samples,
+    C = 128, the flagship width, two rotated references; the kernel on the
+    whole call (one launch), its plain version on four of the contexts."""
+    _need_card()
+    dtype, tags = FLAGSHIP_PRECISIONS[prec]
+    inp = edit_inputs(seed=21, B=469, S=16256, C=128, n_refs=2, **WIDE)
+    kernels.reset_launch_counts()
+    got = torch_edit(inp, dtype, tags, device="cuda")
+    assert kernels.LAUNCHES["field_fused_edit"]["full"] == 1
+    pick = [0, 155, 310, 468]
+    sub = edit_subset(inp, pick)
+    want = torch_edit(sub, dtype, tags, device="cuda", plain=True)
+    assert_edit_close([g[pick].cpu() for g in got], [w.cpu() for w in want],
+                      no_tie_mask(sub["xyz"], sub["geo"]), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, "bf16"])
+@pytest.mark.parametrize("B,S", [(509, 1), (509, 16), (7, 300)])
+def test_field_fused_edit_matches_plain_on_card(dtype, B, S):
+    """The per-ray shapes (S = 1 and 16 at C = 96; B S no multiple of the
+    64-row block, so the last block is ragged) and a ragged tile shape (S
+    = 300), two references, the flagship width: the kernel against its
+    plain version, and the samples with a positive paint weight counted
+    alike on both."""
+    _need_card()
+    inp = edit_inputs(seed=23 + S, B=B, S=S, C=96, n_refs=2, **WIDE)
+    painted = [torch.zeros(1, dtype=torch.int64, device="cuda")
+               for _ in range(2)]
+    got = torch_edit(inp, dtype, device="cuda", painted=painted[0])
+    want = torch_edit(inp, dtype, device="cuda", plain=True,
+                      painted=painted[1])
+    assert_edit_close([g.cpu() for g in got], [w.cpu() for w in want],
+                      no_tie_mask(inp["xyz"], inp["geo"]), dtype)
+    assert int(painted[0]) == int(painted[1]) > 0
+
+
+@pytest.mark.cuda
+def test_field_fused_edit_launch_errors_raise_on_card():
+    """A reference the C entry refuses (codes wider than the main
+    features) fails the launch's error check and raises; nothing falls
+    back."""
+    _need_card()
+    inp = edit_inputs(seed=9, B=4, S=70, C=40, n_refs=1)
+    wide = random_context(seed=10, B=1, S=1, C=8, cd=17)
+    inp["refs"][0].update(
+        codes=np.ones((4, 40, 17), np.float32), cws=wide["cws"])
+    kernels.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="field_fused_edit launch failed"):
+        torch_edit(inp, None, device="cuda")
+    assert kernels.LAUNCHES["field_fused_edit"]["full"] == 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,rebracket,frozen,dtype,tags",
                          PER_RAY_SECANT_CASES)
 def test_secant_refine_at_per_ray_shapes_on_card(T, rebracket, frozen, dtype,
@@ -1254,8 +1389,9 @@ def test_field_fused_at_ties_and_pads_on_card(B, S, want, dtype, k, kind):
 @pytest.mark.parametrize("prec", ["f32", "bf16", "bf16_sel_f32"])
 def test_smem_plan_mirror_matches_the_c_entries_on_card(prec, monkeypatch):
     """kernels.tile_smem_plan against the libraries' own `_smem` entries
-    (field_smem / secant_smem) at the flagship width: the same bytes for
-    every mode and the secant, at tile and per-ray shapes."""
+    (field_smem / edit_smem / secant_smem) at the flagship width: the same
+    bytes for every mode, the edited shade and the secant, at tile and
+    per-ray shapes."""
     import ctypes
 
     from neumesh_tpu_torch.ops import _build
@@ -1285,6 +1421,15 @@ def test_smem_plan_mirror_matches_the_c_entries_on_card(prec, monkeypatch):
             kernels.field_fused(*args, **call)
             assert seen.pop() == kernels.tile_smem_plan(
                 "field_fused", *args, **call)["bytes"], (C, B, S, want)
+        refs = [kernels.EditRef(torch.rand(B, C, 33, device="cuda"),
+                                tuple(cws), torch.eye(3, device="cuda"),
+                                low, kw["multires_ft"],
+                                kw["multires_view"])] * 2
+        eargs = (xyz, geo, torch.rand(B, C, 64, device="cuda"), 0.1, dws,
+                 cws, xyz, refs)
+        kernels.field_fused_edit(*eargs, dtype=low, **kw)
+        assert seen.pop() == kernels.tile_smem_plan(
+            "field_fused_edit", *eargs, dtype=low, **kw)["bytes"], (C, B, S)
         rays = torch.rand(B * S, 3, device="cuda")
         d = torch.rand(B * S, device="cuda")
         sargs = (rays, rays, d, d, d, d, geo, feat[..., :32], 0.1, dws)

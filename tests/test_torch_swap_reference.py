@@ -2,10 +2,13 @@
 benchmark (benchmark/reference/swap.py) on seeded random weights at a
 small size: the 642-vertex icosphere, 32-ray tiles, a 60-degree cap
 facing the camera swapped from its antipode by a 180-degree turn about
-x. The per-sample and the tile-bound shade of TextureEditableNeuMesh,
-and a whole small volume frame through render_image; the bound shade
-over slices of tiles bit-equal to one pass; tiles with no edited vertex
-among their candidates shaded as by the main model alone."""
+x. The per-sample and the tile-bound shade of TextureEditableNeuMesh
+(the fused route, field_fused_edit's plain version here, and the context
+math), and a whole small volume frame through render_image, one
+field_fused_edit call a chunk; the context math over slices of tiles
+bit-equal to one pass; the painted samples counted alike on both routes;
+tiles with no edited vertex among their candidates shaded as by the main
+model alone."""
 import math
 
 import numpy as np
@@ -23,9 +26,11 @@ from neumesh_tpu_torch.editing.swap import TextureSwappingRender
 from neumesh_tpu_torch.editing.texture_model import TextureEditableNeuMesh
 from neumesh_tpu_torch.mesh.grid import MeshGrid
 from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+from neumesh_tpu_torch.ops import kernels
 from neumesh_tpu_torch.ops.rays import (block_order_indices, get_rays,
                                         near_far_from_sphere)
 from neumesh_tpu_torch.render.volume import render_image
+from neumesh_tpu_torch.utils import trace
 from test_torch_basics import SMALL, camera
 
 H = W = 16
@@ -105,10 +110,15 @@ def scene():
     return Scene()
 
 
-@pytest.mark.parametrize("form", ["per_sample", "tile_bound"])
-def test_shade_matches_the_reference(form, scene):
+@pytest.mark.parametrize("form", ["per_sample", "tile_bound",
+                                  "tile_bound_context_math"])
+def test_shade_matches_the_reference(form, scene, monkeypatch):
+    """tile_bound: the fused route (use_pallas); tile_bound_context_math:
+    the sliced context math (use_pallas off)."""
     o, d, bound, ids = scene.bound()
     x, v = samples(o, d)
+    if form == "tile_bound_context_math":
+        monkeypatch.setattr(scene.model, "use_pallas", False)
     with torch.no_grad():
         if form == "per_sample":
             sdf, rgb = scene.editable.forward(x, v)
@@ -139,18 +149,32 @@ def test_shade_matches_the_reference(form, scene):
 
 def test_edited_volume_frame_matches_the_reference(monkeypatch, scene):
     """render_image on the editable against the reference's volume
-    structure, each ray bound to its tile's candidate ids."""
-    bound = []
+    structure, each ray bound to its tile's candidate ids; the shade one
+    field_fused_edit call a chunk, the context math never."""
+    bound, calls = [], []
     make = NeuMesh.make_tile_context
+    edit = kernels.field_fused_edit
 
     def recorded(model, *a, **kw):
         ctx = make(model, *a, **kw)
         bound.append(ctx["ids"])
         return ctx
+
+    def counted(*a, **kw):
+        calls.append(a[0].shape[0])
+        return edit(*a, **kw)
+
+    def no_shade(*a, **kw):
+        raise AssertionError("the context math shaded on the fused route")
     monkeypatch.setattr(NeuMesh, "make_tile_context", recorded)
+    monkeypatch.setattr(kernels, "field_fused_edit", counted)
+    monkeypatch.setattr(texture_model.RayBoundTextureEditable, "_shade",
+                        no_shade)
     c2w, K = camera(H, W)
     rgb, depth, _ = render_image(scene.editable, c2w, K, H, W, block=BLOCK,
                                  device="cpu", **VOL)
+    # two chunks of 128 rays, 4 tiles each
+    assert calls == [VOL["rayschunk"] // TILE] * (H * W // VOL["rayschunk"])
     C = max(t.shape[1] for t in bound)
     n = scene.p["vertices"].shape[0]
     ids = torch.cat([torch.nn.functional.pad(t, (0, C - t.shape[1]),
@@ -169,6 +193,8 @@ def test_edited_volume_frame_matches_the_reference(monkeypatch, scene):
 def test_sliced_shade_is_bit_equal(monkeypatch, scene):
     o, d, bound, _ = scene.bound()
     x, v = samples(o, d)
+    # the context math: the fused route runs one pass whatever SLICE_ELEMS
+    monkeypatch.setattr(scene.model, "use_pallas", False)
     n_tiles = len(o) // TILE
     C = bound.bound.ctx["ids"].shape[1]
     whole = bound.forward(x, v)
@@ -197,3 +223,20 @@ def test_tiles_without_edited_vertices_shade_as_the_main_model(
     assert torch.equal(sdf[rays], main_sdf[rays])
     assert torch.equal(rgb[rays], main_rgb[rays])
     assert not torch.equal(rgb[~rays], main_rgb[~rays])
+
+
+def test_painted_samples_counted_alike_on_both_routes(monkeypatch, scene):
+    """edit.samples_painted under a profiler: the fused route's count (the
+    kernel's, the plain version's here) equals the context math's on the
+    same samples."""
+    from torch.profiler import ProfilerActivity, profile
+    o, d, bound, _ = scene.bound()
+    x, v = samples(o, d)
+    got = {}
+    for route in ("fused", "context_math"):
+        monkeypatch.setattr(scene.model, "use_pallas", route == "fused")
+        trace.reset("edit.")
+        with profile(activities=[ProfilerActivity.CPU]), torch.no_grad():
+            bound.forward(x, v)
+        got[route] = trace.counters()["edit.samples_painted"]
+    assert 0 < got["fused"] == got["context_math"] < x.shape[0] * x.shape[1]

@@ -107,6 +107,15 @@ def neus_step():
     step(mi, gt, torch.Generator().manual_seed(0))
 
 
+def without_pallas(model, fn):
+    """fn() with the model's use_pallas off."""
+    model.use_pallas = False
+    try:
+        return fn()
+    finally:
+        model.use_pallas = True
+
+
 def traced(fn):
     """The nm.* spans that fn() emits under a CPU profiler: [(name,
     [names of its enclosing nm.* spans])]."""
@@ -163,14 +172,23 @@ CASES = {
          "volume.upsample": "render.frame", "volume.shade": "render.frame"},
         {"render.frame": 1, "ctx.build": 2, "sync.indicator_weight": 1,
          "render.assemble": 2}),
+    # the fused route: one field_fused_edit call a chunk, the reference's
+    # colour weights folded beside the main model's
     "volume_texture_swapped": (
         lambda m: volume_frame(edited(m)),
         FRAME | {"volume.coarse", "volume.upsample", "volume.shade",
-                 "edit.transfer", "edit.shade", "edit.ref_color"},
+                 "edit.transfer", "edit.shade"},
         {"ctx.build": "render.frame", "sync.indicator_weight": "render.rays",
-         "edit.shade": "volume.shade", "edit.ref_color": "edit.shade"},
+         "edit.shade": "volume.shade"},
         {"render.frame": 1, "ctx.build": 2, "sync.indicator_weight": 1,
-         "edit.transfer": 1, "edit.shade": 2, "edit.ref_color": 2}),
+         "edit.transfer": 1, "edit.shade": 2, "weights.fold": 4}),
+    "volume_texture_swapped_context_math": (
+        lambda m: without_pallas(m, lambda: volume_frame(edited(m))),
+        {"render.frame", "render.rays", "render.assemble", "ctx.build",
+         "ctx.bounds", "volume.coarse", "volume.upsample", "volume.shade",
+         "edit.transfer", "edit.shade", "edit.ref_color"},
+        {"edit.shade": "volume.shade", "edit.ref_color": "edit.shade"},
+        {"render.frame": 1, "edit.shade": 2, "edit.ref_color": 2}),
     "neus_train_step": (
         lambda m: neus_step(),
         {"train.step", "train.forward", "train.render", "train.loss",
@@ -301,6 +319,7 @@ def test_launches_are_a_view_of_the_registry():
     modes = {k: set(v) for k, v in kernels.LAUNCHES.items()}
     assert modes == {
         "field_fused": {"distance", "density", "density_nabla", "full"},
+        "field_fused_edit": {"full"},
         "secant_refine": {"plain", "rebracket", "frozen",
                           "frozen_rebracket"},
         "surface_locate": {"bf16", "f32"},
