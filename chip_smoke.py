@@ -132,11 +132,11 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     cast, paint ms/it and the phase's peak memory.
  9. multi-GPU (neumesh_tpu_torch.parallel) on the one card: (a) right
     after phase 4, the serving_bf16, surface_fast and surface_locate
-    frames (256x256) through sharded_volume_render /
-    sharded_surface_render over [cuda:0] with force_shard_map, over
-    [cuda:0, cuda:0] (a replica on the same card: the split, the padding
-    and the gather at n = 2) and a ragged ray count edge-padded to a
-    multiple of 2 x 128; rgb and depth held against the direct render
+    frames (256x256) through their frame entries with replicas over
+    [cuda:0] with force_shard_map, over [cuda:0, cuda:0] (a replica on
+    the same card: the split, the padding and the gather at n = 2) and
+    at a rayschunk whose last chunk is edge-padded to a multiple of
+    2 x 128; rgb and depth held against the frame on the model alone
     within the bf16 tolerance (max |diff| printed; equal bits expected),
     hit masks equal, every kernel mode of the structure counted; ms a
     frame direct and sharded. (b) after phase 8, two CLI cases again
@@ -1255,29 +1255,28 @@ def check_image(tag, rgb, depth, H, W):
 
 @contextlib.contextmanager
 def frame_peaks(cli, peaks):
-    """For the block, every view the CLI renders appends its peak device
-    memory above what was allocated before it (the model, its tables and
-    the earlier views' results are not counted)."""
+    """For the block, every view the CLI renders (one frame entry call)
+    appends its peak device memory above what was allocated before it
+    (the model, its tables and the earlier views' results are not
+    counted)."""
     import torch
-    render_function = cli.render_function
+    saved = (cli.render_image, cli.render_surface_image)
 
-    def measured(args, model, kwargs, render_fn):
+    def measured(entry):
         def fn(*a, **kw):
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
-            out = render_fn(*a, **kw)
+            out = entry(*a, **kw)
             torch.cuda.synchronize()
             peaks.append(torch.cuda.max_memory_allocated() - base)
             return out
-        if hasattr(render_fn, "set_image_hw"):
-            fn.set_image_hw = render_fn.set_image_hw
-        return render_function(args, model, kwargs, fn)
-    cli.render_function = measured
+        return fn
+    cli.render_image, cli.render_surface_image = map(measured, saved)
     try:
         yield
     finally:
-        cli.render_function = render_function
+        cli.render_image, cli.render_surface_image = saved
 
 
 def rows_per_context(name, args):
@@ -2276,10 +2275,10 @@ def write_edit_inputs(tmp, p):
 @contextlib.contextmanager
 def edit_hooks(knobs, store, tile_flags):
     """For the block: the knobs set on every model the editing CLIs load;
-    every render_function call kept in `store` (args, model, kwargs,
-    render_fn and each view's raw (rgb, depth, extras)); per tiled
-    binding of an editable, each ray's "its tile candidates hold an
-    edited vertex" flag appended to tile_flags."""
+    every render_function call kept in `store` (args, model, kwargs, the
+    frame entry it called with its keywords, and each view's raw (rgb,
+    depth, extras)); per tiled binding of an editable, each ray's "its
+    tile candidates hold an edited vertex" flag appended to tile_flags."""
     from neumesh_tpu_torch.cli import render as cli
     from neumesh_tpu_torch.cli.editing import render_geometry_editing as geo
     from neumesh_tpu_torch.editing import renderer_base as rb
@@ -2294,18 +2293,25 @@ def edit_hooks(knobs, store, tile_flags):
             setattr(out[0], k, v)
         return out
 
-    def render_function(args, model, kwargs, render_fn):
+    def render_function(args, model, kwargs):
         entry = {"args": args, "model": model, "kwargs": kwargs,
-                 "render_fn": render_fn, "views": [], "kw": None}
+                 "views": [], "call": None}
 
-        def fn(*a, **kw):
-            out = render_fn(*a, **kw)
-            entry["views"].append(out)
-            entry["kw"] = kw
-            return out
-        if hasattr(render_fn, "set_image_hw"):
-            fn.set_image_hw = render_fn.set_image_hw
-        entry["out"] = saved[2](args, model, kwargs, fn)
+        def recorded(fn):
+            def call(*a, **kw):
+                out = fn(*a, **kw)
+                entry["views"].append(out)
+                entry["call"] = (fn, kw)
+                return out
+            return call
+        # around the entries as they are now: a hook of an enclosing
+        # block wraps these wrappers in turn, and both record
+        current = (cli.render_image, cli.render_surface_image)
+        cli.render_image, cli.render_surface_image = map(recorded, current)
+        try:
+            entry["out"] = saved[2](args, model, kwargs)
+        finally:
+            cli.render_image, cli.render_surface_image = current
         store.append(entry)
         return entry["out"]
 
@@ -2328,24 +2334,21 @@ def edit_hooks(knobs, store, tile_flags):
 
 def crop_psnr(entry):
     """PSNR of the central EDIT_CROP^2 crop of the case's first view
-    rendered by its render_fn through the kernels and through the plain
+    rendered by its frame entry through the kernels and through the plain
     versions on the card."""
-    import torch
     from neumesh_tpu_torch.dataio import get_data
-    from neumesh_tpu_torch.ops.rays import get_rays
-    args, fn = entry["args"], entry["render_fn"]
+    args, (fn, kw) = entry["args"], entry["call"]
     ds = get_data(args, downscale=1)
     vi = int(str(args.camera_inds).split(",")[0])
     K = np.array(ds.intrinsics_all[vi], np.float32)
     K[0, 2] -= (ds.W - EDIT_CROP) / 2
     K[1, 2] -= (ds.H - EDIT_CROP) / 2
-    ro, rd = get_rays(torch.as_tensor(ds.c2w_all[vi], device=DEV),
-                      torch.as_tensor(K, device=DEV), EDIT_CROP, EDIT_CROP)
-    if hasattr(fn, "set_image_hw"):
-        fn.set_image_hw(EDIT_CROP, EDIT_CROP)
-    a = fn(ro, rd, **entry["kw"])[0]
+    if "block" in kw:
+        kw = dict(kw, block=(1, EDIT_CROP))     # the volume CLI's raster
+    cam = (entry["model"], ds.c2w_all[vi], K, EDIT_CROP, EDIT_CROP)
+    a = fn(*cam, **kw)[0]
     with plain_on_card():
-        b = fn(ro, rd, **entry["kw"])[0]
+        b = fn(*cam, **kw)[0]
     mse = float(((a - b) ** 2).mean())
     return 10 * math.log10(1.0 / max(mse, 1e-20))
 
@@ -2359,10 +2362,8 @@ def surface_checks(tag, edited, plain, flags, n_views):
     near-tie may resolve differently on the two routes, so the largest
     difference is reported, not held); the edit engaged on the others."""
     import torch
-    from neumesh_tpu_torch.ops.rays import block_order_indices
+    from neumesh_tpu_torch.ops.rays import raster_order
     H, W = edited["out"]["H"], edited["out"]["W"]
-    _, inv = block_order_indices(H, W, 8, 16)
-    inv = torch.as_tensor(inv, device=DEV)
     per = len(flags) // n_views
     tol = TOL["f32"]
     out = {"untouched_rays": 0, "touched_rays": 0,
@@ -2375,7 +2376,8 @@ def surface_checks(tag, edited, plain, flags, n_views):
                 and torch.equal(ex_e["mask_surface"], ex_p["mask_surface"])):
             raise AssertionError(f"{tag}: depth or hit mask moved by the "
                                  "texture edit")
-        touched = torch.cat(flags[v * per:(v + 1) * per])[:H * W][inv]
+        touched = raster_order(torch.cat(flags[v * per:(v + 1) * per])
+                               [:H * W], H, W, 8, 16)
         diff = (rgb_e - rgb_p).abs().amax(-1)
         ok = diff <= tol["atol"] + tol["rtol"] * rgb_p.abs().amax(-1)
         un = ~touched
@@ -2413,7 +2415,6 @@ def run_editing(tmp, card, p):
         load_neumesh_from_config
     from neumesh_tpu_torch.mesh import raycast
     from neumesh_tpu_torch.ops import kernels
-    from neumesh_tpu_torch.render.volume import SingleRenderer
     from neumesh_tpu_torch.tools import editing_gate
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -2467,14 +2468,12 @@ def run_editing(tmp, card, p):
                 # the same mode unedited: the CLI's render_function on the
                 # loaded main model, its views raw
                 model = e["model"].main_model
-                fn = (cli.make_surface_render_fn(e["args"], model)
-                      if "--render_mode" in flags else SingleRenderer(model))
                 args = e["args"].copy()
                 args.outbase = tag + "_unedited"
                 torch.cuda.synchronize()
                 store_u = []
                 with edit_hooks({}, store_u, []):
-                    out_u = cli.render_function(args, model, e["kwargs"], fn)
+                    out_u = cli.render_function(args, model, e["kwargs"])
                 row["unedited_ms_per_view"] = [1e3 * s
                                                for s in out_u["view_s"]]
                 if "--render_mode" in flags:
@@ -2722,58 +2721,13 @@ print("DP_RESULT " + json.dumps(line), flush=True)
 """
 
 
-def frame_rays(H):
-    """A HxH frame's rays (phase 2's camera) in 8x16 pixel blocks, the
-    order both frame entries render at 128-ray tiles."""
-    import torch
-    from neumesh_tpu_torch.ops.rays import block_order_indices, get_rays
-    c2w, K, h, w = camera(H, H)
-    ro, rd = get_rays(torch.as_tensor(c2w, device=DEV),
-                      torch.as_tensor(K, device=DEV), h, w)
-    perm, _ = block_order_indices(h, w, 8, 16)
-    perm = torch.as_tensor(perm, device=DEV)
-    return ro[perm].contiguous(), rd[perm].contiguous()
-
-
-def direct_and_sharded(model, kind, kw):
-    """(direct render fn, sharded render fn) over (R, 3) rays, each ->
-    (rgb, depth, surface hit mask or None)."""
-    import torch
-    from neumesh_tpu_torch.parallel import (sharded_surface_render,
-                                            sharded_volume_render)
-    from neumesh_tpu_torch.render.ray_casting import surface_render
-    from neumesh_tpu_torch.render.volume import volume_render_rays
-    if kind == "volume":
-        @torch.no_grad()
-        def direct(ro, rd):
-            r = volume_render_rays(model, ro, rd, **kw)
-            return r["rgb"], r["depth_volume"], None
-
-        @torch.no_grad()
-        def sharded(reps, devs, ro, rd, force=False):
-            r = sharded_volume_render(reps, ro, rd, devs,
-                                      force_shard_map=force, **kw)
-            return r["rgb"], r["depth_volume"], None
-    else:
-        skw = dict(calc_normal=True, ray_tile=kw["ray_tile"],
-                   scan_mode=kw["scan_mode"],
-                   tile_max_candidates=kw["tile_max_candidates"],
-                   ray_casting_cfgs={"N_steps": kw["N_steps"],
-                                     "N_secant_steps": kw["N_secant_steps"],
-                                     "fill_inf": False})
-
-        @torch.no_grad()
-        def direct(ro, rd):
-            rgb, depth, ex = surface_render(model, ro, rd, device=DEV,
-                                            **skw)
-            return rgb, depth, ex["mask_surface"]
-
-        @torch.no_grad()
-        def sharded(reps, devs, ro, rd, force=False):
-            rgb, depth, ex = sharded_surface_render(
-                reps, ro, rd, devs, force_shard_map=force, **skw)
-            return rgb, depth, ex["mask_surface"]
-    return direct, sharded
+def sharded_frame(model, kind, H, kw, replicas=None, **more):
+    """A HxH frame (phase 2's camera) through the structure's frame entry
+    over `replicas` (None: the model alone) -> (rgb, depth, surface hit
+    mask or None); `more` overrides kw (rayschunk, force_shard_map)."""
+    rgb, depth, ex = render(model, kind, H, replicas=replicas,
+                            **dict(kw, **more))
+    return rgb, depth, ex.get("mask_surface")
 
 
 def hold_shards(tag, got, want):
@@ -2799,10 +2753,11 @@ def hold_shards(tag, got, want):
 
 def run_sharded_serving(models):
     """Phase 9 (a): each PAR_STRUCTURES structure's 256x256 frame through
-    sharded_*_render over [cuda:0] (force_shard_map), [cuda:0, cuda:0]
-    (two replicas on one card) and a ragged ray count, held against the
-    direct render, its kernel modes counted; with a second card also over
-    [cuda:0, cuda:1]. Returns ({structure: stats}, {structure: counts})."""
+    its frame entry with replicas over [cuda:0] (force_shard_map),
+    [cuda:0, cuda:0] (two replicas on one card) and a ragged last chunk,
+    held against the frame on the model alone, its kernel modes counted;
+    with a second card also over [cuda:0, cuda:1]. Returns ({structure:
+    stats}, {structure: counts})."""
     import torch
     from neumesh_tpu_torch.ops import kernels
     from neumesh_tpu_torch.parallel import replicate
@@ -2819,16 +2774,18 @@ def run_sharded_serving(models):
     for st in PAR_STRUCTURES:
         mkey, kind, H, kw, must, _ = STRUCTURES[st]
         model = models[mkey]
-        ro, rd = frame_rays(H)
-        direct, sharded = direct_and_sharded(model, kind, kw)
-        want = direct(ro, rd)
-        row = {"rays": int(ro.shape[0]), "max_abs_diff": {}, "ms": {}}
+        want = sharded_frame(model, kind, H, kw)
+        row = {"rays": H * H, "max_abs_diff": {}, "ms": {}}
         counts[st] = {}
         for name, devs in layouts.items():
             reps = [model] + [replicate(model, d) for d in devs[1:]]
+
+            def sharded(**more):
+                return sharded_frame(model, kind, H, kw, reps,
+                                     force_shard_map=True, **more)
             torch.cuda.synchronize()
             kernels.reset_launch_counts()
-            got = sharded(reps, devs, ro, rd, force=True)
+            got = sharded()
             torch.cuda.synchronize()
             cnt = {k: dict(v) for k, v in kernels.LAUNCHES.items()}
             missed = [f"{k}/{md}" for k, md in sorted(must)
@@ -2839,24 +2796,23 @@ def run_sharded_serving(models):
             counts[st][name] = cnt
             row["max_abs_diff"][name] = hold_shards(f"{st} {name}", got,
                                                     want)
-            row["ms"][name] = cuda_ms(
-                lambda: sharded(reps, devs, ro, rd, force=True), reps=3)
+            row["ms"][name] = cuda_ms(sharded, reps=3)
             if name == "two_on_one_card":
-                # ragged: edge-pad to a multiple of devices x tile
-                n = ro.shape[0] - PAR_RAGGED_CUT
+                # ragged: chunks of a frame less PAR_RAGGED_CUT rays, the
+                # last edge-padded to the chunk (a multiple of devices x
+                # tile), against the same chunks on one device
+                n = H * H - PAR_RAGGED_CUT
                 q = len(devs) * kw["ray_tile"]
-                pad = (-n) % q
-                rop = torch.cat([ro[:n], ro[n - 1:n].expand(pad, 3)], 0)
-                rdp = torch.cat([rd[:n], rd[n - 1:n].expand(pad, 3)], 0)
-                g = sharded(reps, devs, rop, rdp)
-                w = direct(rop, rdp)
+                chunk = -(-n // q) * q
+                g = sharded(rayschunk=n)
+                w = sharded_frame(model, kind, H, kw, rayschunk=n)
                 row["max_abs_diff"]["ragged"] = hold_shards(
-                    f"{st} ragged", [x[:n] if x is not None else None
-                                     for x in g],
-                    [x[:n] if x is not None else None for x in w])
-                row["ragged"] = {"rays": int(n), "padded_to": int(n + pad)}
+                    f"{st} ragged", g, w)
+                row["ragged"] = {"rayschunk": int(n), "chunk": int(chunk),
+                                 "last_padded_by": int(-(H * H) % chunk)}
             del reps
-        row["ms"]["direct"] = cuda_ms(lambda: direct(ro, rd), reps=3)
+        row["ms"]["direct"] = cuda_ms(
+            lambda: sharded_frame(model, kind, H, kw), reps=3)
         stats[st] = row
         log(f"[parallel] {st}: direct {row['ms']['direct']:.2f} ms/frame; "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in row["ms"].items()

@@ -20,7 +20,6 @@ from ...config import load_yaml
 from ...editing.geometry import deform_model
 from ...editing.renderer_base import load_neumesh_from_config
 from ...mesh.triangle_mesh import load_mesh
-from ...render.volume import SingleRenderer
 from ...utils.checkpoints import sorted_ckpts
 from ...utils.print_fn import log
 from .. import render as render_cli
@@ -49,8 +48,7 @@ def main_function(args):
     for k, v in dict(main_args).items():
         if k not in args:
             args[k] = v
-    out = render_cli.render_function(args, model, render_kwargs_test,
-                                     SingleRenderer(model))
+    out = render_cli.render_function(args, model, render_kwargs_test)
     return {"model": model, "render": out, "stats": stats}
 
 

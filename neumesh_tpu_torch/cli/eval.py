@@ -29,7 +29,7 @@ from ..dataio.dtu import glob_imgs
 from ..models import build_framework
 from ..ops.lpips import load_lpips_weights, lpips as lpips_fn
 from ..ops.metrics import psnr as psnr_fn, ssim as ssim_fn
-from ..ops.rays import get_rays
+from ..render.volume import render_image
 from ..utils.checkpoints import CheckpointIO, sorted_ckpts
 from ..utils.image_io import write_png
 
@@ -65,7 +65,7 @@ def main_function(args, renders=None):
     "mean_psnr", "mean_ssim"[, "mean_lpips"]}; `renders`, a dict, receives
     {view index: predicted (H, W, 3) f32 numpy image}."""
     device = resolve_device(args.get("device", None) or "cuda")
-    model, _, _, render_kwargs_test, render_fn = build_framework(
+    model, _, _, render_kwargs_test, _ = build_framework(
         args, args.model.framework, device=device)
 
     ckpt_file = args.get("load_pt", None)
@@ -86,6 +86,7 @@ def main_function(args, renders=None):
 
     kwargs = {k: v for k, v in render_kwargs_test.items() if k != "batched"}
     kwargs["rayschunk"] = args.rayschunk
+    kwargs["detailed_output"] = False
     kwargs["perturb"] = False
     # inference: reuse the up-sampling loop's SDF evaluations (identical
     # values, one fewer density pass)
@@ -107,11 +108,9 @@ def main_function(args, renders=None):
     rows = []
     for vi in views:
         _, sample, gt = dataset[vi]
-        ro, rd = get_rays(
-            torch.as_tensor(sample["c2w"], device=device),
-            torch.as_tensor(sample["intrinsics"], device=device), H, W)
-        rgb, _, _ = render_fn(ro, rd, detailed_output=False, **kwargs)
-        pred = rgb.reshape(H, W, 3).to(torch.float32)
+        rgb, _, _ = render_image(model, sample["c2w"], sample["intrinsics"],
+                                 H, W, block=(1, W), device=device, **kwargs)
+        pred = rgb.to(torch.float32)
         if renders is not None:
             renders[vi] = pred.cpu().numpy()
         if save_dir:

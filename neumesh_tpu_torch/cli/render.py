@@ -9,7 +9,10 @@ Prints the throughput in Mrays/s.
         [render.py's flags] [--section:key value ...] [--device cpu]
 
 Runs on the card unless --device cpu is given; without a card and without
-that flag it raises. --volume_devices / --surface_devices shard each
+that flag it raises. Each view is one call of the frame entry of its mode
+(render/volume.py::render_image in raster order, or
+render/ray_casting.py::render_surface_image in pixel blocks of
+--surface_ray_tile rays). --volume_devices / --surface_devices shard each
 chunk's rays over local cards (0, the default: all of them; 1: the
 single-device path), a replica of the model on each. Output goes to
 out/<outbase or expname>/ under the working directory, as render.py
@@ -30,10 +33,10 @@ from ..config import create_args_parser, load_config
 from ..dataio import get_data
 from ..models import build_framework
 from ..ops.cameras import c2w_track_spiral, normalize, poses_avg
-from ..ops.rays import block_order_indices, get_rays
-from ..parallel import (get_device_mesh, replicate, sharded_surface_render,
-                        sharded_volume_render)
-from ..render.volume import SingleRenderer
+from ..ops.rays import pixel_block
+from ..parallel import get_device_mesh, replicate
+from ..render.ray_casting import render_surface_image
+from ..render.volume import render_image
 from ..utils.checkpoints import CheckpointIO, sorted_ckpts
 from ..utils.image_io import write_png
 
@@ -67,21 +70,12 @@ def _replicas(model, devices) -> list:
     return [model] + [replicate(model, d) for d in devices[1:]]
 
 
-def _pad_to(ro, rd, chunk):
-    """Edge-pad (n, 3) rays to a multiple of chunk."""
-    pad = (-ro.shape[0]) % chunk
-    if pad:
-        ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
-        rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
-    return ro, rd
-
-
-def render_function(args, model, render_kwargs_test, render_fn):
-    """Render the camera path, write the PNGs and videos. Returns a dict:
-    mrays_s (steady state when there are two views or more), view_s (host
-    seconds per view, each ending in a device synchronize), H, W,
-    output_dir, files (the PNGs written), rgb / normals / depth (the
-    frames as numpy arrays)."""
+def render_function(args, model, render_kwargs_test):
+    """Render the camera path in args.render_mode through its frame entry,
+    write the PNGs and videos. Returns a dict: mrays_s (steady state when
+    there are two views or more), view_s (host seconds per view, rays
+    built to a device synchronize), H, W, output_dir, files (the PNGs
+    written), rgb / normals / depth (the frames as numpy arrays)."""
     if args.get("dataset_split", None) is not None:
         args.data.split = args.dataset_split
     if args.get("background", None) is not None:
@@ -140,9 +134,6 @@ def render_function(args, model, render_kwargs_test, render_fn):
         raise RuntimeError(
             "Please choose render type between [spiral, dataset]")
 
-    render_kwargs_test["rayschunk"] = args.rayschunk
-    if args.get("ray_tile", None):
-        render_kwargs_test["ray_tile"] = args.ray_tile
     outbase = args.get("outbase", None) or args.expname
     output_dir = os.path.join("out", outbase)
     if args.get("outdirectory", None) is not None:
@@ -150,12 +141,6 @@ def render_function(args, model, render_kwargs_test, render_fn):
     normal_dir = os.path.join(output_dir, "normal")
     os.makedirs(normal_dir, exist_ok=True)
 
-    if hasattr(render_fn, "set_image_hw"):
-        render_fn.set_image_hw(H, W)      # pixel-block tiling (surface mode)
-    kwargs = {k: v for k, v in render_kwargs_test.items() if k != "batched"}
-    kwargs["calc_normal"] = True
-    kwargs["reuse_upsample_sdf"] = True
-    kwargs["detailed_output"] = False
     out = {"mrays_s": 0.0, "view_s": [], "H": H, "W": W,
            "output_dir": output_dir, "files": [], "rgb": [], "normals": [],
            "depth": []}
@@ -164,15 +149,32 @@ def render_function(args, model, render_kwargs_test, render_fn):
     if args.get("disable_rgb", False):
         log.info("=> --disable_rgb: skipping render + image/video writes")
         return out
+    surface = args.get("render_mode", "volume") == "surface"
+    if surface:
+        entry, kwargs = render_surface_image, surface_kwargs(args, H, W)
+        normals_key = "normals_surface"
+    else:
+        entry, normals_key = render_image, "normals_volume"
+        kwargs = {k: v for k, v in render_kwargs_test.items()
+                  if k not in ("batched", "rayschunk")}
+        if args.get("ray_tile", None):
+            kwargs["ray_tile"] = args.ray_tile
+        # raster order: --ray_tile shares a context over scanline tiles
+        kwargs.update(block=(1, W), calc_normal=True,
+                      reuse_upsample_sdf=True, detailed_output=False)
+    devices = _render_devices(
+        args, "surface_devices" if surface else "volume_devices", model)
+    if len(devices) > 1:
+        log.info(f"=> {'Surface' if surface else 'Volume'} mode on "
+                 f"{len(devices)} devices: " + ", ".join(map(str, devices)))
+    replicas = _replicas(model, devices)
     dev = model.device
-    intr = torch.as_tensor(intrinsics, dtype=torch.float32, device=dev)
     total_rays, t_render = 0, 0.0
     for idx, c2w in enumerate(render_c2ws):
-        rays_o, rays_d = get_rays(
-            torch.as_tensor(np.asarray(c2w, np.float32), device=dev), intr,
-            H, W)
         t0 = time.perf_counter()
-        rgb, depth, extras = render_fn(rays_o, rays_d, **kwargs)
+        rgb, depth, extras = entry(model, c2w, intrinsics, H, W,
+                                   rayschunk=args.rayschunk,
+                                   replicas=replicas, device=dev, **kwargs)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         out["view_s"].append(time.perf_counter() - t0)
@@ -185,8 +187,8 @@ def render_function(args, model, render_kwargs_test, render_fn):
         path = os.path.join(output_dir, f"{outbase}_rgb_{idx:03d}.png")
         write_png(path, _integerify(rgb))
         out["files"].append(path)
-        if "normals_volume" in extras:
-            normals = extras["normals_volume"].reshape(H, W, 3).cpu().numpy()
+        if normals_key in extras:
+            normals = extras[normals_key].reshape(H, W, 3).cpu().numpy()
             out["normals"].append(normals)
             path = os.path.join(normal_dir, f"{outbase}_normal_{idx:03d}.png")
             write_png(path, _integerify(normals / 2.0 + 0.5))
@@ -236,7 +238,7 @@ def main_function(args):
     """Build the model on args.device (default the card), load the
     checkpoint, render. Returns render_function's dict."""
     device = resolve_device(args.get("device", None) or "cuda")
-    model, _, _, render_kwargs_test, render_fn = build_framework(
+    model, _, _, render_kwargs_test, _ = build_framework(
         args, args.model.framework, device=device)
 
     if args.get("load_pt", None) is None:
@@ -251,129 +253,29 @@ def main_function(args):
     CheckpointIO(os.path.dirname(str(ckpt_file)) or ".").load_file(
         str(ckpt_file), model)
 
-    if args.get("render_mode", "volume") == "surface":
-        render_fn = make_surface_render_fn(args, model)
-    else:
-        devices = _render_devices(args, "volume_devices", model)
-        if len(devices) > 1:
-            render_fn = make_volume_render_fn(args, model, devices)
-    return render_function(args, model, render_kwargs_test, render_fn)
+    return render_function(args, model, render_kwargs_test)
 
 
-def make_volume_render_fn(args, model, devices):
-    """Multi-device volume-render callable with SingleRenderer's interface
-    (rays_o, rays_d, **kw) -> (rgb, depth, extras): chunks of a multiple
-    of len(devices) x max(ray_tile, 1) rays (the last edge-padded), each
-    split over the devices' replicas (parallel.sharded_volume_render) and
-    gathered on the first."""
-    from .. import set_fp32_precision
-
-    replicas = _replicas(model, devices)
-    log.info(f"=> Volume mode on {len(devices)} devices: "
-             + ", ".join(map(str, devices)))
-
-    @torch.no_grad()
-    def render_fn(rays_o, rays_d, **kw):
-        for k in SingleRenderer._TRAINING_ONLY:
-            kw.pop(k, None)
-        rayschunk = kw.pop("rayschunk", 0)
-        kw.setdefault("detailed_output", False)
-        if model.device.type == "cuda":
-            set_fp32_precision()
-        ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-        n = ro.shape[0]
-        # chunks split evenly over the devices, each shard into tiles
-        quantum = len(devices) * max(int(kw.get("ray_tile", 0) or 0), 1)
-        chunk = -(-(rayschunk or n) // quantum) * quantum
-        ro, rd = _pad_to(ro, rd, chunk)
-        outs = [sharded_volume_render(replicas, ro[i:i + chunk],
-                                      rd[i:i + chunk], devices, **kw)
-                for i in range(0, ro.shape[0], chunk)]
-        ret = {k: torch.cat([o[k] for o in outs], 0)[:n] for k in outs[0]}
-        return ret["rgb"], ret["depth_volume"], ret
-
-    return render_fn
-
-
-def make_surface_render_fn(args, model):
-    """Chunked surface-render callable with the volume renderer's
-    interface (rays_o, rays_d, **kw) -> (rgb, depth, extras): one
-    secant-refined surface hit and one colour query per ray, each chunk
-    split over the --surface_devices replicas
-    (parallel.sharded_surface_render; one device renders directly). With
-    --surface_ray_tile > 1 a full frame's rays are permuted into pixel
-    blocks of that many rays (block height int(sqrt(tile // 2)), halved
-    until a block divides the frame; tiling is disabled, with a warning,
-    when none does or the batch is not a full frame)."""
-    devices = _render_devices(args, "surface_devices", model)
-    replicas = _replicas(model, devices)
-    if len(devices) > 1:
-        log.info(f"=> Surface mode on {len(devices)} devices: "
-                 + ", ".join(map(str, devices)))
-    cfgs = {"N_steps": args.get("surface_steps", 128) or 128,
-            "N_secant_steps": args.get("surface_secant_steps", 8) or 8,
-            "fill_inf": False}
+def surface_kwargs(args, H: int, W: int) -> dict:
+    """render_surface_image's keywords from the CLI's surface flags:
+    --surface_ray_tile > 1 shares a context over a pixel block of that
+    many rays (ops.rays.pixel_block); where none divides the H x W frame,
+    tiling is disabled with a warning."""
     tile = args.get("surface_ray_tile", 0) or 0
-    scan_mode = args.get("surface_scan", "density") or "density"
-    max_cand = args.get("surface_max_candidates", 0) or None
-    shade_kw = dict(
+    if tile > 1 and pixel_block(H, W, tile) is None:
+        log.warning(f"surface_ray_tile={tile}: no pixel block divides "
+                    f"{H}x{W}; disabling ray tiling for this render "
+                    "(scanline tiles degrade tile-shared caches)")
+        tile = 0
+    return dict(
+        ray_tile=tile,
+        N_steps=args.get("surface_steps", 128) or 128,
+        N_secant_steps=args.get("surface_secant_steps", 8) or 8,
+        scan_mode=args.get("surface_scan", "density") or "density",
+        tile_max_candidates=args.get("surface_max_candidates", 0) or None,
         shade_composite=args.get("surface_shade_composite", 0) or 0,
         shade_topk=args.get("surface_shade_topk", 0) or 0,
         shade_win_frac=args.get("surface_shade_win_frac", 0.5) or 0.5)
-    image_hw = [None, None]
-
-    def render_fn(rays_o, rays_d, **kw):
-        ro, rd = rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
-        n = ro.shape[0]
-        inv, tile_eff = None, tile
-        H, W = image_hw
-        if tile > 1 and H and W and H * W == n:
-            bh = max(1, int(np.sqrt(tile // 2)))
-            bw = tile // bh
-            while bh > 1 and (H % bh or W % bw):
-                bh //= 2
-                bw = tile // bh
-            if H % bh == 0 and W % bw == 0:
-                perm, inv = block_order_indices(H, W, bh, bw)
-                perm = torch.as_tensor(perm, device=ro.device)
-                inv = torch.as_tensor(inv, device=ro.device)
-                ro, rd = ro[perm], rd[perm]
-            else:
-                log.warning(f"surface_ray_tile={tile}: no pixel block "
-                            f"divides {H}x{W}; disabling ray tiling for this "
-                            "render (scanline tiles degrade tile-shared "
-                            "caches)")
-                tile_eff = 0
-        elif tile > 1:
-            log.warning(f"surface_ray_tile={tile}: ray batch is not a full "
-                        "image (H*W != n); disabling ray tiling for this "
-                        "render")
-            tile_eff = 0
-        # chunks split evenly over the devices, each shard into tiles
-        quantum = len(devices) * max(tile_eff, 1)
-        chunk = -(-(args.rayschunk or n) // quantum) * quantum
-        ro, rd = _pad_to(ro, rd, chunk)
-        outs = [sharded_surface_render(
-                    replicas, ro[i:i + chunk], rd[i:i + chunk], devices,
-                    calc_normal=True, ray_tile=tile_eff, scan_mode=scan_mode,
-                    tile_max_candidates=max_cand,
-                    ray_casting_cfgs=dict(cfgs), **shade_kw)
-                for i in range(0, ro.shape[0], chunk)]
-
-        def cat(parts):
-            v = torch.cat(parts, 0)[:n]
-            return v if inv is None else v[inv]
-
-        # the image loop writes "normals_volume"; the surface normals are
-        # that quantity in this mode
-        return (cat([o[0] for o in outs]), cat([o[1] for o in outs]),
-                {"normals_volume": cat([o[2]["normals_surface"]
-                                        for o in outs]),
-                 "mask_surface": cat([o[2]["mask_surface"] for o in outs])})
-
-    render_fn.set_image_hw = lambda h, w: image_hw.__setitem__(
-        slice(None), [h, w])
-    return render_fn
 
 
 def create_render_args(parser):

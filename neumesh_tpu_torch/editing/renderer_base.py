@@ -3,7 +3,7 @@ neumesh_tpu/editing/renderer_base.py): load the main model and N
 reference models with their checkpoints and editing masks, let the
 subclass transfer colour codes, wrap everything in a
 TextureEditableNeuMesh and render it through the render CLI's
-render_function (volume) or its surface render_fn.
+render_function, which calls the frame entry of args.render_mode.
 """
 from __future__ import annotations
 
@@ -52,7 +52,6 @@ class TextureEditableRenderer(abc.ABC):
         """Edit and render; returns (the editable model, render_function's
         dict)."""
         from ..cli import render as render_cli
-        from ..render.volume import SingleRenderer
 
         device = args.get("device", None) or "cuda"
         t0 = time.perf_counter()
@@ -83,14 +82,9 @@ class TextureEditableRenderer(abc.ABC):
         for k, v in dict(main_args).items():
             if k not in args:
                 args[k] = v
-        if args.get("render_mode", "volume") == "surface":
-            # the surface pipeline of the render CLI: the editable exposes
-            # bind_rays_tiled, fused_secant and fused_locate
-            renderer = render_cli.make_surface_render_fn(args, model)
-        else:
-            renderer = SingleRenderer(model)
-        out = render_cli.render_function(args, model, render_kwargs_test,
-                                         renderer)
+        # either frame entry: the editable exposes bind_rays_tiled,
+        # fused_secant and fused_locate
+        out = render_cli.render_function(args, model, render_kwargs_test)
         return model, out
 
     def read_data(self, config_path, mask_paths, ckpt_file, device="cuda"):

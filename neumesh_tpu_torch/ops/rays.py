@@ -2,6 +2,8 @@
 neumesh_tpu/ops/rays.py)."""
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -185,6 +187,18 @@ def block_order_indices(H: int, W: int, block_h: int = 8,
     inv = np.empty_like(perm)
     inv[perm] = np.arange(H * W)
     return perm, inv
+
+
+def pixel_block(H: int, W: int, tile: int):
+    """The pixel block of `tile` (> 1) rays that tiles an H x W frame:
+    block height isqrt(tile // 2), halved until the block divides the
+    frame -> (block_h, block_w), or None where no block does."""
+    bh = max(1, math.isqrt(tile // 2))
+    bw = tile // bh
+    while bh > 1 and (H % bh or W % bw):
+        bh //= 2
+        bw = tile // bh
+    return None if H % bh or W % bw else (bh, bw)
 
 
 def block_order(H: int, W: int, block_h: int = 8, block_w: int = 16,

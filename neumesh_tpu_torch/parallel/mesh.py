@@ -13,7 +13,8 @@ the concatenated global batch.
 
 Serving: one process splits the ray axis over local devices, a replica of
 the model on each (replicate), and gathers the shards on the first device
-(sharded_surface_render, sharded_volume_render).
+(sharded_surface_render, sharded_volume_render, on the frame layer's
+render/frame.py::render_sharded, which the frame entries call directly).
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ from dataclasses import dataclass
 import torch
 import torch.distributed as tdist
 
+from ..render.frame import render_sharded
+from ..render.ray_casting import surface_render
+from ..render.volume import volume_render_rays
 from . import dist
 
 
@@ -130,8 +134,9 @@ class ShardedGenerator:
 
 def replicate(model, device):
     """A copy of `model` on `device`: every parameter and buffer copied
-    (never shared across devices), the mesh scaffold's tables too
-    (MeshGrid.to), the copy's `device` set."""
+    (never shared across devices), each (sub)module's mesh scaffold too
+    (MeshGrid.to), every (sub)module's own `device` set; a model that
+    holds others (TextureEditableNeuMesh) reads its device from them."""
     dev = torch.device(device)
     memo = {}
     for p in model.parameters():
@@ -139,58 +144,34 @@ def replicate(model, device):
                                          requires_grad=p.requires_grad)
     for b in model.buffers():
         memo[id(b)] = b.detach().to(dev, copy=True)
-    grid = getattr(model, "mesh_grid", None)
-    if grid is not None:
-        memo[id(grid)] = grid.to(dev)
+    for m in model.modules():
+        grid = getattr(m, "mesh_grid", None)
+        if grid is not None:
+            memo[id(grid)] = grid.to(dev)
     rep = copy.deepcopy(model, memo)
-    rep.device = dev
+    for m in rep.modules():
+        if "device" in vars(m):
+            m.device = dev
     return rep
-
-
-def _shards(replicas, rays_o, rays_d, devices, force_shard_map):
-    """None for the one-device short cut, else [(replica, o, d)] of the
-    contiguous ray shards, each on its device."""
-    devices = [torch.device(d) for d in devices]
-    if len(replicas) != len(devices):
-        raise ValueError(f"{len(replicas)} replicas for {len(devices)} "
-                         "devices")
-    n_dev = len(devices)
-    if n_dev == 1 and not force_shard_map:
-        return None
-    n = rays_o.shape[0]
-    if n % n_dev:
-        raise ValueError(f"ray count {n} not divisible by {n_dev} devices; "
-                         "pad the ray batch (the render CLI pads chunks)")
-    m = n // n_dev
-    return [(rep, rays_o[i * m:(i + 1) * m].to(dev),
-             rays_d[i * m:(i + 1) * m].to(dev))
-            for i, (rep, dev) in enumerate(zip(replicas, devices))]
-
-
-def _gather(parts, device):
-    return torch.cat([p.to(device) for p in parts], 0)
 
 
 def sharded_surface_render(replicas, rays_o, rays_d, devices,
                            force_shard_map: bool = False, **surface_kwargs):
     """ray_casting.surface_render over the ray axis of (R, 3) rays: shard
     i (R / n contiguous rays) renders on devices[i] with replicas[i], the
-    outputs gathered on devices[0]. R must divide by the device count
-    (and each shard by ray_tile when tiling: callers pad). One device
-    renders directly unless force_shard_map (the split and gather then run
-    with n = 1). Returns what surface_render returns."""
-    from ..render.ray_casting import surface_render
+    outputs gathered on devices[0] (render/frame.py::render_sharded). R
+    must divide by the device count (and each shard by ray_tile when
+    tiling: callers pad). One device renders directly unless
+    force_shard_map (the split and gather then run with n = 1). Returns
+    what surface_render returns."""
+    def render(rep, o, d):
+        rgb, depth, extras = surface_render(rep, o, d, device=rep.device,
+                                            **surface_kwargs)
+        return {"rgb": rgb, "depth": depth, **extras}
 
-    shards = _shards(replicas, rays_o, rays_d, devices, force_shard_map)
-    if shards is None:
-        return surface_render(replicas[0], rays_o, rays_d,
-                              device=replicas[0].device, **surface_kwargs)
-    outs = [surface_render(rep, o, d, device=rep.device, **surface_kwargs)
-            for rep, o, d in shards]
-    dev0 = torch.device(devices[0])
-    return (_gather([o[0] for o in outs], dev0),
-            _gather([o[1] for o in outs], dev0),
-            {k: _gather([o[2][k] for o in outs], dev0) for k in outs[0][2]})
+    out = render_sharded(render, replicas, rays_o, rays_d, devices,
+                         force_shard_map)
+    return out.pop("rgb"), out.pop("depth"), out
 
 
 def sharded_volume_render(replicas, rays_o, rays_d, devices,
@@ -199,16 +180,9 @@ def sharded_volume_render(replicas, rays_o, rays_d, devices,
     rays, sharded as sharded_surface_render. Serving runs perturb=False;
     a generator would be shared by the shards in turn. Returns
     volume_render_rays' dict."""
-    from ..render.volume import volume_render_rays
-
-    shards = _shards(replicas, rays_o, rays_d, devices, force_shard_map)
-    if shards is None:
-        return volume_render_rays(replicas[0], rays_o, rays_d,
-                                  **volume_kwargs)
-    outs = [volume_render_rays(rep, o, d, **volume_kwargs)
-            for rep, o, d in shards]
-    dev0 = torch.device(devices[0])
-    return {k: _gather([o[k] for o in outs], dev0) for k in outs[0]}
+    return render_sharded(
+        lambda rep, o, d: volume_render_rays(rep, o, d, **volume_kwargs),
+        replicas, rays_o, rays_d, devices, force_shard_map)
 
 
 def global_sum(t: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,17 @@
 """Surface rendering (counterpart of neumesh_tpu/render/ray_casting.py):
 DVR-style root finding and sphere tracing, composed into surface_render
 (tile-shared or per-ray candidate bindings) and the frame entry
-render_surface_image. Sign convention: (+) outside, (-) inside."""
+render_surface_image on the frame layer (frame.py). Sign convention:
+(+) outside, (-) inside."""
 from __future__ import annotations
-
-import math
 
 import torch
 
-from .. import resolve_device, set_fp32_precision
 from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.kernels import secant_pred
-from ..ops.rays import (block_order, get_rays, near_far_from_sphere,
-                        raster_order)
+from ..ops.rays import near_far_from_sphere, pixel_block
 from ..utils.trace import count, count_device, span, spanned
+from .frame import render_device, render_frame
 
 
 def run_secant_method(f_low, f_high, d_low, d_high, rays_o, rays_d,
@@ -169,11 +167,7 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
     own. Keywords of the volume renderer that do not apply here are
     accepted and ignored. Returns (rgb (..., 3), depth (...),
     {"implicit_nablas", "mask_surface", "normals_surface" (calc_normal)})."""
-    dev = resolve_device(device)
-    if model.device.type != dev.type:
-        raise ValueError(f"model on {model.device}, device={dev}")
-    if dev.type == "cuda":
-        set_fp32_precision()
+    render_device(model, device)
     cfgs = dict(ray_casting_cfgs or {})
     shape = rays_o.shape[:-1]
     rays_o = rays_o.reshape(-1, 3).to(torch.float32)
@@ -297,68 +291,40 @@ def surface_render(model, rays_o, rays_d, *, calc_normal: bool = True,
             {k: v.reshape(shape + v.shape[1:]) for k, v in extras.items()})
 
 
-def frame_rays(model, c2w, K, H: int, W: int, block, device):
-    """A frame entry's host work, all of it before the frame's first
-    launch: c2w and K copied from pageable host memory, w1 read back once
-    for every binding of the frame (None where they do not use it), then
-    the rays of the H x W pixels in block_h x block_w block order, built on
-    the device. The contexts' dims are the frame's only later host read.
-    Returns (rays_o, rays_d (H*W, 3), w1)."""
-    count("host_read", 2)
-    c2w = torch.as_tensor(c2w, dtype=torch.float32).to(device)
-    K = torch.as_tensor(K, dtype=torch.float32).to(device)
-    w1 = getattr(model, "frame_indicator_weight", lambda: None)()
-    rays_o, rays_d, _ = get_rays(c2w, K, H, W,
-                                 select_inds=block_order(H, W, *block,
-                                                         device))
-    return rays_o, rays_d, w1
-
-
 @torch.no_grad()
 @spanned("render.frame")
 def render_surface_image(model, c2w, K, H: int, W: int, *,
                          ray_tile: int = 128, rayschunk: int = 0,
                          N_steps: int = 128, N_secant_steps: int = 8,
-                         scan_mode: str = "density", device="cuda",
-                         **kwargs):
-    """One surface-rendered frame (the render CLI's surface mode): camera
-    rays -> pixel blocks of ray_tile rays (block height int(sqrt(tile //
-    2)), halved until the block divides the frame) -> chunks of a
-    tile-multiple size, the last edge-padded -> surface_render with
-    fill_inf=False and normals -> raster order. c2w (4, 4), K (3|4, 3|4);
-    kwargs go to surface_render. Returns (rgb (H, W, 3), depth (H, W),
-    {"normals_surface" (H, W, 3), "mask_surface" (H, W)})."""
-    dev = resolve_device(device)
-    bh = max(1, math.isqrt(ray_tile // 2))
-    bw = ray_tile // bh
-    while bh > 1 and (H % bh or W % bw):
-        bh //= 2
-        bw = ray_tile // bh
-    if ray_tile <= 1 or H % bh or W % bw:
-        raise ValueError(f"ray_tile={ray_tile}: no pixel block of that many "
-                         f"rays divides {H}x{W}")
-    with span("render.rays"):
-        ro, rd, w1 = frame_rays(model, c2w, K, H, W, (bh, bw), dev)
-        n = H * W
-        chunk = -(-(rayschunk or n) // ray_tile) * ray_tile
-        pad = (-n) % chunk
-        if pad:
-            ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
-            rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
+                         scan_mode: str = "density", block=None,
+                         replicas=None, force_shard_map: bool = False,
+                         device="cuda", **kwargs):
+    """One surface-rendered frame (the render CLI's surface mode) on the
+    frame layer (frame.render_frame): rays in block_h x block_w pixel
+    blocks (default ops.rays.pixel_block of ray_tile rays; raster order
+    with per-ray contexts at ray_tile <= 1), each chunk split over
+    `replicas` and surface_render'd with fill_inf=False and normals.
+    c2w (4, 4), K (3|4, 3|4); kwargs go to surface_render. Returns
+    (rgb (H, W, 3), depth (H, W), {"normals_surface" (H, W, 3),
+    "mask_surface" (H, W)})."""
+    if block is None:
+        block = (1, W) if ray_tile <= 1 else pixel_block(H, W, ray_tile)
+        if block is None:
+            raise ValueError(f"ray_tile={ray_tile}: no pixel block of that "
+                             f"many rays divides {H}x{W}")
     cfgs = {"N_steps": N_steps, "N_secant_steps": N_secant_steps,
             "fill_inf": False}
-    outs = [surface_render(model, ro[i:i + chunk], rd[i:i + chunk],
-                           calc_normal=True, ray_tile=ray_tile,
-                           scan_mode=scan_mode, ray_casting_cfgs=cfgs,
-                           indicator_weight=w1, device=device, **kwargs)
-            for i in range(0, n + pad, chunk)]
 
-    def frame(parts):
-        return raster_order(torch.cat(parts, 0)[:n], H, W, bh, bw)
+    def render(rep, o, d, w1):
+        rgb, depth, extras = surface_render(
+            rep, o, d, calc_normal=True, ray_tile=ray_tile,
+            scan_mode=scan_mode, ray_casting_cfgs=cfgs, indicator_weight=w1,
+            device=rep.device, **kwargs)
+        return {"rgb": rgb, "depth": depth,
+                "normals_surface": extras["normals_surface"],
+                "mask_surface": extras["mask_surface"]}
 
-    with span("render.assemble"):
-        rgb = frame([o[0] for o in outs])
-        depth = frame([o[1] for o in outs])
-        extras = {k: frame([o[2][k] for o in outs])
-                  for k in ("normals_surface", "mask_surface")}
-    return rgb, depth, extras
+    out = render_frame(model, c2w, K, H, W, block, device, replicas,
+                       rayschunk, ray_tile, render,
+                       force_shard_map=force_shard_map)
+    return out.pop("rgb"), out.pop("depth"), out

@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import torch
 
-from .. import resolve_device, set_fp32_precision
 from ..models.neumesh.model import candidate_bounded_near_far
 from ..ops.alpha import alpha_to_w, cdf_Phi_s, sdf_to_alpha
-from ..ops.rays import near_far_from_sphere, rand, raster_order, sample_pdf
+from ..ops.rays import near_far_from_sphere, rand, sample_pdf
 from ..utils.trace import span, spanned
-from .ray_casting import frame_rays, root_finding_surface_points
+from .frame import render_chunks, render_device, render_frame
+from .ray_casting import root_finding_surface_points
 
 
 @spanned("ctx.bounds")
@@ -369,31 +369,14 @@ def _upsample(model, at, near, far, perturb, generator, N_samples,
 @torch.no_grad()
 def volume_render(model, rays_o, rays_d, *, rayschunk: int = 0,
                   device="cuda", **kwargs):
-    """Render (..., 3) rays in chunks of `rayschunk` (0: one chunk), the
-    last chunk edge-padded. Returns (rgb, depth, extras)."""
-    dev = resolve_device(device)
-    if model.device.type != dev.type:
-        raise ValueError(f"model on {model.device}, device={dev}")
-    if dev.type == "cuda":
-        set_fp32_precision()
+    """Render (..., 3) rays in chunks of `rayschunk` rays (0: one chunk),
+    the last chunk edge-padded (frame.render_chunks). Returns (rgb,
+    depth, extras)."""
+    render_device(model, device)
     shape = rays_o.shape[:-1]
-    rays_o = rays_o.reshape(-1, 3)
-    rays_d = rays_d.reshape(-1, 3)
-    n = rays_o.shape[0]
-    if rayschunk and n > rayschunk:
-        outs = []
-        for i in range(0, n, rayschunk):
-            ro, rd = rays_o[i:i + rayschunk], rays_d[i:i + rayschunk]
-            pad = rayschunk - ro.shape[0]
-            if pad:
-                ro = torch.cat([ro, ro[-1:].expand(pad, 3)], 0)
-                rd = torch.cat([rd, rd[-1:].expand(pad, 3)], 0)
-            outs.append(volume_render_rays(model, ro, rd, **kwargs))
-        with span("render.assemble"):
-            ret = {k: torch.cat([o[k] for o in outs], 0)[:n]
-                   for k in outs[0]}
-    else:
-        ret = volume_render_rays(model, rays_o, rays_d, **kwargs)
+    ret = render_chunks(
+        lambda o, d: volume_render_rays(model, o, d, **kwargs),
+        rays_o.reshape(-1, 3), rays_d.reshape(-1, 3), rayschunk)
     ret = {k: v.reshape(shape + v.shape[1:]) for k, v in ret.items()}
     return ret["rgb"], ret["depth_volume"], ret
 
@@ -401,24 +384,29 @@ def volume_render(model, rays_o, rays_d, *, rayschunk: int = 0,
 @torch.no_grad()
 @spanned("render.frame")
 def render_image(model, c2w, K, H: int, W: int, *, block=(8, 16),
+                 replicas=None, rayschunk: int = 0,
+                 force_shard_map: bool = False, rays_output: bool = False,
                  device="cuda", **kwargs):
-    """One frame: camera rays -> block_h x block_w pixel-block order (tile
-    contexts need compact ray bundles) -> chunked volume render -> back to
-    raster order. c2w (4, 4), K (3|4, 3|4). Returns (rgb (H, W, 3),
-    depth (H, W), extras)."""
-    dev = resolve_device(device)
-    with span("render.rays"):
-        rays_o, rays_d, w1 = frame_rays(model, c2w, K, H, W, block, dev)
-    rgb, depth, ret = volume_render(model, rays_o, rays_d, device=device,
-                                    indicator_weight=w1, **kwargs)
-    with span("render.assemble"):
-        ret = {k: raster_order(v, H, W, *block) for k, v in ret.items()}
+    """One frame on the frame layer (frame.render_frame): camera rays in
+    block_h x block_w pixel-block order (tile contexts need compact ray
+    bundles; (1, W) is raster order) -> chunks split over `replicas`,
+    volume_render_rays on each -> raster order. c2w (4, 4), K (3|4, 3|4);
+    kwargs go to volume_render_rays. Returns (rgb (H, W, 3), depth
+    (H, W), extras), with rays_output the camera rays "rays_o" and
+    "rays_d" (H, W, 3) among the extras."""
+    def render(rep, o, d, w1):
+        return volume_render_rays(rep, o, d, indicator_weight=w1, **kwargs)
+
+    ret = render_frame(model, c2w, K, H, W, block, device, replicas,
+                       rayschunk, kwargs.get("ray_tile", 0) or 0, render,
+                       rays_output=rays_output,
+                       force_shard_map=force_shard_map)
     return ret["rgb"], ret["depth_volume"], ret
 
 
 class SingleRenderer:
-    """The volume render as a callable on one model (the render CLI's
-    render_fn and the trainer's validation): (rays_o, rays_d, **render
+    """The volume render as a callable on one model (the trainer's
+    validation, ray batches that are not frames): (rays_o, rays_d, **render
     kwargs) -> (rgb, depth, extras). The builders' training-only kwargs
     are dropped; detailed_output defaults to False here (a serving call:
     color_topk applies, no per-sample outputs)."""

@@ -26,7 +26,6 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from .. import resolve_device
 
@@ -69,8 +68,7 @@ def main(argv=None, renders=None):
     from ..editing.swap import TextureSwappingRender
     from ..editing.texture_model import TextureEditableNeuMesh
     from ..mesh.triangle_mesh import save_ply
-    from ..ops.rays import get_rays
-    from ..render.volume import volume_render
+    from ..render.volume import render_image
 
     args = create_parser().parse_args(argv)
     dev = resolve_device(args.device)
@@ -127,10 +125,12 @@ def main(argv=None, renders=None):
               N_samples=64, N_importance=64, N_upsample_iters=4,
               reuse_upsample_sdf=True)
 
-    def render_full(mdl, ro, rd):
-        _, _, ret = volume_render(mdl, ro, rd, rayschunk=args.rayschunk,
-                                  device=dev, **kw)
-        return {k: v.cpu().numpy() for k, v in ret.items()}
+    def render_full(mdl, c2w, K, H, W, **more):
+        _, _, ret = render_image(mdl, c2w, K, H, W, block=(1, W),
+                                 rayschunk=args.rayschunk, device=dev,
+                                 **kw, **more)
+        return {k: v.reshape(H * W, *v.shape[2:]).cpu().numpy()
+                for k, v in ret.items()}
 
     ds = get_data(mcfg, downscale=1)
     views = sorted({v % len(ds) for v in args.views})
@@ -140,18 +140,16 @@ def main(argv=None, renders=None):
     deltas, diffs, psnr_sw = [], [], []
     for vi in views:
         _, sample, gt = ds[vi]
-        ro, rd = get_rays(torch.as_tensor(sample["c2w"], device=dev),
-                          torch.as_tensor(sample["intrinsics"], device=dev),
-                          ds.H, ds.W)
-        orig = render_full(model, ro, rd)
-        edit = render_full(edited, ro, rd)
+        cam = (sample["c2w"], sample["intrinsics"], ds.H, ds.W)
+        orig = render_full(model, *cam, rays_output=True)
+        edit = render_full(edited, *cam)
         if renders is not None:
             renders[vi] = (orig["rgb"], edit["rgb"])
         gt_rgb = np.asarray(gt["rgb"])
 
-        # image-space regions from the ORIGINAL render's geometry
-        pts = (ro.cpu().numpy()
-               + orig["depth_volume"][:, None] * rd.cpu().numpy())
+        # image-space regions from the ORIGINAL render's geometry, on the
+        # camera rays it cast
+        pts = orig["rays_o"] + orig["depth_volume"][:, None] * orig["rays_d"]
         hit = orig["mask_volume"] > 0.5
         swapped = hit & (pts[:, 0] > (args.x_frac + 0.1) * xmax)
         untouched = hit & (pts[:, 0] < (args.x_frac - 0.1) * xmax)

@@ -351,17 +351,11 @@ def serving_f32_layers(args) -> tuple:
     return tuple(t for t in (args.f32_layers or "").split(",") if t)
 
 
-def _block_perm(H, W, blocks, dev):
-    from ..ops.rays import block_order_indices
-    perm, inv = block_order_indices(H, W, *blocks)
-    return (torch.as_tensor(perm, device=dev),
-            torch.as_tensor(inv, device=dev))
-
-
 def render_fn(args, model, tag, H, W):
-    """(rays_o, rays_d) (H*W, 3) in raster order -> rgb (H*W, 3)."""
-    from ..render.ray_casting import surface_render
-    from ..render.volume import volume_render
+    """(c2w, K) -> the H x W view's rgb (H*W, 3) in raster order, through
+    the frame entry of the mode."""
+    from ..render.ray_casting import render_surface_image
+    from ..render.volume import render_image
     dev = model.device
     if tag.startswith("volume"):
         serving = tag == "volume_bf16"
@@ -376,34 +370,27 @@ def render_fn(args, model, tag, H, W):
             kw.update(ray_tile=args.volume_tile,
                       tile_max_candidates=args.volume_max_candidates or None,
                       color_topk=args.volume_topk,
-                      root_anchored=bool(args.volume_root_anchored))
-            blocks = (8, 16) if args.volume_tile >= 128 else (8, 8)
-            perm, inv = _block_perm(H, W, blocks, dev)
+                      root_anchored=bool(args.volume_root_anchored),
+                      block=(8, 16) if args.volume_tile >= 128 else (8, 8))
         else:
-            kw.update(ray_tile=16)
-            perm = inv = None
+            kw.update(ray_tile=16, block=(1, W))
 
-        def r(ro, rd):
-            if perm is not None:
-                ro, rd = ro[perm], rd[perm]
-            rgb = volume_render(model, ro, rd, device=dev, **kw)[0]
-            return rgb if inv is None else rgb[inv]
+        def r(c2w, K):
+            return render_image(model, c2w, K, H, W, device=dev,
+                                **kw)[0].reshape(H * W, 3)
         return r
 
-    perm, inv = _block_perm(H, W, tuple(args.surface_blocks), dev)
-
-    def s(ro, rd):
+    def s(c2w, K):
         # pixel-block tiling: compact ray bundles a shared context
-        c, _, _ = surface_render(
-            model, ro[perm], rd[perm], ray_tile=args.surface_tile,
-            scan_mode="distance", tile_max_candidates=128,
+        return render_surface_image(
+            model, c2w, K, H, W, ray_tile=args.surface_tile,
+            block=tuple(args.surface_blocks), scan_mode="distance",
+            tile_max_candidates=128,
             shade_composite=args.surface_shade_composite,
             shade_topk=args.surface_shade_topk,
             shade_win_frac=args.surface_shade_win_frac,
-            ray_casting_cfgs={"N_steps": args.surface_steps,
-                              "N_secant_steps": args.surface_secant},
-            device=dev)
-        return c[inv]
+            N_steps=args.surface_steps, N_secant_steps=args.surface_secant,
+            device=dev)[0].reshape(H * W, 3)
     return s
 
 
@@ -415,7 +402,6 @@ def score_mode(args, p, tag, lpips_w=None):
     from ..dataio import get_data
     from ..ops.lpips import lpips as lpips_fn
     from ..ops.metrics import psnr as psnr_fn, ssim as ssim_fn
-    from ..ops.rays import get_rays
     dev = resolve_device(args.device)
     model = make_model(args, p, tag)
     ds = get_data(neumesh_config(p["workdir"], args.iters, p["mesh_path"],
@@ -424,11 +410,8 @@ def score_mode(args, p, tag, lpips_w=None):
     out = {"psnr": [], "ssim": [], "renders": [], "view_s": []}
     for vi in EVAL_VIEWS:
         _, sample, gt = ds[vi]
-        ro, rd = get_rays(torch.as_tensor(sample["c2w"], device=dev),
-                          torch.as_tensor(sample["intrinsics"], device=dev),
-                          ds.H, ds.W)
         t0 = time.perf_counter()
-        rgb = fn(ro, rd).to(torch.float32)
+        rgb = fn(sample["c2w"], sample["intrinsics"]).to(torch.float32)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         out["view_s"].append(time.perf_counter() - t0)

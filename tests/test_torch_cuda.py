@@ -1514,9 +1514,11 @@ def numpy_assembled_frame(model, kind, c2w, K, H, W, block, *, device,
     ro, rd = rays_o[perm], rays_d[perm]
     n = H * W
     if kind == "volume":
+        # chunks of whole tiles, as the entries round them
+        q = max(ray_tile, 1)
         _, _, ret = volume_render(model, ro, rd, device=device,
-                                  ray_tile=ray_tile, rayschunk=rayschunk,
-                                  **kw)
+                                  ray_tile=ray_tile,
+                                  rayschunk=-(-rayschunk // q) * q, **kw)
         return {k: v[inv].reshape(H, W, *v.shape[1:])
                 for k, v in ret.items()}
     chunk = -(-(rayschunk or n) // ray_tile) * ray_tile

@@ -130,6 +130,27 @@ def test_editing_cli_renders(scene, tmp_path, monkeypatch, case):
     _frames(out["render"])
 
 
+@pytest.mark.parametrize("mode,flags", [
+    ("volume", ["--volume_devices"]),
+    ("surface", ["--render_mode", "surface", "--surface_ray_tile", "16",
+                 "--surface_scan", "distance", "--surface_devices"])])
+def test_swap_cli_over_two_cpu_replicas_matches_one_device(
+        scene, tmp_path, monkeypatch, mode, flags):
+    """The swap CLI's editable over two CPU replicas (replicate copies the
+    main and reference models inside it): the frame of one device (f32
+    rounding as test_torch_multidevice.py allows)."""
+    _, configs = scene
+    monkeypatch.chdir(tmp_path)
+    outs = [swap_cli.main(["--config", configs["swap"], *flags, n,
+                           "--outbase", f"{mode}{n}", *RENDER])["render"]
+            for n in ("1", "2")]
+    for out in outs:
+        _frames(out)
+    for key in ("rgb", "normals", "depth"):
+        np.testing.assert_allclose(outs[1][key][0], outs[0][key][0],
+                                   rtol=1e-4, atol=1e-5, err_msg=key)
+
+
 def test_paint_cli_trains_only_painted_rows(scene, tmp_path):
     """Three painting steps at a batch of 16: the painted rows of
     color_features move, every other parameter keeps the checkpoint's

@@ -1,8 +1,9 @@
 """The port's multi-device code on the CPU (counterparts of
 tests/test_multidevice.py): ray-sharded volume and surface renders over
 two CPU replicas (devices=["cpu", "cpu"]) against the one-device render,
-a ragged ray count through the render CLI's padding, the one-device short
-cut and force_shard_map, replicas and MeshGrid.to, and the global masked
+a ragged frame through the volume frame entry's padding, the one-device short
+cut and force_shard_map, replicas (of a model and of an editable) and
+MeshGrid.to, and the global masked
 mean of the image loss over a gloo pair against the JAX package's masked
 mean on the concatenated rays.
 
@@ -107,29 +108,34 @@ def test_sharded_surface_render_matches_single_device(model):
 
 
 def test_ragged_ray_count_through_the_cli_padding(model):
-    """27 rays over two devices: sharded_volume_render refuses them; the
-    CLI's multi-device render function edge-pads each chunk to a multiple
-    of the device count and returns the 27 rays of the direct render."""
-    from neumesh_tpu_torch.cli.render import make_volume_render_fn
-    from neumesh_tpu_torch.config import ConfigDict
+    """A 9 x 3 frame (27 rays) over two devices: sharded_volume_render
+    refuses its rays; render_image, the CLI's volume entry, edge-pads each
+    chunk to a multiple of the device count and returns the 27 rays of the
+    direct render, in raster order."""
+    from neumesh_tpu_torch.ops.rays import get_rays
     from neumesh_tpu_torch.parallel import sharded_volume_render
-    from neumesh_tpu_torch.render.volume import volume_render_rays
-    o, d = rays(32)
-    o, d = o[:27], d[:27]
+    from neumesh_tpu_torch.render.volume import (render_image,
+                                                 volume_render_rays)
+    from test_torch_basics import camera
+    H, W = 3, 9
+    c2w, K = camera(H, W)
+    o, d = get_rays(torch.from_numpy(c2w), torch.from_numpy(K), H, W)
     kw = dict(N_samples=16, N_importance=8, N_upsample_iters=2,
               detailed_output=False)
     devices = ["cpu", "cpu"]
     with pytest.raises(ValueError, match="not divisible"):
         sharded_volume_render(replicas_on(model, devices), o, d, devices,
                               **kw)
-    fn = make_volume_render_fn(ConfigDict({}), model,
-                               [torch.device("cpu")] * 2)
     with torch.no_grad():
         want = volume_render_rays(model, o, d, **kw)
-    rgb, depth, ret = fn(o, d, rayschunk=10, **kw)
-    assert rgb.shape == (27, 3) and bool(torch.isfinite(rgb).all())
-    torch.testing.assert_close(rgb, want["rgb"], **CLOSE)
-    torch.testing.assert_close(depth, want["depth_volume"], **CLOSE)
+    rgb, depth, ret = render_image(model, c2w, K, H, W, block=(1, W),
+                                   rayschunk=10, device="cpu",
+                                   replicas=replicas_on(model, devices), **kw)
+    assert rgb.shape == (H, W, 3) and bool(torch.isfinite(rgb).all())
+    assert 0 < float(want["mask_volume"].mean()) < 1
+    torch.testing.assert_close(rgb.reshape(-1, 3), want["rgb"], **CLOSE)
+    torch.testing.assert_close(depth.reshape(-1), want["depth_volume"],
+                               **CLOSE)
 
 
 @pytest.mark.parametrize("force", [False, True])
@@ -180,6 +186,30 @@ def test_replicate_and_mesh_grid_to_copy_the_tables(model):
     for (n, a), b in zip(model.named_parameters(), rep_cpu.parameters()):
         assert a.data_ptr() != b.data_ptr(), n
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=n)
+
+
+def test_replicate_copies_an_editable_and_its_nested_models(model):
+    """A TextureEditableNeuMesh (its device a property of the main model)
+    replicated: the main and reference models, their mesh tables and
+    every parameter and buffer on the target device, the source
+    untouched. The meta device stands in for a second card."""
+    from neumesh_tpu_torch.editing.texture_model import TextureEditableNeuMesh
+    from neumesh_tpu_torch.parallel import replicate
+    masks = np.zeros((1, model.num_vertices), bool)
+    masks[0, :100] = True
+    editable = TextureEditableNeuMesh(model, [replicate(model, "cpu")], masks,
+                                      [np.eye(4)])
+    rep = replicate(editable, "meta")
+    meta = torch.device("meta")
+    assert rep.device == meta
+    for m in (rep.main_model, rep.ref_models[0]):
+        assert m.device == meta
+        assert m.mesh_grid.vertices.device == meta
+        assert m.mesh_grid.grid.cand_idx.device == meta
+    assert all(t.device == meta for t in rep.parameters())
+    assert all(t.device == meta for t in rep.buffers())
+    assert editable.device.type == "cpu" and model.device.type == "cpu"
+    assert model.mesh_grid.vertices.is_cpu
 
 
 # ---------------------------------------------------------------------------
