@@ -37,7 +37,12 @@ Phases (any failure exits non-zero; nothing falls back to the CPU):
     samples, C = 128, one rotated reference; edit_cell_call), held
     against its plain version on every EDIT_CELL_EVERY-th context, the
     painted counts of both compared; kernel ms, the plain version's
-    scaled from those contexts, bound.
+    scaled from those contexts, bound. candidate_bounds (the tile
+    contexts' near/far) held bit for bit against its plain version on
+    every call the structures make and at the surface cell's shapes
+    (BOUNDS_CELL_TILES = 3,750 tiles of 128 rays: the recorded surface
+    tiles repeated, bounds_cell_call), timed there beside its plain
+    version and its bound.
     Then the stage split (kernels.stage_split, the tile kernels' timing
     instantiation, launched nowhere else but ab_field_kernels.py): the
     share of a block's cycles and the microseconds a tile of each stage
@@ -211,8 +216,10 @@ TOL = {"f32": dict(atol=2e-5, rtol=1e-4, frac=0.99),
 LOCATE_MASK_AGREE = {"bf16": 0.999, "f32": 1.0}
 
 KERNELS = ("field_fused", "field_fused_edit", "secant_refine",
-           "surface_locate", "candidate_field_v3", "candidate_field")
+           "surface_locate", "candidate_field_v3", "candidate_field",
+           "candidate_bounds")
 FE = ("field_fused_edit", "full")
+CB = ("candidate_bounds", "tiled")
 # a row's design: its kernel runs the tensor-core tile stage, every hidden
 # MLP layer on wgmma (f32 ones as the bf16 split; "wgmma"), or it has no
 # MLP and everything runs on the CUDA cores ("simt")
@@ -227,7 +234,7 @@ FD = ("field_fused", "distance")
 # warp-specialised persistent tile kernels (a producer warpgroup feeding
 # the weight ring, field_common.cuh), field_fused's MLP modes and the
 # secant
-ROW_DESIGN = {FD: "thread_scan",
+ROW_DESIGN = {FD: "thread_scan", CB: "simt",
               **{km: "ws_wgmma" for km in WGMMA_ROWS
                  if km[0] != "surface_locate"},
               # their f32 builds keep the serial wgmma block (csrc
@@ -255,6 +262,9 @@ SOURCES = {
                            "neumesh_tpu/ops/pallas_kernels.py:203"),
     "candidate_field": ("neumesh_tpu_torch/csrc/candidate_field.cu",
                         "neumesh_tpu/ops/pallas_kernels.py:60"),
+    # no TPU kernel: the JAX package's tile bounds are plain jnp
+    "candidate_bounds": ("neumesh_tpu_torch/csrc/candidate_bounds.cu",
+                         "neumesh_tpu/models/neumesh/model.py:1180"),
 }
 # rows whose kernel has a source of its own: (kernel, mode) -> source
 ROW_SOURCES = {FD: "neumesh_tpu_torch/csrc/field_distance.cu"}
@@ -296,28 +306,30 @@ MODELS = {
     "nonablas_vol": (VOL_MODEL, True, dict(enable_nablas_input=False)),
 }
 FF, SR = "field_fused", "secant_refine"
-_SURF_MODES = {(FF, "distance"), (SR, "rebracket"), (FF, "full")}
+# every structure binds its rays to 128-ray tile contexts with use_pallas,
+# so each launches candidate_bounds once a frame
+_SURF_MODES = {(FF, "distance"), (SR, "rebracket"), (FF, "full"), CB}
 # structure: (model, renderer, frame side, render kwargs, kernel modes it
 # must launch, timing reps)
 STRUCTURES = {
     "serving_bf16": ("vol_bf16", "volume", 256, VOL_RENDER,
                      {(FF, "distance"), (FF, "density"), (FF, "full"),
-                      (SR, "rebracket")}, 5),
+                      (SR, "rebracket"), CB}, 5),
     "reference_f32": ("vol_f32", "volume", 128, REF_RENDER,
-                      {(FF, "density"), (FF, "full")}, 3),
+                      {(FF, "density"), (FF, "full"), CB}, 3),
     "surface_fast": ("surf_bf16", "surface", 256, SURF_RENDER, _SURF_MODES,
                      5),
     "surface_f32": ("surf_f32", "surface", 128, SURF_RENDER, _SURF_MODES, 5),
     "surface_locate": ("surf_locate", "surface", 256, SURF_RENDER,
-                       {("surface_locate", "bf16"), (FF, "full")}, 5),
+                       {("surface_locate", "bf16"), (FF, "full"), CB}, 5),
     "surface_shade": ("surf_bf16", "surface", 256, dict(SURF_RENDER, **SHADE),
-                      {(FF, "density"), (FF, "full"), (FF, "density_nabla")},
-                      5),
+                      {(FF, "density"), (FF, "full"), (FF, "density_nabla"),
+                       CB}, 5),
     "nonablas_surface": ("nonablas_surf", "surface", 256, SURF_RENDER,
                          {("candidate_field_v3", "ds_feat"),
-                          (FF, "density_nabla")}, 5),
+                          (FF, "density_nabla"), CB}, 5),
     "nonablas_volume": ("nonablas_vol", "volume", 256, VOL_RENDER,
-                        {("candidate_field_v3", "ds_feat")}, 5),
+                        {("candidate_field_v3", "ds_feat"), CB}, 5),
 }
 # the render CLI's cases: (flags, the model with nablas input?, kernel modes
 # it must launch). Per-ray contexts unless --ray_tile; without use_pallas
@@ -345,7 +357,7 @@ TRAIN_ITERS, TRAIN_WARMUP, TRAIN_REL, TRAIN_RENDER_SIDE = 20, 3, 1e-4, 64
 # context) several contexts
 BLOCK_ROWS = {"field_fused": 64, "field_fused_edit": 64, "secant_refine": 64,
               "surface_locate": 64, "candidate_field_v3": 32,
-              "candidate_field": 32}
+              "candidate_field": 32, "candidate_bounds": 128}
 # crops through the plain versions: least PSNR of rgb (and of the surface
 # normals, peak-to-peak 2) kernel vs plain, by the structure's model dtype
 CROP_PSNR = {"bf16": 30.0, "f32": 55.0}
@@ -354,16 +366,20 @@ CROP_PSNR = {"bf16": 30.0, "f32": 55.0}
 # the share by which the kernel's painted count may differ from the plain
 # version's (a kNN near-tie may move a pick onto or off an edited vertex)
 EDIT_CELL_B, EDIT_CELL_EVERY, PAINTED_TOL = 469, 15, 1e-4
+# candidate_bounds' row at the surface cell's shapes: the 800 x 600 frame's
+# 480,000 rays in 128-ray tiles
+BOUNDS_CELL_TILES = 3750
 # the structure whose per-frame count a kernel's `launches` reports: the
 # volume serving structure for the kernels of the first slice (as that
 # slice printed it), the structure that brought each later kernel onto a
 # path; candidate_field (v2) is on none, field_fused_edit on the edited
-# renders alone (phase 8's cases)
+# renders alone (phase 8's cases); candidate_bounds is on every structure,
+# and counted on the surface serving one, whose cell it was written for
 LAUNCHES_OF = {"field_fused": "serving_bf16", "field_fused_edit": None,
                "secant_refine": "serving_bf16",
                "surface_locate": "surface_locate",
                "candidate_field_v3": "nonablas_surface",
-               "candidate_field": None}
+               "candidate_field": None, "candidate_bounds": "surface_fast"}
 
 
 def log(*a):
@@ -444,6 +460,8 @@ def mode_of(name, kw):
         return kw.get("want", "density")
     if name == "field_fused_edit":
         return "full"
+    if name == "candidate_bounds":
+        return "tiled"
     if name == "secant_refine":
         return kernels.secant_mode(kw.get("d_low_w") is not None,
                                    kw.get("frozen_knn", False))
@@ -611,6 +629,17 @@ def candidate_work(name, args, kw):
     return 0.0, 0.0, cc, nbytes
 
 
+def bounds_work(args):
+    """candidate_bounds: 17 f32 operations a (ray, candidate) pair (ov, t_c
+    and |ov|^2, d_perp^2, s^2 and its test; the covered pairs' square root
+    and running bounds left out); the rays, near and far read, near and
+    far written, the candidates read."""
+    rays_o, pts = args[0], args[4]
+    R = rays_o.shape[0]
+    return (0.0, 0.0, 17.0 * R * pts.shape[1],
+            _nbytes(args[:5]) + R * 4 * 2)
+
+
 def kernel_bound(name, args, kw, f32_tc_rate=H100_F32_SPLIT_FLOPS):
     """(ms, "operations" | "bytes"): the larger of the call's operations
     over the card's peak rates (bf16 and the f32 hidden layers on the
@@ -626,6 +655,8 @@ def kernel_bound(name, args, kw, f32_tc_rate=H100_F32_SPLIT_FLOPS):
         bf, tc, cc, nbytes = secant_work(args, kw)
     elif name == "surface_locate":
         bf, tc, cc, nbytes = locate_work(args, kw)
+    elif name == "candidate_bounds":
+        bf, tc, cc, nbytes = bounds_work(args)
     else:
         bf, tc, cc, nbytes = candidate_work(name, args, kw)
     t_ops = (bf / H100_BF16_FLOPS + tc / f32_tc_rate
@@ -838,7 +869,26 @@ def kernel_variants(rec, models):
                 "f32"))
     timed[("surface_locate", "bf16")] = ("surface_locate", a, kw)
     timed[("surface_locate", "f32")] = ("surface_locate:f32", a32, kw32)
+    a, kw = rec["surface_fast"][CB]
+    a = bounds_cell_call(a)
+    out.append((*CB, "surface_cell", a, kw, "f32"))
+    timed[CB] = ("surface_cell", a, kw)
     return out, timed
+
+
+def bounds_cell_call(a):
+    """candidate_bounds' arguments at the surface cell's shapes from a
+    recorded call: its tiles (rays, near, far and candidates) repeated to
+    BOUNDS_CELL_TILES."""
+    import torch
+    rays_o, rays_d, near, far, pts, tile = a[:6]
+    Rt = pts.shape[0]
+    rep = torch.arange(BOUNDS_CELL_TILES, device=pts.device) % Rt
+
+    def tiles(t):
+        return t.reshape(Rt, tile, -1)[rep].reshape(-1, t.shape[-1])
+    return (*(tiles(t).contiguous() for t in (rays_o, rays_d, near, far)),
+            pts[rep].contiguous(), *a[5:])
 
 
 def check_outputs(name, mode, key, got, want):
@@ -847,6 +897,12 @@ def check_outputs(name, mode, key, got, want):
     to the share alone; in f32 the gradient outputs (nabla, dh) at
     TOL["f32_nabla"]."""
     tol = TOL[key]
+    if name == "candidate_bounds":
+        # near and far bit for bit
+        import torch
+        err, share = compare(got, want, tol)
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        return err, share, equal, {"bit_equal": equal}
     if name == "surface_locate":
         # the three flag planes bit for bit; d_pred where both hit
         agree = min(float((g == w).float().mean())
@@ -1151,6 +1207,9 @@ def profile_frame(fn):
 
 
 def _shape_note(name, a):
+    if name == "candidate_bounds":
+        return {"R": a[0].shape[0], "tiles": a[4].shape[0], "T": a[5],
+                "C": a[4].shape[1]}
     if name in ("field_fused", "field_fused_edit", "candidate_field_v3"):
         B, S, _ = a[0].shape
         return {"B": B, "S": S, "C": a[1].shape[2], "F": a[2].shape[-1],
@@ -1281,7 +1340,7 @@ def frame_peaks(cli, peaks):
 
 def rows_per_context(name, args):
     """(contexts, samples or rays of each) of one kernel call."""
-    if name in ("secant_refine", "surface_locate"):
+    if name in ("secant_refine", "surface_locate", "candidate_bounds"):
         B = args[6].shape[0] if name == "secant_refine" else args[4].shape[0]
         return B, args[0].shape[0] // B
     return args[0].shape[0], args[0].shape[1]
@@ -1820,7 +1879,7 @@ LPIPS_SIDE, LPIPS_REL = 128, 1e-4
 # the kernel modes each gate mode must launch
 GATE_MUST = {"volume_f32": {(FF, "density")},
              "volume_bf16": {(FF, "distance"), (FF, "density"), (FF, "full"),
-                             (SR, "rebracket")},
+                             (SR, "rebracket"), CB},
              "surface_f32": _SURF_MODES, "surface_fast": _SURF_MODES}
 
 
@@ -2184,11 +2243,11 @@ EDIT_CASES = {
     "swap_volume": ("swap", [], {}, EDIT_VIEWS, {(FF, "density")}, True),
     "swap_surface": ("swap", SURF_FLAGS, dict(use_pallas=True), EDIT_VIEWS,
                      {(FF, "distance"), (SR, "rebracket"),
-                      (FF, "density_nabla"), FE}, True),
+                      (FF, "density_nabla"), FE, CB}, True),
     "swap_locate": ("swap", SURF_FLAGS,
                     dict(use_pallas=True, use_fused_locate=True), EDIT_VIEWS,
-                    {("surface_locate", "f32"), (FF, "density_nabla"), FE},
-                    True),
+                    {("surface_locate", "f32"), (FF, "density_nabla"), FE,
+                     CB}, True),
     "swap_arap": ("swap", ["--use_arap"], {}, "1", {(FF, "density")}, False),
     "fill": ("fill", [], {}, "1", {(FF, "density")}, False),
     "geometry": ("geometry", [], {}, "1", {(FF, "density")}, False),

@@ -572,7 +572,7 @@ class NeuMesh(nn.Module):
             kp_per_probe=self.tile_kp_per_probe or None,
             max_candidates=max_candidates)
         near_new, far_new = candidate_bounded_near_far_tiled(
-            ctx, ro, rd, nr, fr, tile)
+            ctx, ro, rd, nr, fr, tile, fused=self.use_pallas)
         return (TileBoundNeuMesh(self, ctx, tile, w1),
                 near_new.reshape(near.shape), far_new.reshape(far.shape))
 
@@ -605,36 +605,17 @@ def _segment_d2(px, py, pz, o, d, lo, hi):
 @spanned("ctx.bounds")
 def candidate_bounded_near_far_tiled(ctx, rays_o, rays_d, near, far,
                                      tile: int,
-                                     distance_thresh: float = 0.1):
+                                     distance_thresh: float = 0.1, *,
+                                     fused: bool = False):
     """Per-ray near/far tightened to where the ray passes within
     distance_thresh of a tile candidate vertex (closed form), clamped to
-    the input bounds, with the reference's 'too close' widening."""
-    R = rays_o.shape[0]
-    Rt = R // tile
-    pts = ctx["pts"]
-    o = rays_o.reshape(Rt, tile, 1, 3)
-    d = rays_d.reshape(Rt, tile, 1, 3)
-    ov = pts[:, None, :, :] - o                              # (Rt, T, C, 3)
-    t_c = torch.sum(ov * d, dim=-1)
-    d_perp2 = torch.sum(ov * ov, dim=-1) - t_c * t_c
-    s2 = distance_thresh * distance_thresh - d_perp2
-    covered = s2 > 0
-    s = torch.sqrt(torch.where(covered, s2, torch.ones_like(s2))) * covered
-    nr = near.reshape(Rt, tile, 1)
-    fr = far.reshape(Rt, tile, 1)
-    t_lo = torch.where(covered, t_c - s, torch.full_like(s, 1e10))
-    t_hi = torch.where(covered, t_c + s, torch.full_like(s, -1e10))
-    near_new = torch.amin(t_lo, dim=-1, keepdim=True)
-    far_new = torch.amax(t_hi, dim=-1, keepdim=True)
-    near_new = torch.minimum(torch.maximum(near_new, nr), fr)
-    far_new = torch.minimum(torch.maximum(far_new, nr), fr)
-    hit = torch.any(covered, dim=-1, keepdim=True)
-    near_new = torch.where(hit, near_new, nr)
-    far_new = torch.where(hit, far_new, fr)
-    too_close = (far_new - near_new) < 0.1
-    far_new = torch.where(too_close, far_new + 0.05, far_new)
-    near_new = torch.where(too_close, near_new - 0.05, near_new)
-    return near_new.reshape(R, 1), far_new.reshape(R, 1)
+    the input bounds, with the reference's 'too close' widening: one
+    candidate_bounds launch with fused (the model's use_pallas) on CUDA,
+    else candidate_bounds_plain, the same bits."""
+    bounds = (kernels.candidate_bounds if fused
+              else kernels.candidate_bounds_plain)
+    return bounds(rays_o, rays_d, near, far, ctx["pts"], tile,
+                  distance_thresh)
 
 
 @spanned("ctx.bounds")

@@ -70,7 +70,8 @@ SOURCES = {"field_fused": "field_fused.cu",
            "field_fused_edit": "field_fused_edit.cu",
            "secant_refine": "secant_refine.cu",
            "surface_locate": "surface_locate.cu",
-           "candidate_field": "candidate_field.cu"}
+           "candidate_field": "candidate_field.cu",
+           "candidate_bounds": "candidate_bounds.cu"}
 # kernel -> (library built from SOURCES, C entry point)
 ENTRY = {"field_fused": ("field_fused", "nm_field_fused"),
          "field_distance": ("field_distance", "nm_field_distance"),
@@ -78,7 +79,8 @@ ENTRY = {"field_fused": ("field_fused", "nm_field_fused"),
          "secant_refine": ("secant_refine", "nm_secant_refine"),
          "surface_locate": ("surface_locate", "nm_surface_locate"),
          "candidate_field_v3": ("candidate_field", "nm_candidate_field_v3"),
-         "candidate_field": ("candidate_field", "nm_candidate_field")}
+         "candidate_field": ("candidate_field", "nm_candidate_field"),
+         "candidate_bounds": ("candidate_bounds", "nm_candidate_bounds")}
 HOST_SRC = os.path.join(_PKG, "cpp", "src", "host_lib.cpp")
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -149,6 +151,14 @@ class CandArgs(ctypes.Structure):
                    for n in ("B", "S", "C", "F", "k", "want_dh",
                              "want_feat")]
                 + [("w1", ctypes.c_float)])
+
+
+class BoundsArgs(ctypes.Structure):
+    _fields_ = ([(n, ctypes.c_void_p)
+                 for n in ("rays_o", "rays_d", "near", "far", "pts",
+                           "out_near", "out_far")]
+                + [(n, ctypes.c_int) for n in ("R", "T", "C")]
+                + [("thr2", ctypes.c_float)])
 
 
 class LocateArgs(ctypes.Structure):

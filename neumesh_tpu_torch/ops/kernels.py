@@ -11,6 +11,10 @@ versions.
   field_fused_edit    <- none: the JAX package's edited shade
                          (editing/texture_model.py) is plain jnp
                          (csrc/field_fused_edit.cu)
+  candidate_bounds    <- none: the JAX package's tile bounds
+                         (models/neumesh/model.py::
+                         candidate_bounded_near_far_tiled) are plain jnp
+                         (csrc/candidate_bounds.cu)
 
 A wrapper launches its CUDA kernel for CUDA tensors (or raises) and uses
 the plain version only for CPU tensors; nothing falls back. The plain
@@ -45,7 +49,8 @@ LAUNCHES = {
                            "frozen_rebracket")),
         ("surface_locate", ("bf16", "f32")),
         ("candidate_field_v3", _CAND_MODES),
-        ("candidate_field", _CAND_MODES))}
+        ("candidate_field", _CAND_MODES),
+        ("candidate_bounds", ("tiled",)))}
 
 
 def reset_launch_counts() -> None:
@@ -1006,6 +1011,81 @@ def candidate_field(xyz, pts, pp, ind, vn, feat, w1, *, k: int = 8,
     return ds, dh, feats
 
 
+def candidate_bounds_plain(rays_o, rays_d, near, far, pts, tile: int,
+                           distance_thresh: float = 0.1):
+    """Per-ray near/far tightened to where the ray passes within
+    distance_thresh of a candidate vertex of its tile (closed form),
+    clamped to the input bounds, with the reference's 'too close'
+    widening. rays (R, 3) in tiles of `tile` consecutive rays, near/far
+    (R, 1), pts (R // tile, C, 3) -> (near, far) (R, 1)."""
+    R = rays_o.shape[0]
+    Rt = R // tile
+    o = rays_o.reshape(Rt, tile, 1, 3)
+    d = rays_d.reshape(Rt, tile, 1, 3)
+    ov = pts[:, None, :, :] - o                              # (Rt, T, C, 3)
+    t_c = torch.sum(ov * d, dim=-1)
+    d_perp2 = torch.sum(ov * ov, dim=-1) - t_c * t_c
+    s2 = distance_thresh * distance_thresh - d_perp2
+    covered = s2 > 0
+    s = torch.sqrt(torch.where(covered, s2, torch.ones_like(s2))) * covered
+    nr = near.reshape(Rt, tile, 1)
+    fr = far.reshape(Rt, tile, 1)
+    t_lo = torch.where(covered, t_c - s, torch.full_like(s, 1e10))
+    t_hi = torch.where(covered, t_c + s, torch.full_like(s, -1e10))
+    near_new = torch.amin(t_lo, dim=-1, keepdim=True)
+    far_new = torch.amax(t_hi, dim=-1, keepdim=True)
+    near_new = torch.minimum(torch.maximum(near_new, nr), fr)
+    far_new = torch.minimum(torch.maximum(far_new, nr), fr)
+    hit = torch.any(covered, dim=-1, keepdim=True)
+    near_new = torch.where(hit, near_new, nr)
+    far_new = torch.where(hit, far_new, fr)
+    too_close = (far_new - near_new) < 0.1
+    far_new = torch.where(too_close, far_new + 0.05, far_new)
+    near_new = torch.where(too_close, near_new - 0.05, near_new)
+    return near_new.reshape(R, 1), far_new.reshape(R, 1)
+
+
+def candidate_bounds(rays_o, rays_d, near, far, pts, tile: int,
+                     distance_thresh: float = 0.1):
+    """candidate_bounds_plain (same signature) in one launch: a thread a
+    ray, the tile's candidates in shared memory, no (tiles, T, C)
+    temporaries; bit-equal to the plain version on the card."""
+    if not rays_o.is_cuda:
+        return candidate_bounds_plain(rays_o, rays_d, near, far, pts, tile,
+                                      distance_thresh)
+    from . import _build
+
+    _no_grad(rays_o, rays_d, near, far, pts)
+    R = rays_o.shape[0]
+    if tile < 1 or R % tile:
+        raise ValueError(f"candidate_bounds: {R} rays in tiles of {tile}")
+    C = pts.shape[1] if pts.dim() == 3 else 0
+    for name, t, shape in (("rays_o", rays_o, (R, 3)),
+                           ("rays_d", rays_d, (R, 3)), ("near", near, (R, 1)),
+                           ("far", far, (R, 1)),
+                           ("pts", pts, (R // tile, max(C, 1), 3))):
+        if tuple(t.shape) != shape or t.dtype != torch.float32 \
+                or t.device != rays_o.device:
+            raise ValueError(f"candidate_bounds: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}, want {tuple(shape)} "
+                             f"float32 on {rays_o.device}")
+    out_near = torch.empty((R, 1), device=rays_o.device, dtype=torch.float32)
+    out_far = torch.empty_like(out_near)
+    if R:
+        keep = []
+        args = _build.BoundsArgs(
+            rays_o=_ptr(rays_o.contiguous(), keep),
+            rays_d=_ptr(rays_d.contiguous(), keep),
+            near=_ptr(near.contiguous(), keep),
+            far=_ptr(far.contiguous(), keep),
+            pts=_ptr(pts.contiguous(), keep), out_near=out_near.data_ptr(),
+            out_far=out_far.data_ptr(), R=R, T=tile, C=C,
+            thr2=distance_thresh * distance_thresh)
+        _build.launch("candidate_bounds", args, rays_o)
+        trace.count("launch.candidate_bounds.tiled")
+    return out_near, out_far
+
+
 # ---------------------------------------------------------------------------
 # kernel argument packing
 # ---------------------------------------------------------------------------
@@ -1514,4 +1594,5 @@ __all__ = ["field_fused", "field_fused_plain", "field_fused_edit",
            "secant_refine_plain", "secant_pred", "surface_locate",
            "surface_locate_plain", "candidate_field_v3",
            "candidate_field_v3_plain", "candidate_field",
-           "candidate_field_plain", "LAUNCHES", "reset_launch_counts"]
+           "candidate_field_plain", "candidate_bounds",
+           "candidate_bounds_plain", "LAUNCHES", "reset_launch_counts"]

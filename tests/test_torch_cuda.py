@@ -1609,3 +1609,156 @@ def test_frame_entry_matches_the_numpy_assembly_on_card(kind):
     assert_frames_equal(got, want)
     if kind == "surface":
         assert 0.1 < float(got["mask_surface"].float().mean()) < 0.9
+
+
+# ---------------------------------------------------------------------------
+# candidate_bounds: the tile contexts' near/far
+# ---------------------------------------------------------------------------
+
+def bounds_inputs(seed=0, Rt=64, T=128, C=128):
+    """Torch CPU inputs of candidate_bounds: Rt tiles of T rays from about
+    (0, 0, -2.5) toward a patch of the 0.5-sphere, the tile's C candidates
+    on that patch. A tenth of the candidates, and all of the last tile's,
+    are the 1e9 sentinel vertex; a sixth of the rays aim elsewhere (nothing
+    covers most of them), a sixth have a narrow input [near, far] around
+    their hit (clamped to it, then widened), a sixth a far just past their
+    hit (clamped to it), the rest [1, 4]."""
+    rng = np.random.default_rng(seed)
+
+    def on_sphere(x):
+        return 0.5 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+    centre = on_sphere(rng.normal(size=(Rt, 1, 3)) * 0.3
+                       + np.array([0.0, 0.0, -1.0]))
+    pts = on_sphere(centre + rng.normal(size=(Rt, C, 3)) * 0.08)
+    pts[rng.random((Rt, C)) < 0.1] = 1e9
+    pts[-1] = 1e9
+    o = (np.array([0.0, 0.0, -2.5]) + rng.normal(size=(Rt, 1, 3)) * 0.05
+         + rng.normal(size=(Rt, T, 3)) * 0.01)
+    target = centre + rng.normal(size=(Rt, T, 3)) * 0.08
+    kind = rng.integers(0, 6, (Rt, T))
+    target[kind == 0] = rng.normal(size=(int((kind == 0).sum()), 3)) * 3.0
+    d = target - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    near = 1.0 + rng.uniform(0.0, 0.2, (Rt, T))
+    far = 4.0 + rng.uniform(0.0, 0.2, (Rt, T))
+    hit = np.linalg.norm(target - o, axis=-1)
+    narrow = kind == 1
+    near[narrow] = hit[narrow] - 0.01
+    far[narrow] = hit[narrow] + 0.03
+    short = kind == 2
+    far[short] = hit[short] + 0.02
+
+    def t(x, *shape):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)
+                                .reshape(shape))
+    R = Rt * T
+    return (t(o, R, 3), t(d, R, 3), t(near, R, 1), t(far, R, 1),
+            t(pts, Rt, C, 3))
+
+
+def bounds_cases(inp, got, tile):
+    """How many rays of bounds_inputs no candidate covers, how many end
+    clamped to an input bound, and how many the 'too close' rule widens."""
+    o, d, near, far, pts = inp
+    Rt = pts.shape[0]
+    ov = pts[:, None].double() - o.reshape(Rt, tile, 1, 3).double()
+    tc = (ov * d.reshape(Rt, tile, 1, 3).double()).sum(-1)
+    covered = ((ov * ov).sum(-1) - tc * tc < 0.01).any(-1).reshape(-1, 1)
+    widened = got[0] < near
+    clamped = covered & ~widened & ((got[0] == near) | (got[1] == far))
+    return {"uncovered": int((~covered).sum()),
+            "clamped": int(clamped.sum()), "widened": int(widened.sum())}
+
+
+def test_bounds_inputs_cover_every_case():
+    """bounds_inputs, as the card tests use it, holds sentinels, rays
+    nothing covers, rays clamped to their input bounds and rays the 'too
+    close' rule widens."""
+    for C in (128, 100):
+        inp = bounds_inputs(seed=C, C=C)
+        got = kernels.candidate_bounds_plain(*inp, 128)
+        assert (inp[4] == 1e9).any() and torch.isfinite(got[0]).all()
+        cases = bounds_cases(inp, got, 128)
+        assert min(cases.values()) > 200, cases
+
+
+def test_candidate_bounds_wrapper_takes_the_plain_version_on_cpu():
+    inp = bounds_inputs(seed=3, Rt=4, T=16, C=40)
+    kernels.reset_launch_counts()
+    got = kernels.candidate_bounds(*inp, 16)
+    want = kernels.candidate_bounds_plain(*inp, 16)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got[0].shape == (64, 1) and got[1].shape == (64, 1)
+    assert all(v == 0 for modes in kernels.LAUNCHES.values()
+               for v in modes.values())
+
+
+def bounds_model(device, use_pallas):
+    from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
+    from neumesh_tpu_torch.mesh.grid import MeshGrid
+    from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+    return NeuMesh(MeshGrid(icosphere_mesh(0.5, 3), device=device),
+                   device=device, use_pallas=use_pallas, D_density=2,
+                   D_color=2, W=16, geometry_dim=4, color_dim=4, multires_d=2,
+                   multires_fg=1, multires_ft=1, multires_view=1,
+                   tile_kp_per_probe=8, tile_cell_budget=64).init(0)
+
+
+def bind_and_bound(model, tile=16):
+    """bind_rays_tiled over 8 tiles of rays at the sphere -> (launches of
+    candidate_bounds, its near/far, the plain version's near/far on the
+    binding's context)."""
+    o, d, near, far, _ = bounds_inputs(seed=9, Rt=8, T=tile, C=8)
+    dev = model.mesh_grid.device
+    o, d, near, far = (x.to(dev) for x in (o, d, near, far))
+    kernels.reset_launch_counts()
+    tb, n, f = model.bind_rays_tiled(o, d, near, far, tile)
+    launched = dict(kernels.LAUNCHES["candidate_bounds"])
+    want = kernels.candidate_bounds_plain(o, d, near, far, tb.ctx["pts"],
+                                          tile)
+    return launched, (n, f), want
+
+
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bind_rays_tiled_takes_the_plain_bounds_on_cpu(use_pallas):
+    """On the CPU, with use_pallas on or off, the tile bounds are the plain
+    version's and the kernel is never counted."""
+    launched, got, want = bind_and_bound(bounds_model("cpu", use_pallas))
+    assert launched == {"tiled": 0}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (got[1] > got[0]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Rt,T,C", [(64, 128, 128), (64, 128, 100),
+                                    (64, 100, 300), (64, 256, 64),
+                                    (3750, 128, 128)])
+def test_candidate_bounds_kernel_matches_plain_on_card(Rt, T, C):
+    """The kernel's near/far bit-equal to the plain version's on the card,
+    a launch counted a call. T = 100 leaves a block ragged, 256 takes two
+    blocks a tile, C = 300 two staged slices; 3,750 tiles of 128 rays and
+    128 candidates are the 800 x 600 surface frame's, where the plain
+    version's sums over the 3-vector run at their largest size."""
+    _need_card()
+    inp = [x.cuda() for x in bounds_inputs(seed=T + C, Rt=Rt, T=T, C=C)]
+    want = kernels.candidate_bounds_plain(*inp, T)
+    kernels.reset_launch_counts()
+    for call in (1, 2):
+        got = kernels.candidate_bounds(*inp, T)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["candidate_bounds"]["tiled"] == call
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    cases = bounds_cases(inp, got, T)
+    assert min(cases.values()) > 0, cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_bind_rays_tiled_routes_the_bounds_on_card(use_pallas):
+    """On the card the binding launches candidate_bounds once with
+    use_pallas, never without, and its near/far are the plain version's
+    either way."""
+    _need_card()
+    launched, got, want = bind_and_bound(bounds_model("cuda", use_pallas))
+    assert launched == {"tiled": int(use_pallas)}
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

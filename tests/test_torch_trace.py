@@ -326,7 +326,8 @@ def test_launches_are_a_view_of_the_registry():
         "candidate_field_v3": {"ds_feat", "ds_nofeat", "ds_dh_feat",
                                "ds_dh_nofeat"},
         "candidate_field": {"ds_feat", "ds_nofeat", "ds_dh_feat",
-                            "ds_dh_nofeat"}}
+                            "ds_dh_nofeat"},
+        "candidate_bounds": {"tiled"}}
     kernels.reset_launch_counts()
     trace.count("host_read")
     trace.count("launch.secant_refine.frozen", 2)
