@@ -1,12 +1,15 @@
 """Texture painting by fine-tuning (counterpart of
 neumesh_tpu/editing/paint_train.py).
 
-The geometry is frozen: only the colour codes of the vertices that the
-paint rays touch train (found by casting the paint rays against the mesh
-on the model's device). The gradient mask multiplies every gradient after
-backward: zero everywhere except those rows of color_features. Paint rays
-render with random colour directions (view independence), background
-rays keep the teacher's distillation.
+The geometry is frozen as the published paint.py freezes it: only
+color_features requires a gradient and only it is in Adam; ln_s, the
+geometry codes, the indicator vectors and weight and both MLPs stay as
+loaded. The paintable vertices are those of the triangles the paint rays
+hit (one cast of every paint ray); the gradient mask keeps the rows of
+color_features of those vertices. Paint rays render with random colour
+directions (view independence), background rays keep the teacher's
+distillation. build_paint_step is the set-up that the CLI and the
+benchmark's painting cell share.
 """
 from __future__ import annotations
 
@@ -25,19 +28,23 @@ from ..train.optimizers import get_optimizer
 from ..utils.checkpoints import CheckpointIO
 from ..utils.logger import Logger
 from ..utils.print_fn import log
+from ..utils.trace import spanned
 
 SEED = 42
 
 
+@spanned("paint.cast")
 def get_optimized_features(mesh_grid, rays_o: np.ndarray,
-                           rays_d: np.ndarray, batch_size: int = 4096):
-    """Sorted unique vertex ids of the triangles the paint rays hit (cast
-    on the mesh grid's device)."""
+                           rays_d: np.ndarray, batch_size=None):
+    """Sorted unique vertex ids of the triangles the paint rays hit: one
+    BVH build and one cast of every ray, or with batch_size one of each
+    for every batch_size rays."""
     hit_vertices = []
     tris_all = np.asarray(mesh_grid.mesh.triangles)
-    for i in range(0, len(rays_o), batch_size):
-        t_hit, tri_ids = mesh_grid.cast_ray(rays_o[i:i + batch_size],
-                                            rays_d[i:i + batch_size])
+    step = batch_size or max(len(rays_o), 1)
+    for i in range(0, len(rays_o), step):
+        t_hit, tri_ids = mesh_grid.cast_ray(rays_o[i:i + step],
+                                            rays_d[i:i + step])
         miss = ~np.isfinite(t_hit)
         if miss.sum():
             log.warning(f"{int(miss.sum())} paint rays do not hit the mesh")
@@ -49,7 +56,9 @@ def get_optimized_features(mesh_grid, rays_o: np.ndarray,
 
 def make_grad_mask(model, optimized_indices: np.ndarray) -> dict:
     """{parameter name: mask}: a zero scalar for every parameter except
-    color_features, whose (N, 1) mask is 1 on the painted rows."""
+    color_features, whose (N, 1) mask is 1 on the painted rows (the
+    masked form of a step that trains every parameter; build_paint_step
+    freezes the rest and keeps only the color_features entry)."""
     mask = {name: torch.zeros((), device=p.device)
             for name, p in model.named_parameters()}
     vmask = torch.zeros((model.color_features.shape[0], 1),
@@ -58,6 +67,26 @@ def make_grad_mask(model, optimized_indices: np.ndarray) -> dict:
                           device=model.device)] = 1.0
     mask["color_features"] = vmask
     return mask
+
+
+def build_paint_step(args, trainer, render_kwargs_train, rays_o_paint,
+                     rays_d_paint):
+    """The painting fine-tune's set-up: the paintable vertices from one
+    cast of the paint rays (numpy (N, 3)), Adam over color_features alone
+    (args.training's lr and schedule) and build_train_step's painting
+    step, whose gradient mask keeps the painted rows of color_features.
+    The step turns off the gradients of every other parameter of the
+    student. -> (train_step, optimizer, optimized_indices)."""
+    model = trainer.model
+    optimized_indices = get_optimized_features(model.mesh_grid, rays_o_paint,
+                                               rays_d_paint)
+    mask = make_grad_mask(model, optimized_indices)
+    opt = get_optimizer(args, model, names=("color_features",))
+    train_step = build_train_step(
+        trainer, opt, render_kwargs_train, 0, 0, 0,
+        matmul_precision=args.training.get("matmul_precision", "default"),
+        painting=True, grad_mask={"color_features": mask["color_features"]})
+    return train_step, opt, optimized_indices
 
 
 def update_paint_config(paint_config: dict, cli_args=None):
@@ -93,7 +122,8 @@ def main_function(args):
     """Fine-tune the painted vertices' colour codes on args.device (the
     card by default). Returns {"model", "optimized_indices",
     "it", "losses" (per step: {name: float}), "step_s" (host seconds per
-    step, each ending in a device synchronize), "raycast_s", "ckpt"}."""
+    step, each ending in a device synchronize), "raycast_s" (host seconds
+    of build_paint_step, nearly all of it the ray cast), "ckpt"}."""
     device = resolve_device(args.get("device", None) or "cuda")
     exp_dir = args.training.exp_dir
     logger = Logger(log_dir=exp_dir,
@@ -116,19 +146,12 @@ def main_function(args):
 
     log.info("=> Finding paintable vertices (ray casting)")
     t0 = time.perf_counter()
-    optimized_indices = get_optimized_features(
-        model.mesh_grid, dataset.rays_o_paint, dataset.rays_d_paint)
+    train_step, opt, optimized_indices = build_paint_step(
+        args, trainer, render_kwargs_train, dataset.rays_o_paint,
+        dataset.rays_d_paint)
     raycast_s = time.perf_counter() - t0
     log.info(f"=> {len(optimized_indices)} paintable vertices "
              f"({raycast_s:.2f} s)")
-    grad_mask = make_grad_mask(model, optimized_indices)
-
-    opt = get_optimizer(args, model)
-    train_step = build_train_step(
-        trainer, opt, render_kwargs_train, args.data.N_rays,
-        dataset.H, dataset.W,
-        matmul_precision=args.training.get("matmul_precision", "default"),
-        painting=True, grad_mask=grad_mask)
 
     num_iters = args.training.num_iters
     data_rng = np.random.default_rng(0)

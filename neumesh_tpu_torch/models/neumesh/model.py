@@ -187,7 +187,13 @@ class NeuMesh(nn.Module):
     def _density_from_interp(self, ds, fg):
         """Geometry MLP on (embedded ds, embedded fg) -> (density (..., 1)
         f32, d_emb). Every layer runs in compute_dtype (f32_layers do not
-        apply here); d_emb stays f32 and fg is embedded after the cast."""
+        apply here); d_emb stays f32 and fg is embedded after the cast.
+        With the geometry codes frozen (the painting step) fg carries no
+        gradient: it blends the codes alone, but from a context tensor
+        whose colour columns train, so autograd would otherwise run the
+        density, the sample weights and the nablas backward for nothing."""
+        if not self.geometry_features.requires_grad:
+            fg = fg.detach()
         return self._density_mlp(ds, fg, self.compute_dtype)
 
     def _density_mlp(self, ds, fg, dt):
@@ -304,33 +310,38 @@ class NeuMesh(nn.Module):
             A_c = W_c w1 / (w1 + d_c)
             B_c = W_c (3 d_c^2 (w1 + d_c) - term_c) / ((w1 + d_c)^2 d_c).
 
-        x.v and x.n are exact f32 broadcasts, never a (TF32) dot: d2 =
-        |x|^2 + |v|^2 - 2 x.v cancels catastrophically near the surface
-        and a ~1e-3 error in x.v flips the kNN selection."""
+        The kNN selection and its weights take the expanded d2 = |x|^2 +
+        |v|^2 - 2 x.v, the rule the kernels and the JAX package state (x.v
+        and x.n are exact f32 broadcasts, never a (TF32) dot: a ~1e-3 error
+        in x.v flips the selection). The distance d of the analytic terms
+        comes from the differences x - v: the expanded form cancels to 0
+        for a sample ~2e-4 from a vertex, and the 1 / d of B_c then sends
+        dh to thousands."""
         w1 = self.forward_indicator_weight()
         x0, x1, x2 = xyz[..., 0:1], xyz[..., 1:2], xyz[..., 2:3]
         pts, ind = ctx["pts"], ctx["ind"]
-        xv = (x0 * pts[:, None, :, 0] + x1 * pts[:, None, :, 1]
-              + x2 * pts[:, None, :, 2])                      # (B, S, C)
+        p0, p1, p2 = (pts[:, None, :, k] for k in range(3))
+        xv = x0 * p0 + x1 * p1 + x2 * p2                      # (B, S, C)
         xx = torch.sum(xyz * xyz, dim=-1)
-        d2 = torch.clamp(xx[..., None] + ctx["pp"][:, None, :] - 2.0 * xv,
-                         min=0.0)
-        # K masked-min passes; the index-proportional perturbation breaks
-        # exact ties toward the lower candidate index
-        d2_sg = d2.detach()
-        iota = torch.arange(d2.shape[-1], device=d2.device,
+        d2_rank = torch.clamp(xx[..., None] + ctx["pp"][:, None, :]
+                              - 2.0 * xv, min=0.0).detach()
+        # K argmin passes, exactly K picks: the index-proportional
+        # perturbation sends near-ties toward the lower candidate index, and
+        # a rank it makes equal goes to the lower index too (argmin's first
+        # occurrence), where picking every candidate at the K-th rank took
+        # K + 1 neighbours
+        iota = torch.arange(d2_rank.shape[-1], device=d2_rank.device,
                             dtype=torch.float32) * 2e-7
-        d2_tb = d2_sg * (1.0 + iota)
-        cur = d2_tb
-        thresh = None
-        for _ in range(K):
-            thresh = torch.amin(cur, dim=-1, keepdim=True)
-            cur = torch.where(cur <= thresh, torch.full_like(cur, math.inf),
-                              cur)
-        mask = d2_tb <= thresh
-        w_raw = mask * (1.0 / (torch.sqrt(d2_sg) + 1e-7))
+        cur = d2_rank * (1.0 + iota)
+        mask = torch.zeros_like(cur, dtype=torch.bool)
+        for _ in range(min(K, cur.shape[-1])):
+            pick = torch.argmin(cur, dim=-1, keepdim=True)
+            mask.scatter_(-1, pick, True)
+            cur.scatter_(-1, pick, math.inf)
+        w_raw = mask * (1.0 / (torch.sqrt(d2_rank) + 1e-7))
         W = (w_raw / torch.sum(w_raw, dim=-1, keepdim=True)).detach()
 
+        d2 = (x0 - p0) ** 2 + (x1 - p1) ** 2 + (x2 - p2) ** 2
         d = torch.sqrt(torch.clamp(d2, min=1e-20))            # analytic
         xn = (x0 * ind[:, None, :, 0] + x1 * ind[:, None, :, 1]
               + x2 * ind[:, None, :, 2])

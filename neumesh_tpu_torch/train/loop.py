@@ -47,7 +47,7 @@ from ..parallel import (ShardedGenerator, all_reduce_grads, broadcast_params,
 from ..utils.checkpoints import CheckpointIO
 from ..utils.logger import Logger
 from ..utils.print_fn import log
-from ..utils.trace import count, span, spanned
+from ..utils.trace import count, count_device, enabled, span, spanned
 from .optimizers import current_lr, get_optimizer
 from .pretrain import maybe_pretrain_siren
 
@@ -74,14 +74,19 @@ def build_train_step(trainer, opt, render_kwargs_train, N_rays, H, W,
     -> (total loss, scalars), both detached: zero_grad -> loss ->
     backward -> gradient mask -> (under a process group: the gradients
     all-reduced, the logged losses averaged over the ranks) -> global grad
-    norm -> Adam step. Turns on the gradients of every parameter of the
-    trained model (its teacher stays frozen). painting: the
-    texture-painting objective (Trainer.render_and_loss_painting; N_rays,
-    H, W unused). grad_mask {parameter name: tensor}: each gradient is
+    norm -> Adam step. Turns on the gradients of the parameters `opt`
+    holds (every one, as get_optimizer builds it) and off those of the
+    rest of the trained model, so that backward runs only toward what
+    trains (the teacher stays frozen). painting: the texture-painting
+    step, whose paint batch Trainer.render_and_loss takes to the painting
+    objective (N_rays, H, W unused); it counts paint.rows_trained under a
+    profiler. grad_mask {parameter name: tensor}: each gradient is
     multiplied by its mask (broadcast) after backward; a parameter the
     dict does not name keeps its gradient. debug_nans: a non-finite total
     loss raises FloatingPointError before backward."""
-    trainer.model.requires_grad_(True)
+    trained = {id(p) for _, p in opt.params}
+    for p in trainer.model.parameters():
+        p.requires_grad_(id(p) in trained)
     device = trainer.model.device
     params = dict(trainer.model.named_parameters())
 
@@ -90,14 +95,9 @@ def build_train_step(trainer, opt, render_kwargs_train, N_rays, H, W,
         _set_matmul_precision(matmul_precision, device)
         opt.zero_grad()
         with span("train.forward"):
-            if painting:
-                ret = trainer.render_and_loss_painting(
-                    model_input, ground_truth, render_kwargs_train,
-                    generator=generator)
-            else:
-                ret = trainer.render_and_loss(
-                    model_input, ground_truth, render_kwargs_train, N_rays,
-                    H, W, generator=generator, select_inds=select_inds)
+            ret = trainer.render_and_loss(
+                model_input, ground_truth, render_kwargs_train, N_rays, H,
+                W, generator=generator, select_inds=select_inds)
         total = ret["losses"]["total"]
         if debug_nans:
             count("host_read")          # blocks: a read back to the host
@@ -112,6 +112,9 @@ def build_train_step(trainer, opt, render_kwargs_train, N_rays, H, W,
                     for name, m in grad_mask.items():
                         if params[name].grad is not None:
                             params[name].grad.mul_(m)
+            if painting and enabled():
+                count_device("paint.rows_trained", torch.any(
+                    params["color_features"].grad != 0, dim=-1))
             if dist.is_initialized():
                 # each rank's terms average to the global batch's
                 all_reduce_grads([p for _, p in opt.params])

@@ -137,11 +137,13 @@ class Adam:
         self.count = int(sd["count"])
 
 
-def get_optimizer(args, model, step_scale: int = 1) -> Adam:
-    """Adam over every parameter of `model`, with betas (0.9, 0.999) and
-    eps 1e-8. step_scale maps the update count to the global iteration
-    the schedule reads (the world size under data parallelism)."""
-    params = list(model.named_parameters())
+def get_optimizer(args, model, step_scale: int = 1, names=None) -> Adam:
+    """Adam over every parameter of `model` (or the parameters `names`
+    lists), with betas (0.9, 0.999) and eps 1e-8. step_scale maps the
+    update count to the global iteration the schedule reads (the world
+    size under data parallelism)."""
+    params = [(n, p) for n, p in model.named_parameters()
+              if names is None or n in names]
     return Adam(params, _lr_of([n for n, _ in params], args.training.lr),
                 get_schedule_factor(args), step_scale=step_scale)
 

@@ -5,9 +5,10 @@ Trainer.render_and_loss samples N_rays pixels of each view, renders them
 with every detailed output the losses read, and returns compute_loss's
 {"losses", "extras"}: the total is a differentiable scalar for
 backward(). The distillation teacher runs under torch.no_grad, so its
-targets carry no gradient. Trainer.render_and_loss_painting is the
-texture-painting objective of the editing CLI: paint rays rendered with
-random colour directions, background rays with distillation.
+targets carry no gradient. On a paint batch render_and_loss is the
+texture-painting objective of the editing CLI (render_and_loss_painting):
+paint rays rendered with random colour directions, background rays with
+distillation.
 
 Under a process group (data parallel, parallel/mesh.py) every loss that
 divides by a data-dependent count divides by the group's count, and the
@@ -21,7 +22,7 @@ from ..ops import rays as rays_ops
 from ..ops.metrics import psnr
 from ..parallel import dist, global_sum
 from ..render.volume import volume_render_rays
-from ..utils.trace import span, spanned
+from ..utils.trace import count, span, spanned
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "float32": None, "f32": None}
@@ -96,7 +97,13 @@ class Trainer:
         `generator` (or select_inds is used); the same generator draws the
         render's perturbations. A parallel.ShardedGenerator draws them at
         the global batch's shape and keeps this rank's rays (N_rays is
-        then the global count a view)."""
+        then the global count a view). A paint batch (model_input holds
+        "rays_o_paint") takes the texture-painting objective,
+        render_and_loss_painting (N_rays, H, W and select_inds unused)."""
+        if "rays_o_paint" in model_input:
+            return self.render_and_loss_painting(
+                model_input, ground_truth, render_kwargs_train,
+                generator=generator)
         w = self.loss_weights
         use_distill = w["distill_density"] > 0 or w["distill_color"] > 0
         use_eikonal = w["eikonal"] > 0
@@ -136,12 +143,16 @@ class Trainer:
         "rays_d_paint", "mask_paint", "rays_o_bg", "rays_d_bg", "mask_bg"}
         and ground_truth {"rgb_paint", "rgb_bg"} as (B, ...) tensors;
         `generator` draws the paint group's directions and both groups'
-        perturbations, paint first."""
+        perturbations, paint first. Each group renders in its own span,
+        train.paint_rays and train.background_rays."""
         kw = {k: v for k, v in render_kwargs_train.items()
               if k not in ("calc_normal", "rayschunk", "batched")}
+        count("paint.rays", model_input["rays_o_paint"].shape[0]
+              + model_input["rays_o_bg"].shape[0])
 
         def render_group(suffix, samples_output, random_direction):
-            with span("train.render"):
+            with span("train.paint_rays" if random_direction
+                      else "train.background_rays"):
                 extras = volume_render_rays(
                     self.model, model_input["rays_o_" + suffix][:, None, :],
                     model_input["rays_d_" + suffix][:, None, :],

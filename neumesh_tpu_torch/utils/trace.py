@@ -29,6 +29,11 @@ Spans (each "nm." + name):
   surface.scan, surface.secant, surface.shade
   train.step, train.forward, train.render, train.loss, train.backward,
   train.grad_norm, train.adam, train.teacher, field.nablas
+  train.paint_rays, train.background_rays          a painting step's two ray
+                                                    groups, in train.forward
+                                                    (in place of train.render)
+  paint.cast                                        the paint rays' cast at
+                                                    the painting set-up
   edit.shade, edit.ref_color                       the texture-edited shade
                                                     and, on its context math,
                                                     each reference's colour
@@ -44,6 +49,9 @@ Counters:
   edit.samples_shaded     samples the texture-edited shade answers (host)
   edit.samples_painted    of those, the samples with a positive paint
                           weight, summed over the references (device)
+  paint.rays              rays a painting step renders, both groups (host)
+  paint.rows_trained      rows of color_features with a gradient after the
+                          painting step's mask (device)
 """
 from __future__ import annotations
 

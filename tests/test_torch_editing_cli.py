@@ -239,3 +239,46 @@ def test_editing_entry_points_default_to_cuda(scene, entry):
         argv = ["--config", os.path.join(root, "neumesh", "config.yaml")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fn(argv)
+
+
+def test_paint_cli_and_the_benchmark_share_the_step(scene, tmp_path,
+                                                    monkeypatch):
+    """The paint CLI and the benchmark's painting driver
+    (benchmark/kinds/paint.py) each set up through
+    paint_train.build_paint_step, which builds build_train_step's painting
+    step, and train with that step alone."""
+    from neumesh_tpu_torch.editing import paint_train
+    from test_torch_paint_reference import _tiny_paint
+    setups, steps = [], []
+    setup, build = paint_train.build_paint_step, paint_train.build_train_step
+
+    def recorded_setup(*a, **kw):
+        setups.append(a[1].model)
+        return setup(*a, **kw)
+
+    def recorded_build(*a, **kw):
+        step = build(*a, **kw)
+        calls = []
+        steps.append((kw.get("painting"), calls))
+
+        def counted(*sa, **skw):
+            calls.append(1)
+            return step(*sa, **skw)
+        return counted
+    monkeypatch.setattr(paint_train, "build_paint_step", recorded_setup)
+    monkeypatch.setattr(paint_train, "build_train_step", recorded_build)
+    _, configs = scene
+    with open(configs["paint"]) as f:
+        cfg = json.load(f)
+    cfg.update(num_iters=2, batch_size=16)
+    path = str(tmp_path / "paint.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    out = paint_cli.main(["--config", path, "--device", "cpu"])
+    assert setups == [out["model"]]
+    assert [(p, len(c)) for p, c in steps] == [(True, 2)]
+    d = _tiny_paint(monkeypatch, 5)
+    assert len(setups) == 2 and setups[1] is d.model
+    assert [(p, len(c)) for p, c in steps] == [(True, 2), (True, 3)]
+    d.step()
+    assert len(steps[1][1]) == 4

@@ -254,3 +254,68 @@ def test_brute_mode_volume_render_matches_jax():
         err = np.abs(got[k].numpy() - np.asarray(want[k]))
         err = err.max(-1) if err.ndim > 1 else err
         assert (err <= 1e-3).mean() >= 0.98, (k, (err <= 1e-3).mean())
+
+
+def test_context_math_dh_beside_a_vertex():
+    """Samples 2e-4 from a vertex: the closed-form dh of the context math
+    against autograd of the same interpolated distance in float64 from
+    the differences x - v, at the context math's own kNN weights (the
+    expanded d2 = |x|^2 + |v|^2 - 2 x.v cancels to about 0 there)."""
+    from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
+    from neumesh_tpu_torch.mesh.grid import MeshGrid
+    from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+    from test_torch_basics import SMALL
+
+    tm = NeuMesh(MeshGrid(icosphere_mesh(0.5, 3), device="cpu"),
+                 device="cpu", **SMALL).init(0)
+    v = tm.mesh_grid.vertices
+    n = tm.indicator_vector.detach()
+    gen = torch.Generator().manual_seed(0)
+    at = torch.randperm(v.shape[0], generator=gen)[:64]
+    t = torch.randn(64, 3, generator=gen)
+    x = (v[at] + 2e-4 * t / torch.linalg.vector_norm(t, dim=-1,
+                                                     keepdim=True))
+    C = v.shape[0]
+    ctx = {"pts": v.expand(64, C, 3), "pp": torch.sum(v * v, -1).expand(
+        64, C), "ind": n.expand(64, C, 3), "vn": torch.sum(v * n, -1).expand(
+        64, C)}
+    with torch.no_grad():
+        _, W, dh = tm._ctx_distance_parts(ctx, x[:, None, :], want_grad=True)
+    w1 = float(tm.forward_indicator_weight())
+    x64 = x.double().requires_grad_(True)
+    diff = x64[:, None, :] - v.double()[None]
+    d = torch.linalg.vector_norm(diff, dim=-1)
+    term = w1 * torch.sum(diff * n.double()[None], -1) + d ** 3
+    ds = torch.sum(W[:, 0].double() * term / (w1 + d), -1)
+    want, = torch.autograd.grad(ds.sum(), x64)
+    assert torch.isfinite(dh).all()
+    np.testing.assert_allclose(dh[:, 0].double().numpy(), want.numpy(),
+                               atol=1e-3, rtol=1e-3)
+
+
+def test_context_math_picks_exactly_k_at_a_rank_tie():
+    """The index perturbation of the kNN ranks can make two candidates'
+    ranks equal: a sample at the origin, candidate 0 at 0.30000028 and
+    candidate 8 at 0.30000004 (d2 (1 + 8 * 2e-7) rounds to candidate 0's
+    d2), candidates 1-7 nearer: exactly K = 8 picks, the tie to the lower
+    index."""
+    from neumesh_tpu_torch.dataio.synthetic import icosphere_mesh
+    from neumesh_tpu_torch.mesh.grid import MeshGrid
+    from neumesh_tpu_torch.models.neumesh.model import NeuMesh
+    from test_torch_basics import SMALL
+
+    tm = NeuMesh(MeshGrid(icosphere_mesh(0.5, 1), device="cpu"),
+                 device="cpu", **SMALL).init(0)
+    r = [0.30000028] + [0.1 + 0.01 * i for i in range(1, 8)] \
+        + [0.30000004, 0.6, 0.6, 0.6]
+    pts = torch.zeros(1, len(r), 3)
+    pts[0, :, 0] = torch.tensor(r)
+    ind = torch.zeros_like(pts)
+    ind[..., 2] = 1.0
+    ctx = {"pts": pts, "pp": torch.sum(pts * pts, -1), "ind": ind,
+           "vn": torch.sum(pts * ind, -1)}
+    d2 = ctx["pp"][0]
+    assert float(d2[0]) == float(d2[8] * (1.0 + torch.tensor(8.0) * 2e-7))
+    _, W = tm._ctx_distance_parts(ctx, torch.zeros(1, 1, 3))
+    picked = (W[0, 0] > 0).nonzero()[:, 0].tolist()
+    assert picked == list(range(8))

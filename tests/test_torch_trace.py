@@ -1,7 +1,8 @@
 """The port's tracing facility (utils/trace.py): spans cost nothing and
 count_device launches nothing without a profiler; under one, a surface
 frame, a volume frame of two chunks and a NeuS train step emit their
-documented spans, nested as the layers are; the host-read and secant
+documented spans, nested as the layers are, and so do the paint CLI's
+set-up and step (with its counters); the host-read and secant
 counters; kernels.LAUNCHES as a view of the one counter registry."""
 import numpy as np
 import pytest
@@ -107,6 +108,47 @@ def neus_step():
     step(mi, gt, torch.Generator().manual_seed(0))
 
 
+PAINT_RENDER = dict(N_samples=16, N_importance=8, N_upsample_iters=2,
+                    obj_bounding_radius=1.0, perturb=True,
+                    bounded_near_far=True)
+
+
+def paint_step():
+    """build_paint_step (the paint rays' cast, Adam over color_features)
+    and one painting step of 16 paint and 16 background rays on a fresh
+    student (the fixture's model stays untrained) -> the painted vertex
+    ids."""
+    from neumesh_tpu_torch.config import ConfigDict
+    from neumesh_tpu_torch.editing.paint_train import build_paint_step
+    from neumesh_tpu_torch.train.trainer import Trainer
+    from test_torch_basics import block_rays
+
+    model = NeuMesh(MeshGrid(icosphere_mesh(0.5, 3), device="cpu"),
+                    device="cpu", **SMALL).init(0)
+    trainer = Trainer(model, dict(img=1.0, mask=0.0, eikonal=0.1,
+                                  distill_density=1.0, distill_color=1.0,
+                                  indicator_reg=1.0),
+                      teacher_model=NeuS(device="cpu", **NEUS).init(2))
+    o, d = block_rays(H, W)
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    args = ConfigDict({"training": {
+        "lr": 1e-2, "num_iters": 10,
+        "scheduler": {"type": "warmupcosine", "warmup_steps": 0}}})
+    step, _, idx = build_paint_step(args, trainer, PAINT_RENDER, o[96:128],
+                                    d[96:128])
+    paint, bg = slice(104, 120), slice(0, 16)
+    ones = torch.ones(16, dtype=torch.bool)
+    mi = {"rays_o_paint": torch.from_numpy(o[paint]),
+          "rays_d_paint": torch.from_numpy(d[paint]), "mask_paint": ones,
+          "rays_o_bg": torch.from_numpy(o[bg]),
+          "rays_d_bg": torch.from_numpy(d[bg]), "mask_bg": ones}
+    gt = {"rgb_paint": torch.ones(16, 3),
+          "rgb_bg": torch.rand(16, 3, generator=torch.Generator()
+                               .manual_seed(1))}
+    step(mi, gt, torch.Generator().manual_seed(0))
+    return idx
+
+
 def without_pallas(model, fn):
     """fn() with the model's use_pallas off."""
     model.use_pallas = False
@@ -198,6 +240,22 @@ CASES = {
          "field.nablas": "train.render", "train.loss": "train.forward",
          "train.backward": "train.step"},
         {"train.step": 1, "train.adam": 1}),
+    # the paint CLI's set-up and step: each ray group renders in its own
+    # span and builds two contexts (the bounds' raw lists, then the
+    # binding's); the cast runs at set-up, outside the step
+    "paint_train_step": (
+        lambda m: paint_step(),
+        {"paint.cast", "train.step", "train.forward", "train.paint_rays",
+         "train.background_rays", "train.loss", "train.teacher",
+         "train.backward", "train.grad_norm", "train.adam", "field.nablas",
+         "ctx.build", "ctx.bounds", "volume.coarse", "volume.upsample",
+         "volume.shade"},
+        {"train.paint_rays": "train.forward",
+         "train.background_rays": "train.forward",
+         "ctx.build": "train.forward", "train.teacher": "train.loss",
+         "train.adam": "train.step"},
+        {"paint.cast": 1, "train.step": 1, "train.paint_rays": 1,
+         "train.background_rays": 1, "ctx.build": 4, "train.adam": 1}),
 }
 
 
@@ -211,6 +269,23 @@ def test_spans_and_their_nesting(case, mesh_model):
             child, parent)
     for n, k in calls.items():
         assert sum(1 for s, _ in spans if s == n) == k, n
+
+
+def test_paint_counters():
+    """paint.rays counts both groups' rays on the host, always;
+    paint.rows_trained the rows of color_features with a gradient after
+    the mask, a device sum only under a profiler: some of the painted
+    rows."""
+    trace.reset("paint.")
+    paint_step()
+    got = trace.counters()
+    assert got["paint.rays"] == 32 and "paint.rows_trained" not in got
+    trace.reset("paint.")
+    with profile(activities=[ProfilerActivity.CPU]):
+        idx = paint_step()
+    got = trace.counters()
+    assert got["paint.rays"] == 32
+    assert 0 < got["paint.rows_trained"] <= len(idx)
 
 
 def test_pack_and_teacher_spans():
